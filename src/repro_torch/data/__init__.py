@@ -1,0 +1,5 @@
+from repro_torch.data.loader import ClientLoader, FleetLoader  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    make_cifar_like,
+    split_clients,
+)

@@ -1,0 +1,34 @@
+"""Deterministic synthetic CIFAR-shaped data (a copy of the reference's
+``make_cifar_like`` / ``split_clients``: byte-identical arrays per seed)."""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+
+def make_cifar_like(n: int, seed: int = 0, num_classes: int = 10,
+                    hw: int = 32, ch: int = 3) -> Dict[str, np.ndarray]:
+    """Class-conditional smooth templates plus noise, (n, hw, hw, ch) fp32
+    NHWC images and int32 labels."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, num_classes, size=n).astype(np.int32)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw), np.linspace(0, 1, hw),
+                         indexing="ij")
+    templates = np.stack([
+        np.stack([np.sin(2 * np.pi * ((c + 1) * xx + k))
+                  * np.cos(2 * np.pi * ((c % 3 + 1) * yy - k))
+                  for k in range(ch)], axis=-1)
+        for c in range(num_classes)
+    ])  # (C, hw, hw, ch)
+    images = templates[labels] + rng.randn(n, hw, hw, ch) * 0.8
+    return {"images": images.astype(np.float32), "labels": labels}
+
+
+def split_clients(data: Dict[str, np.ndarray], num_clients: int
+                  ) -> List[Dict[str, np.ndarray]]:
+    """IID split into ``num_clients`` equal, non-overlapping shards."""
+    n = len(next(iter(data.values())))
+    per = n // num_clients
+    return [{k: v[i * per:(i + 1) * per] for k, v in data.items()}
+            for i in range(num_clients)]
