@@ -8,28 +8,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. print the card's name and power limit (``nvidia-smi``); no GPU -> exit 1.
 2. build the CUDA kernels (``src/repro_torch/kernels/csrc``, one ``nvcc``
    per source for sm_90a, all at once) and print the build time.
-3. hold every kernel against its plain PyTorch version on the card, at the
-   main path's shapes plus the tie and masked-tail drills.  Codes, scales,
-   dequantized values and top-k outputs must be equal bit for bit.
-4. the main path: ``run_federated`` on VGG-5 at full width (582,346
-   params, random weights from a seed), K=5 clients on the paper's 5-device
-   testbed, 1000 samples each, batch 100, 10 local iterations, 3 rounds;
-   once in ``sfl`` at OP1 with the int8 cut, top-k deltas at density 0.1 and
-   int8 deltas, once in ``fedadapt`` (the agent deployed, no exploration).
-   The kernels' launch counts are zeroed just before each of the two runs
-   and read just after it; each kernel must have launched in each run, as
-   often as the run's history (its OPs and kept clients) says.  Then one
-   more sfl-op1 round under ``torch.profiler`` gives the card's busy share
-   (the round must succeed; a profiler without device time gives "not
-   measured").
-5. the small configuration of ``tests/test_torch_loop.py`` run on the CPU
-   and on the card from the same weights: ops and times exact, accuracy
-   within one test sample, final params within the tests' tolerances.
-6. time each kernel with CUDA events (median of CUDA-graph replays) beside
+3. hold every kernel against its plain PyTorch version on the card.  The
+   int8 and top-k kernels at the VGG-5 path's shapes plus the tie and
+   masked-tail drills, bit for bit; flash attention over the reference's
+   sweep (``FLASH_CASES`` of tests/test_kernels.py) plus small head dims,
+   within 1e-5 (fp32) and 2e-2 (bf16), the reference's own tolerances.
+4. the federated main path: ``run_federated`` on VGG-5 at full width
+   (582,346 params, random weights from a seed), K=5 clients on the
+   paper's 5-device testbed, 1000 samples each, batch 100, 10 local
+   iterations, 3 rounds; once in ``sfl`` at OP1 with the int8 cut, top-k
+   deltas at density 0.1 and int8 deltas, once in ``fedadapt`` (the agent
+   deployed, no exploration).  The kernels' launch counts are zeroed just
+   before each of the two runs and read just after it; each kernel must
+   have launched in each run, as often as the run's history (its OPs and
+   kept clients) says, and flash attention never.  Then one more sfl-op1
+   round under ``torch.profiler`` gives the card's busy share (the round
+   must succeed; a profiler without device time gives "not measured").
+5. the serving main path: ``ServeEngine`` on gemma2-2b at full width
+   (26 layers, d_model 2304, 8 query heads over 4 KV heads of dim 256,
+   vocab 256000; fp32 weights drawn on the card from a seed).  First the
+   flash kernel is held against its plain version on q, k, v of the first
+   local and the first global layer of a real prefill at S=4608.  Then
+   ``serve`` takes 8 seeded Poisson requests (prompts of 600, 2100 or
+   4500 tokens, 8-32 generated) through 4 slots, prefilled at 4608, and
+   each request's tokens must equal the sequential oracle's
+   (``reference_decode``, on the card) up to the first token chosen under
+   a top-2 logit margin below 1e-3.  Launch counts are zeroed just before
+   the run and read after the oracle: flash attention must have launched
+   26 times per prefill (engine and oracle), the other kernels never.  One
+   more prefill at 4608 and one decode step run under ``torch.profiler``.
+6. the small configurations on the CPU and on the card from the same
+   weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
+   exact, accuracy within one test sample, final params within the tests'
+   tolerances) and gemma2-2b's smoke config through ``serve`` (tokens
+   equal, logits within 1e-4).
+7. time each kernel with CUDA events (median of CUDA-graph replays) beside
    its bound, its plain version and a library call computing the same
    function where PyTorch has one (``torch.mul`` for dequantize,
-   ``torch.topk`` for top-k: yardsticks the port never calls), then print
-   the kernels' JSON line and the result line.
+   ``torch.topk`` for top-k, ``scaled_dot_product_attention`` for flash
+   attention without the softcap: yardsticks the port never calls), then
+   print the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -65,6 +83,40 @@ SMALL_MODES = {
 # 1e-5 against JAX because cuDNN may pick a Winograd or FFT convolution whose
 # fp32 rounding error is larger than a direct sum's.  int8/top-k modes: 1e-3,
 # the tests' bound for an int8 code or a top-k near-tie going the other way.
+
+VGG_KERNELS = ("quantize", "dequantize", "topk_compress")
+# the reference's flash-attention sweep (tests/test_kernels.py FLASH_CASES,
+# copied: this script imports nothing of JAX) plus the smoke head dims of
+# gemma2/qwen3 (16) and lm16m (40) and a row range that sees no key:
+# B, Sq, Sk, H, KV, D, causal, window, softcap, dtype
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0, "float32"),
+    (1, 256, 256, 8, 8, 64, True, 64, 0.0, "float32"),
+    (2, 100, 100, 8, 2, 32, True, 0, 50.0, "float32"),
+    (1, 128, 384, 4, 1, 64, False, 0, 0.0, "float32"),
+    (1, 64, 64, 2, 2, 128, True, 32, 30.0, "float32"),
+    (2, 128, 128, 4, 4, 64, True, 0, 0.0, "bfloat16"),
+    (2, 70, 70, 4, 2, 16, True, 32, 50.0, "float32"),
+    (1, 77, 77, 8, 4, 40, True, 0, 0.0, "float32"),
+    (1, 200, 72, 4, 2, 64, True, 16, 0.0, "float32"),
+]
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
+# plain version both sum in fp32 (over D=256 and up to 4608 keys), the
+# layers' v are O(1) (unit-variance h times N(0, 1/d) weights) and the
+# output is a convex mix of them, so fp32 reordering moves it by a few
+# 1e-6 (PERF.md records the measured errors).
+REAL_LAYER_TOL = 1e-5
+
+SERVE_SLOTS, SERVE_PROMPT, SERVE_SEQ = 4, 4608, 4640
+SERVE_TRAFFIC = dict(rate=0.5, n_requests=8, vocab_size=256000,
+                     prompt_lens=(600, 2100, 4500), gen_lens=(8, 16, 32),
+                     seed=0)
+MARGIN = 1e-3   # oracle top-2 logit gap under which a token may flip
+# gemma2 smoke served on the CPU and on the card: logits within 1e-4 (fp32
+# matmuls on either device and the kernel vs the plain attention move them
+# by ~1e-6 at this size)
+SMALL_SERVE_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -208,15 +260,17 @@ def expected_launches(h, fl, native_op):
     rows = len(h["ops"]) * len(h["ops"][0])
     quant = cut + (rows if fl.quantize_deltas else 0)
     return {"quantize": quant, "dequantize": quant,
-            "topk_compress": rows if fl.delta_density < 1 else 0}
+            "topk_compress": rows if fl.delta_density < 1 else 0,
+            "flash_attention": 0}
 
 
 def vgg5_main_path(torch, dev, launches, reset_launches):
     """Phase 4: the port's entry point at full width on the paper testbed.
     Each path's launch counts are zeroed just before its run and read just
-    after; every kernel must have launched exactly as often as the run's
-    history says it should.  Then one more sfl-op1 round, from the same
-    set-up, runs under ``torch.profiler``."""
+    after; every VGG-path kernel must have launched exactly as often as
+    the run's history says it should, flash attention never.  Then one
+    more sfl-op1 round, from the same set-up, runs under
+    ``torch.profiler``."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.core.controller import FedAdaptController
     from repro_torch.core.env import SimulatedCluster
@@ -257,9 +311,9 @@ def vgg5_main_path(torch, dev, launches, reset_launches):
         print(f"{name}: launches {counts} (expected from its history "
               f"{want})")
         for kernel, n in counts.items():
-            if n <= 0 or n != want[kernel]:
+            if n != want[kernel] or (kernel in VGG_KERNELS and n <= 0):
                 fail(f"{name}: kernel {kernel} launched {n} times, its "
-                     f"history needs {want[kernel]} (> 0)")
+                     f"history needs {want[kernel]}")
         flat = torch.cat([v.reshape(-1) for layer in h["params"]
                           for v in layer.values()])
         if flat.numel() != 582_346 or not bool(torch.isfinite(flat).all()):
@@ -281,19 +335,28 @@ def vgg5_main_path(torch, dev, launches, reset_launches):
               f"accuracy {acc.tolist()}, modelled round time (s) "
               f"{[round(t, 3) for t in h['round_time'].tolist()]}, "
               f"ops {ops}", flush=True)
-    return runs, profile_round(torch, lambda: run("sfl-op1", rounds=1)[0])
+    return runs, profile_device(
+        torch, "one sfl-op1 round", lambda: run("sfl-op1", rounds=1)[0],
+        lambda h: float(h["wall_s"][0]) * 1e3)
 
 
-def profile_round(torch, run_one_round):
-    """A measurement, not a check: one sfl-op1 round under
-    ``torch.profiler``, for the card's busy share (profiler on) and its top
-    kernels.  The round itself fails the run like any other; only a
-    profiler that records no device time gives "not measured"."""
+def profile_device(torch, what, run, wall_of=None):
+    """A measurement, not a check: ``run()`` under ``torch.profiler``, for
+    the card's busy share (profiler on), its top kernels and the flash
+    kernel's part.  ``run`` fails the run like any other call; only a
+    profiler that records no device time gives "not measured".  The wall
+    time is the host clock around ``run`` and a sync, or ``wall_of`` of
+    its result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        h = run_one_round()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if wall_of is not None:
+        wall_ms = wall_of(res)
     try:
         # kernels and copies only: a CPU op's device time repeats theirs
         stats = [(e.key, e.self_device_time_total, e.count)
@@ -301,25 +364,28 @@ def profile_round(torch, run_one_round):
                  if e.device_type == DeviceType.CUDA
                  and e.self_device_time_total > 0]
     except (AttributeError, RuntimeError) as e:
-        print(f"profile: not measured ({e})")
+        print(f"profile ({what}): not measured ({e})")
         return None
     busy_ms = sum(t for _, t, _ in stats) / 1e3
-    wall_ms = float(h["wall_s"][0]) * 1e3
     if busy_ms <= 0:
-        print("profile: not measured (no device time recorded)")
+        print(f"profile ({what}): not measured (no device time recorded)")
         return None
     stats.sort(key=lambda r: -r[1])
+    flash_ms = sum(t for k, t, _ in stats if "flash_fwd" in k) / 1e3
     top = [{"kernel": k[:80], "ms": t / 1e3, "count": c}
            for k, t, c in stats[:10]]
-    print(f"profile (one sfl-op1 round, profiler on): wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    print(f"profile ({what}, profiler on): wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), flash "
+          f"attention {flash_ms:.1f} ms")
     for row in top:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<5} {row['kernel']}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top": top}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "flash_ms": flash_ms, "top": top}
 
 
 def small_cpu_vs_card(torch, dev):
-    """Phase 5: the small configuration on the CPU and on the card."""
+    """Phase 6, federated: the small configuration on the CPU and on the
+    card."""
     import numpy as np
     from repro_torch.configs.vgg import VGG5
     from repro_torch.convert import vgg_params_to_numpy
@@ -369,20 +435,314 @@ def small_cpu_vs_card(torch, dev):
     return out
 
 
-def _timing_row(name, shape, fn, plain, library, nbytes, ops):
+def flash_drill(torch, tf, q, k, v, causal, window, cap, tol, what):
+    """One flash-attention launch against the plain version on the same
+    inputs; returns the max abs error."""
+    out = tf.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    torch.cuda.synchronize()
+    want = tf.attention_plain(q, k, v, causal, window, cap)
+    if out.shape != want.shape or out.dtype != want.dtype:
+        fail(f"flash {what}: {out.dtype}{tuple(out.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        fail(f"flash {what}: non-finite output")
+    err = float((out.float() - want.float()).abs().max())
+    if not torch.allclose(out.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash {what}: max abs err {err} beyond {tol}")
+    print(f"flash_attention {what}: max_abs_err {err:.3g} (tol {tol})",
+          flush=True)
+    return err
+
+
+def check_flash(torch, tf, dev):
+    """Phase 3, flash attention: the reference's sweep and the drills."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    worst = 0.0
+    for B, Sq, Sk, H, KV, D, causal, window, cap, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
+                   for shape in ((B, Sq, H, D), (B, Sk, KV, D),
+                                 (B, Sk, KV, D)))
+        worst = max(worst, flash_drill(
+            torch, tf, q, k, v, causal, window, cap, FLASH_TOL[dt],
+            f"({B}, {Sq}, {Sk}, {H}, {KV}, {D}) causal={causal} "
+            f"window={window} softcap={cap} {dt}"))
+    return worst
+
+
+def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers):
+    """q, k, v, window and softcap of each flash-attention call in the
+    first ``layers`` layers of a real prefill of ``tokens``."""
+    import dataclasses
+    calls = []
+    kernel = L.flash_attention
+
+    def capture(q, k, v, causal=True, window=0, softcap=0.0):
+        calls.append((q, k, v, causal, window, softcap))
+        return kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    L.flash_attention = capture
+    try:
+        T.forward(dataclasses.replace(cfg, num_layers=layers), params,
+                  tokens)
+    finally:
+        L.flash_attention = kernel
+    torch.cuda.synchronize()
+    return calls
+
+
+def gemma2_main_path(torch, tf, dev, launches, reset_launches):
+    """Phase 5: ``ServeEngine`` on gemma2-2b at full width: the real-layer
+    flash drills, the served traffic against the sequential oracle with the
+    launch count the path needs, and one profiled prefill."""
+    import numpy as np
+    from repro_torch.configs.gemma2_2b import CONFIG as cfg
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (ServeCosts, ServeEngine,
+                                     TrafficGenerator, latency_stats,
+                                     reference_decode, serve)
+    out = {"config": cfg.name}
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(params)
+    n_params = sum(t.numel() for t in leaves)
+    norms = cfg.num_layers * 4 * cfg.d_model + cfg.d_model
+    if n_params != cfg.param_count() + norms:
+        fail(f"gemma2-2b: {n_params} params, the config counts "
+             f"{cfg.param_count()} + {norms} norm weights")
+    print(f"gemma2-2b: {n_params:,} fp32 params drawn on the card in "
+          f"{out['init_s']:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    requests = TrafficGenerator(**SERVE_TRAFFIC).generate()
+
+    # real-layer drills: layer 0 is local (window 4096), layer 1 global
+    longest = max(requests, key=lambda r: len(r.prompt))
+    padded = np.zeros(SERVE_PROMPT, np.int64)
+    padded[:len(longest.prompt)] = longest.prompt
+    calls = capture_prefill_attention(
+        torch, L, T, cfg, params, torch.from_numpy(padded[None]).to(dev), 2)
+    worst, real = 0.0, {}
+    for (q, k, v, causal, window, cap), kind in zip(calls, ("local",
+                                                            "global")):
+        worst = max(worst, flash_drill(
+            torch, tf, q, k, v, causal, window, cap, REAL_LAYER_TOL,
+            f"gemma2-2b {kind} layer, S={q.shape[1]} window={window} "
+            f"softcap={cap}"))
+        real[kind] = (q, k, v, window, cap)
+    out["real_layer_max_abs_err"] = worst
+
+    # the main path: engine and oracle, counts zeroed just before
+    engine = ServeEngine(cfg, params, slots=SERVE_SLOTS,
+                         max_prompt=SERVE_PROMPT, max_seq=SERVE_SEQ)
+    prefill_s, decode_s = [], []
+
+    def timed(fn, log):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append(time.perf_counter() - t)
+            return r
+        return run
+    engine.submit = timed(engine.submit, prefill_s)
+    engine.step = timed(engine.step, decode_s)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve(engine, requests, ServeCosts(prefill=1.0, decode=0.1))
+    serve_wall = time.perf_counter() - t0
+    if engine.last_logits is None or engine.last_logits.shape != (
+            SERVE_SLOTS, cfg.vocab_size) or not np.isfinite(
+            engine.last_logits).all():
+        fail("gemma2-2b serve: last logits missing, misshapen or not "
+             "finite")
+    t0 = time.perf_counter()
+    compared = 0
+    for r in res["requests"]:
+        if r.tokens is None or len(r.tokens) != r.gen:
+            fail(f"gemma2-2b serve: request {r.rid} gave {r.tokens}, "
+                 f"needs {r.gen} tokens")
+        ref, margins = reference_decode(cfg, params, r.prompt, r.gen,
+                                        return_margins=True)
+        n = 0
+        for i in range(r.gen):
+            if margins[i] < MARGIN:
+                break
+            if r.tokens[i] != ref[i]:
+                fail(f"gemma2-2b serve: request {r.rid} token {i} is "
+                     f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
+                     f"{margins[i]:.4g})")
+            n += 1
+        compared += n
+        print(f"request {r.rid}: prompt {len(r.prompt)}, gen {r.gen}, "
+              f"{n} tokens equal the oracle's (min margin "
+              f"{min(margins):.3g})", flush=True)
+    oracle_wall = time.perf_counter() - t0
+    counts = dict(launches)
+    prefills = 2 * len(requests)
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers * prefills
+    print(f"serve-gemma2-2b: launches {counts} (expected {want}: "
+          f"{cfg.num_layers} layers x {prefills} prefills)")
+    if counts != want:
+        fail(f"serve-gemma2-2b: launches {counts}, the path needs {want}")
+    total = sum(r.gen for r in requests)
+    if compared < total // 2:
+        fail(f"gemma2-2b serve: only {compared} of {total} tokens compared")
+    stats = latency_stats(res)
+    busy = sum(prefill_s) + sum(decode_s)
+    out.update({
+        "requests": [{"rid": r.rid, "prompt": len(r.prompt), "gen": r.gen,
+                      "tokens": r.tokens} for r in res["requests"]],
+        "tokens_compared": compared, "tokens_total": total,
+        "prefill_s": prefill_s, "decode_step_s": decode_s,
+        "serve_wall_s": serve_wall, "oracle_wall_s": oracle_wall,
+        "tokens_per_s": total / busy, "launches": counts,
+        "virtual_clock_stats": stats,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"serve-gemma2-2b: {compared} of {total} tokens compared, all "
+          f"equal; prefill at {SERVE_PROMPT}: median "
+          f"{statistics.median(prefill_s):.3f} s ({len(prefill_s)}); "
+          f"decode step ({SERVE_SLOTS} slots): median "
+          f"{statistics.median(decode_s) * 1e3:.1f} ms "
+          f"({len(decode_s)} steps); {out['tokens_per_s']:.1f} tokens/s "
+          f"over engine time {busy:.2f} s (wall {serve_wall:.2f} s); "
+          f"oracle {oracle_wall:.2f} s", flush=True)
+    # one engine-shaped prefill and one decode step over the pooled cache
+    tokens = torch.from_numpy(padded[None]).to(dev)
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {SERVE_PROMPT} tokens",
+        lambda: T.forward(cfg, params, tokens, return_cache=True,
+                          cache_seq=SERVE_SEQ))
+    step_tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    step_pos = torch.full((SERVE_SLOTS,), SERVE_PROMPT, device=dev)
+    out["profile_decode"] = profile_device(
+        torch, f"one decode step, {SERVE_SLOTS} slots",
+        lambda: T.decode_step(cfg, params, engine.cache, step_tok, step_pos))
+    return out, real
+
+
+def small_serve_cpu_vs_card(torch, dev):
+    """Phase 6, serving: gemma2-2b's smoke config through ``serve`` on the
+    CPU (plain attention) and on the card (the kernel), same weights and
+    traffic: tokens equal, every decode step's logits within 1e-4."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs.gemma2_2b import smoke_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (ServeCosts, ServeEngine,
+                                     TrafficGenerator, serve)
+    cfg = smoke_config()
+    host = T.init(cfg, seed=0, device="cpu")
+    card = convert.transformer_params_from_numpy(
+        convert.transformer_params_to_numpy(host), dev)
+    traffic = TrafficGenerator(rate=1.5, n_requests=10,
+                               vocab_size=cfg.vocab_size,
+                               prompt_lens=(3, 12, 40), gen_lens=(1, 3, 6),
+                               seed=3)
+    runs = {}
+    for name, params in (("cpu", host), ("card", card)):
+        engine = ServeEngine(cfg, params, slots=3, max_prompt=40,
+                             max_seq=52)
+        logits, step = [], engine.step
+
+        def logged(step=step, engine=engine, logits=logits):
+            done = step()
+            logits.append(engine.last_logits)
+            return done
+        engine.step = logged
+        before = LAUNCHES["flash_attention"]
+        res = serve(engine, traffic.generate(), ServeCosts(0.4, 0.2))
+        runs[name] = ([r.tokens for r in res["requests"]], logits,
+                      LAUNCHES["flash_attention"] - before)
+    (tok_a, log_a, n_a), (tok_b, log_b, n_b) = runs["cpu"], runs["card"]
+    if n_a != 0 or n_b <= 0:
+        fail(f"small serve: flash launches cpu {n_a} (needs 0), card {n_b}")
+    if tok_a != tok_b:
+        fail(f"small serve: tokens differ cpu {tok_a} vs card {tok_b}")
+    if len(log_a) != len(log_b):
+        fail("small serve: decode step counts differ")
+    diff = max(float(np.max(np.abs(a - b))) for a, b in zip(log_a, log_b))
+    if diff > SMALL_SERVE_ATOL:
+        fail(f"small serve: logits differ by {diff} > {SMALL_SERVE_ATOL}")
+    print(f"small serve gemma2-2b smoke: cpu == card tokens "
+          f"({sum(map(len, tok_a))}), max logit diff {diff:.3g} <= "
+          f"{SMALL_SERVE_ATOL} over {len(log_a)} decode steps; {n_b} "
+          f"kernel launches on the card", flush=True)
+    return {"tokens": sum(map(len, tok_a)), "max_logit_diff": diff,
+            "atol": SMALL_SERVE_ATOL, "card_launches": n_b}
+
+
+def time_flash(torch, tf, real):
+    """Phase 7, flash attention at gemma2-2b's two prefill shapes, on the
+    real layers' q, k, v: S=4608, H=8, KV=4, D=256, causal, softcap 50,
+    global (window 0) and local (window 4096); plus the global shape
+    without the softcap, where ``scaled_dot_product_attention`` computes
+    the same function (k and v repeated to 8 heads outside the timed
+    call).  The bound counts 4 * D * H operations per visible (q, k) pair
+    over the fp32 rate (TF32 would break the 1e-5 tolerance) and each
+    input and output byte once over the memory rate."""
+    F = torch.nn.functional
+    rows = []
+    for kind, cap in (("global", 50.0), ("local", 50.0), ("global", 0.0)):
+        q, k, v, window, _ = real[kind]
+        B, S, H, D = q.shape
+        KV = k.shape[2]
+        pairs = int(tf.visible_mask(S, k.shape[1], True, window,
+                                    q.device).sum())
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        library = None
+        if cap == 0.0:
+            qh = q.transpose(1, 2)
+            kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+            vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+            sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            mine = tf.flash_attention(q, k, v, True, window, cap)
+            err = float((sdpa.transpose(1, 2) - mine).abs().max())
+            print(f"flash vs scaled_dot_product_attention (softcap 0): max "
+                  f"abs diff {err:.3g}")
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+        row = _timing_row(
+            "flash_attention", [B, S, H, KV, D],
+            lambda: tf.flash_attention(q, k, v, True, window, cap),
+            lambda: tf.attention_plain(q, k, v, True, window, cap), library,
+            nbytes, 4 * D * H * pairs, reps=7, inner=5)
+        row.update({"window": window, "softcap": cap, "pairs": pairs})
+        rows.append(row)
+    return rows
+
+
+def _timing_row(name, shape, fn, plain, library, nbytes, ops, reps=15,
+                inner=20):
     b_ms, b_by = bound_ms(nbytes, ops)
-    return {"name": name, "shape": shape, "ms": time_ms(fn),
-            "call_ms": time_ms(fn, graph=False),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else time_ms(library)}
+    kw = dict(reps=reps, inner=inner)
+    return {"name": name, "shape": shape, "ms": time_ms(fn, **kw),
+            "call_ms": time_ms(fn, graph=False, **kw),
+            "plain_ms": time_ms(plain, **kw), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None if library is None else time_ms(library, **kw)}
 
 
-def time_kernels(torch, tq, tt, dev, launches, worst):
-    """Phase 6: each kernel's time beside its bound, its plain version and
+def time_kernels(torch, tq, tt, dev, launches, worst, flash_rows):
+    """Phase 7: each kernel's time beside its bound, its plain version and
     a library call where one computes the same function: ``torch.mul`` of
     the int8 codes by the scales (one kernel that promotes to fp32) for
-    dequantize, ``torch.topk`` over the blocks' magnitudes for top-k.  No
-    single PyTorch call computes the rowwise absmax int8 quantizer."""
+    dequantize, ``torch.topk`` over the blocks' magnitudes for top-k,
+    ``scaled_dot_product_attention`` for flash attention without the
+    softcap (``time_flash``).  No single PyTorch call computes the rowwise
+    absmax int8 quantizer, nor attention with gemma2's logit softcap."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.fl.flatbuf import FlatLayout
     from repro_torch.models.vgg import init
@@ -417,9 +777,12 @@ def time_kernels(torch, tq, tt, dev, launches, worst):
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
         lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
         lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n))
+    rows += flash_rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"kernel {r['name']} {tuple(r['shape'])}: launches "
+        extra = (f" window {r['window']} softcap {r['softcap']}"
+                 if "window" in r else "")
+        print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
               f"{launches[r['name']]}, kernel_ms {r['ms']:.4f} "
               f"(graph; eager call {r['call_ms']:.4f}), bound_ms "
               f"{r['bound_ms']:.5f} ({r['bound_by']}), plain_ms "
@@ -430,7 +793,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst):
            "dequantize": (port + "quant_transfer.cu",
                           ref + "quant_transfer/quant_transfer.py:52"),
            "topk_compress": (port + "topk_compress.cu",
-                             ref + "topk_compress/topk_compress.py:64")}
+                             ref + "topk_compress/topk_compress.py:64"),
+           "flash_attention": (port + "flash_attention.cu",
+                               ref + "flash_attention/flash_attention.py:84")}
     kernels = []
     for r in rows:
         if r["name"] in [k["name"] for k in kernels]:
@@ -469,6 +834,7 @@ def main() -> None:
     print("TF32 off for matmul and cuDNN: every comparison is full fp32")
     try:
         from repro_torch.kernels import LAUNCHES, _build, reset_launches
+        from repro_torch.kernels import flash_attention as tf
         from repro_torch.kernels import quant_transfer as tq
         from repro_torch.kernels import topk_compress as tt
     except ImportError as e:
@@ -489,20 +855,30 @@ def main() -> None:
 
         phase("3. kernels vs plain versions")
         worst = check_kernels(torch, tq, tt, dev)
+        worst["flash_attention"] = check_flash(torch, tf, dev)
         torch.cuda.synchronize()
 
-        phase("4. main path: run_federated on VGG-5, full width")
+        phase("4. federated main path: run_federated on VGG-5, full width")
         record["main_path"], record["profile"] = vgg5_main_path(
             torch, dev, LAUNCHES, reset_launches)
+
+        phase("5. serving main path: ServeEngine on gemma2-2b, full width")
+        serving, real = gemma2_main_path(torch, tf, dev, LAUNCHES,
+                                         reset_launches)
+        record["main_path"]["serve-gemma2-2b"] = serving
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       serving["real_layer_max_abs_err"])
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
 
-        phase("5. small configuration: CPU vs card")
+        phase("6. small configurations: CPU vs card")
         record["small"] = small_cpu_vs_card(torch, dev)
+        record["small_serve"] = small_serve_cpu_vs_card(torch, dev)
 
-        phase("6. kernel times")
-        kernels, rows = time_kernels(torch, tq, tt, dev, launches, worst)
+        phase("7. kernel times")
+        kernels, rows = time_kernels(torch, tq, tt, dev, launches, worst,
+                                     time_flash(torch, tf, real))
         record["kernels"], record["timings"] = kernels, rows
         torch.cuda.synchronize()
     except SystemExit:

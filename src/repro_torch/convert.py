@@ -2,8 +2,12 @@
 
 The reference's params are pytrees of arrays; as numpy (``np.asarray`` of
 each leaf) they map leaf for leaf onto the port's tensors, bitwise, since
-both keep the same layout (per-layer dicts, HWIO conv weights, ``(in, out)``
-FC and agent weights).
+both keep the same layout: per-layer dicts, HWIO conv weights, ``(in, out)``
+FC and agent weights for VGG and PPO; for the transformer, nested dicts
+with the per-layer leaves stacked on a leading layer axis
+(``{"embed", "layers": {"ln1", "attn": {"wq", ...}, "ffn": {...}, ...},
+"final_norm"}``).  ``tests/test_torch_transformer.py`` checks the
+transformer round trip (reference -> port -> numpy) bit for bit.
 """
 from __future__ import annotations
 
@@ -45,3 +49,22 @@ def agent_params_from_numpy(params: Dict[str, Dict[str, np.ndarray]],
     device = resolve_device(device)
     return {net: {k: _tensor(v, device) for k, v in p.items()}
             for net, p in params.items()}
+
+
+def transformer_params_from_numpy(params: Dict, device=None) -> Dict:
+    """Reference transformer params (nested dicts of arrays, layers
+    stacked) -> port tensors on ``device`` (``None``: the card, raising if
+    none is visible)."""
+    device = resolve_device(device)
+
+    def conv(t):
+        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) \
+            else _tensor(t, device)
+    return conv(params)
+
+
+def transformer_params_to_numpy(params: Dict) -> Dict:
+    """Port transformer params -> nested dicts of numpy arrays (the
+    reference's layout)."""
+    return {k: transformer_params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in params.items()}

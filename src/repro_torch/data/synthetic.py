@@ -1,5 +1,6 @@
-"""Deterministic synthetic CIFAR-shaped data (a copy of the reference's
-``make_cifar_like`` / ``split_clients``: byte-identical arrays per seed)."""
+"""Deterministic synthetic data (a copy of the reference's
+``make_cifar_like`` / ``make_token_stream`` / ``split_clients``:
+byte-identical arrays per seed)."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -23,6 +24,22 @@ def make_cifar_like(n: int, seed: int = 0, num_classes: int = 10,
     ])  # (C, hw, hw, ch)
     images = templates[labels] + rng.randn(n, hw, hw, ch) * 0.8
     return {"images": images.astype(np.float32), "labels": labels}
+
+
+def make_token_stream(n_tokens: int, vocab: int, seed: int = 0,
+                      order: int = 2) -> np.ndarray:
+    """Zipf marginals plus a deterministic bigram rule: half the positions
+    follow ``(prev * 31 + 7) % vocab``.  int32 tokens."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    base = rng.choice(vocab, size=n_tokens, p=probs).astype(np.int32)
+    follow = rng.rand(n_tokens) < 0.5
+    out = base.copy()
+    for i in range(1, n_tokens):
+        if follow[i]:
+            out[i] = (out[i - 1] * 31 + 7) % vocab
+    return out
 
 
 def split_clients(data: Dict[str, np.ndarray], num_clients: int

@@ -22,8 +22,9 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("quant_transfer", "topk_compress")
-# no --use_fast_math: the quantizer needs IEEE division
+SOURCES = ("quant_transfer", "topk_compress", "flash_attention")
+# no --use_fast_math: the quantizer needs IEEE division, flash attention
+# the accurate expf and tanhf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,22 @@
+"""Inference side of the port (counterpart of ``repro/serving``):
+continuous-batching serving of a dense transformer.
+
+    engine.py   ServeEngine: fixed slot pool, per-slot decode positions;
+                reference_decode, the sequential oracle
+    queue.py    Request / TrafficGenerator / ServeCosts / serve: seeded
+                Poisson traffic and the virtual-clock serve loop
+
+Hot param swap (``hotswap.ParamStore``) is not ported yet.
+"""
+from repro_torch.serving.engine import (  # noqa: F401
+    FinishedRequest,
+    ServeEngine,
+    reference_decode,
+)
+from repro_torch.serving.queue import (  # noqa: F401
+    Request,
+    ServeCosts,
+    TrafficGenerator,
+    latency_stats,
+    serve,
+)
