@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    int8 and top-k kernels at the VGG-5 path's shapes plus the tie and
    masked-tail drills, bit for bit; flash attention over the reference's
    sweep (``FLASH_CASES`` of tests/test_kernels.py) plus small head dims,
-   within 1e-5 (fp32) and 2e-2 (bf16), the reference's own tolerances.
+   within 1e-5 (fp32) and 2e-2 (bf16); the SSD scan over the reference's
+   ``SSD_CASES`` plus an entering state and mamba2's widths, on y and the
+   final state within 5e-4: the reference's own tolerances.
 4. the federated main path: ``run_federated`` on VGG-5 at full width
    (582,346 params, random weights from a seed), K=5 clients on the
    paper's 5-device testbed, 1000 samples each, batch 100, 10 local
@@ -37,17 +39,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the run and read after the oracle: flash attention must have launched
    26 times per prefill (engine and oracle), the other kernels never.  One
    more prefill at 4608 and one decode step run under ``torch.profiler``.
+5b. the serving main path of the SSM family: mamba2-780m at full width
+   (48 layers, d_model 1536, 48 SSD heads of dim 64, state 128, vocab
+   50280; 857,379,072 fp32 params drawn on the card from a seed, after
+   gemma2-2b's are freed).  The SSD kernel is held against its plain
+   version on the inputs of layers 0 and 47 of real prefills at S=4096 and
+   S=1000 (a ragged last chunk), within 5e-4.  Then, with the launch counts
+   zeroed: ``reference_decode`` serves 4 seeded prompts (300, 1000, 4096,
+   16384 tokens, 32 generated each); ``api.prefill`` over 4 rows of 4096
+   tokens and 31 ``api.decode`` steps give each row the tokens of its
+   ``reference_decode`` up to the first one chosen under a top-2 margin
+   below 1e-3; the 300-token prompt fed through ``api.decode`` one token at
+   a time from zero caches gives the prefill's logits and caches within
+   2e-4.  The SSD kernel must have launched 48 times per prefill, the other
+   kernels never.  Prefill seconds, decode ms per step (1 and 4 rows) and
+   tokens/s are read from the host clock; one prefill at 4096 and one
+   decode step over 4 rows run under ``torch.profiler``.  (The engine,
+   ``ServeEngine``, refuses the SSM family, as the reference's does.)
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
-   tolerances) and gemma2-2b's smoke config through ``serve`` (tokens
-   equal, logits within 1e-4).
+   tolerances), gemma2-2b's smoke config through ``serve`` (tokens equal,
+   logits within 1e-4) and mamba2-780m's smoke config through prefill and
+   decode (tokens equal, logits within 1e-4).
 7. time each kernel with CUDA events (median of CUDA-graph replays) beside
    its bound, its plain version and a library call computing the same
    function where PyTorch has one (``torch.mul`` for dequantize,
    ``torch.topk`` for top-k, ``scaled_dot_product_attention`` for flash
-   attention without the softcap: yardsticks the port never calls), then
-   print the kernels' JSON line and the result line.
+   attention without the softcap: yardsticks the port never calls; no
+   PyTorch call computes the SSD scan), then print the kernels' JSON line
+   and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -117,6 +138,29 @@ MARGIN = 1e-3   # oracle top-2 logit gap under which a token may flip
 # matmuls on either device and the kernel vs the plain attention move them
 # by ~1e-6 at this size)
 SMALL_SERVE_ATOL = 1e-4
+
+# the reference's SSD sweep (tests/test_kernels.py SSD_CASES, copied) plus
+# an entering state and mamba2's widths with a ragged last chunk:
+# B, S, H, P, N, chunk, init_state
+SSD_CASES = [
+    (2, 64, 4, 16, 16, 16, False),
+    (1, 128, 2, 32, 32, 32, False),
+    (2, 96, 4, 16, 16, 32, False),
+    (1, 64, 2, 16, 16, 64, False),
+    (2, 96, 4, 16, 16, 32, True),
+    (1, 1000, 48, 64, 128, 128, False),
+]
+# the reference's own kernel tolerance (tests/test_kernels.py): the kernel's
+# in-chunk prefix sum and fp32 sums run in another order than the plain
+# version's, and cum reaches about -600 within a chunk at full width
+SSD_TOL = 5e-4
+MAMBA_PROMPTS = (300, 1000, 4096, 16384)
+MAMBA_GEN = 32
+MAMBA_ROWS, MAMBA_ROW_PROMPT = 4, 4096
+MAMBA_DRILLS = (4096, 1000)     # real-layer drills: 1000 has a ragged chunk
+# prefill against token-by-token decode: the reference's own bound
+# (tests/test_models.py test_decode_matches_full_forward)
+STEPWISE_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -261,15 +305,15 @@ def expected_launches(h, fl, native_op):
     quant = cut + (rows if fl.quantize_deltas else 0)
     return {"quantize": quant, "dequantize": quant,
             "topk_compress": rows if fl.delta_density < 1 else 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "ssd_scan": 0}
 
 
 def vgg5_main_path(torch, dev, launches, reset_launches):
     """Phase 4: the port's entry point at full width on the paper testbed.
     Each path's launch counts are zeroed just before its run and read just
     after; every VGG-path kernel must have launched exactly as often as
-    the run's history says it should, flash attention never.  Then one
-    more sfl-op1 round, from the same set-up, runs under
+    the run's history says it should, flash attention and the SSD scan
+    never.  Then one more sfl-op1 round, from the same set-up, runs under
     ``torch.profiler``."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.core.controller import FedAdaptController
@@ -342,8 +386,8 @@ def vgg5_main_path(torch, dev, launches, reset_launches):
 
 def profile_device(torch, what, run, wall_of=None):
     """A measurement, not a check: ``run()`` under ``torch.profiler``, for
-    the card's busy share (profiler on), its top kernels and the flash
-    kernel's part.  ``run`` fails the run like any other call; only a
+    the card's busy share (profiler on), its top kernels and the part of
+    the port's serving kernels (flash attention, the SSD scan).  ``run`` fails the run like any other call; only a
     profiler that records no device time gives "not measured".  The wall
     time is the host clock around ``run`` and a sync, or ``wall_of`` of
     its result."""
@@ -371,16 +415,19 @@ def profile_device(torch, what, run, wall_of=None):
         print(f"profile ({what}): not measured (no device time recorded)")
         return None
     stats.sort(key=lambda r: -r[1])
-    flash_ms = sum(t for k, t, _ in stats if "flash_fwd" in k) / 1e3
+    ours = {name: sum(t for k, t, _ in stats if mark in k) / 1e3
+            for name, mark in (("flash_attention", "flash_fwd"),
+                               ("ssd_scan", "ssd_scan_kernel"))}
     top = [{"kernel": k[:80], "ms": t / 1e3, "count": c}
            for k, t, c in stats[:10]]
     print(f"profile ({what}, profiler on): wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), flash "
-          f"attention {flash_ms:.1f} ms")
+          f"attention {ours['flash_attention']:.1f} ms, ssd_scan "
+          f"{ours['ssd_scan']:.1f} ms")
     for row in top:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<5} {row['kernel']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "flash_ms": flash_ms, "top": top}
+            "port_kernels_ms": ours, "top": top}
 
 
 def small_cpu_vs_card(torch, dev):
@@ -643,8 +690,8 @@ def small_serve_cpu_vs_card(torch, dev):
                                      TrafficGenerator, serve)
     cfg = smoke_config()
     host = T.init(cfg, seed=0, device="cpu")
-    card = convert.transformer_params_from_numpy(
-        convert.transformer_params_to_numpy(host), dev)
+    card = convert.lm_params_from_numpy(
+        convert.lm_params_to_numpy(host), dev)
     traffic = TrafficGenerator(rate=1.5, n_requests=10,
                                vocab_size=cfg.vocab_size,
                                prompt_lens=(3, 12, 40), gen_lens=(1, 3, 6),
@@ -680,6 +727,345 @@ def small_serve_cpu_vs_card(torch, dev):
           f"kernel launches on the card", flush=True)
     return {"tokens": sum(map(len, tok_a)), "max_logit_diff": diff,
             "atol": SMALL_SERVE_ATOL, "card_launches": n_b}
+
+
+def ssd_drill(torch, ts, args, chunk, init, what):
+    """One SSD-scan launch against the plain version on the same inputs,
+    on y and on the final state; returns the max abs error."""
+    y, state = ts.ssd_scan(*args, chunk, init_state=init)
+    torch.cuda.synchronize()
+    want_y, want_s = ts.ssd_scan_plain(*args, chunk, init)
+    err = 0.0
+    for got, want, name in ((y, want_y, "y"), (state, want_s, "state")):
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"ssd_scan {what}: {name} {tuple(got.shape)} not finite or "
+                 f"not {tuple(want.shape)}")
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
+            fail(f"ssd_scan {what}: {name} max abs err {e} beyond {SSD_TOL}")
+        err = max(err, e)
+    print(f"ssd_scan {what}: max_abs_err {err:.3g} on y and state (tol "
+          f"{SSD_TOL})", flush=True)
+    return err
+
+
+def check_ssd(torch, ts, dev):
+    """Phase 3, the SSD scan: the reference's sweep, an entering state and
+    mamba2's widths (inputs drawn as the reference's test draws them)."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    worst = 0.0
+    for B, S, H, P, N, chunk, init in SSD_CASES:
+        def draw(*shape):
+            return torch.randn(shape, generator=gen)
+        args = [draw(B, S, H, P),
+                torch.nn.functional.softplus(draw(B, S, H)),
+                -torch.exp(draw(H) * 0.5), draw(B, S, N), draw(B, S, N)]
+        s0 = draw(B, H, P, N).to(dev) if init else None
+        worst = max(worst, ssd_drill(
+            torch, ts, [a.to(dev) for a in args], chunk, s0,
+            f"({B}, {S}, {H}, {P}, {N}) chunk={chunk} init_state={init}"))
+    return worst
+
+
+def capture_ssd_inputs(torch, S_model, cfg, params, tokens, layers):
+    """The SSD-scan inputs of the listed layers of a real prefill of
+    ``tokens`` (the call of layer i is the i-th call of ``ssd_scan``)."""
+    calls, kernel = [], S_model.ssd_scan
+
+    def capture(x, dt, A, Bm, Cm, chunk, init_state=None):
+        if len(calls) in layers:
+            calls.append((x, dt, A, Bm, Cm))
+        else:
+            calls.append(None)
+        return kernel(x, dt, A, Bm, Cm, chunk, init_state)
+
+    S_model.ssd_scan = capture
+    try:
+        S_model.forward(cfg, params, tokens)
+    finally:
+        S_model.ssd_scan = kernel
+    torch.cuda.synchronize()
+    return {i: calls[i] for i in layers}
+
+
+def mamba2_main_path(torch, ts, dev, launches, reset_launches):
+    """Phase 5b: mamba2-780m served at full width through the port's entry
+    points (``reference_decode``, ``api.prefill``, ``api.decode``): the
+    real-layer SSD drills, sequential serving of 4 prompts, a batch of 4
+    rows against the oracle, the stepwise oracle, and the launch counts
+    the path needs."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs.mamba2_780m import CONFIG as cfg
+    from repro_torch.models import api
+    from repro_torch.models import ssm as S_model
+    from repro_torch.serving import reference_decode
+    out = {"config": cfg.name}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(params)
+    n_params = sum(t.numel() for t in leaves)
+    if n_params != 857_379_072:
+        fail(f"mamba2-780m: {n_params} params, its init shapes give "
+             f"857,379,072")
+    out["params"] = n_params
+    print(f"mamba2-780m: {n_params:,} fp32 params drawn on the card in "
+          f"{out['init_s']:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.RandomState(0)
+    prompts = {L: rng.randint(0, cfg.vocab_size, L) for L in MAMBA_PROMPTS}
+    rows = [prompts[MAMBA_ROW_PROMPT]] + [
+        rng.randint(0, cfg.vocab_size, MAMBA_ROW_PROMPT)
+        for _ in range(MAMBA_ROWS - 1)]
+
+    # real-layer drills: the first and the last layer, at S=4096 and at
+    # S=1000 (a ragged last chunk)
+    worst, real = 0.0, None
+    last = cfg.num_layers - 1
+    for L in MAMBA_DRILLS:
+        tokens = torch.from_numpy(prompts[L][None]).to(dev)
+        caught = capture_ssd_inputs(torch, S_model, cfg, params, tokens,
+                                    (0, last))
+        for i, args in caught.items():
+            worst = max(worst, ssd_drill(
+                torch, ts, list(args), cfg.ssm.chunk, None,
+                f"mamba2-780m layer {i}, S={L}"))
+        if L == MAMBA_ROW_PROMPT:
+            real = caught[0]
+        del caught
+    out["real_layer_max_abs_err"] = worst
+
+    # the main path, counts zeroed just before: every prefill and decode
+    # step goes through the entry points, timed to a sync
+    timing = {"prefill": [], "decode": []}
+    prefill, decode = api.prefill, api.decode
+
+    def timed(fn, kind):
+        def run(cfg_, params_, *a, **kw):
+            t = time.perf_counter()
+            r = fn(cfg_, params_, *a, **kw)
+            torch.cuda.synchronize()
+            shape = (a[0]["tokens"] if kind == "prefill" else a[1]).shape
+            timing[kind].append((tuple(shape), time.perf_counter() - t))
+            return r
+        return run
+    api.prefill, api.decode = timed(prefill, "prefill"), timed(decode,
+                                                               "decode")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        # 1. sequential serving: one request at a time
+        seq = {}
+        for L, prompt in prompts.items():
+            toks, margins = reference_decode(cfg, params, prompt, MAMBA_GEN,
+                                             return_margins=True)
+            seq[L] = (toks, margins)
+            print(f"sequential: prompt {L}, {MAMBA_GEN} tokens, min top-2 "
+                  f"margin {min(margins):.3g}", flush=True)
+        seq_wall = time.perf_counter() - t0
+        n_seq = len(timing["prefill"]), len(timing["decode"])
+        # 2. the batched path: one prefill over 4 rows, then 31 decodes
+        t0 = time.perf_counter()
+        batch = torch.from_numpy(np.stack(rows)).to(dev)
+        logits, cache = api.prefill(cfg, params, {"tokens": batch})
+        got = []
+        for i in range(MAMBA_GEN):
+            if i:
+                logits, cache = api.decode(cfg, params, cache, token,
+                                           MAMBA_ROW_PROMPT + i - 1)
+            token = torch.argmax(logits, -1)[:, None]
+            got.append(token[:, 0].tolist())
+        batch_wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (
+                MAMBA_ROWS, cfg.vocab_size):
+            fail(f"mamba2-780m batch: last logits {tuple(logits.shape)} "
+                 f"not finite or misshapen")
+        del cache
+        got = np.asarray(got).T                       # (rows, gen)
+        compared = 0
+        for r, prompt in enumerate(rows):
+            ref, margins = seq[MAMBA_ROW_PROMPT] if r == 0 else \
+                reference_decode(cfg, params, prompt, MAMBA_GEN,
+                                 return_margins=True)
+            n = 0
+            for i in range(MAMBA_GEN):
+                if margins[i] < MARGIN:
+                    break
+                if got[r, i] != ref[i]:
+                    fail(f"mamba2-780m batch: row {r} token {i} is "
+                         f"{got[r, i]}, the oracle's {ref[i]} (margin "
+                         f"{margins[i]:.4g})")
+                n += 1
+            compared += n
+            print(f"batch row {r}: {n} of {MAMBA_GEN} tokens equal the "
+                  f"oracle's (min margin {min(margins):.3g})", flush=True)
+        if compared < MAMBA_ROWS * MAMBA_GEN // 2:
+            fail(f"mamba2-780m batch: only {compared} of "
+                 f"{MAMBA_ROWS * MAMBA_GEN} tokens compared")
+        # 3. the stepwise oracle: the 300-token prompt one token at a time
+        L = MAMBA_PROMPTS[0]
+        tokens = torch.from_numpy(prompts[L][None]).to(dev)
+        want, want_cache = api.prefill(cfg, params, {"tokens": tokens})
+        step_cache = api.init_cache(cfg, 1, L, torch.float32, dev)
+        for i in range(L):
+            step, step_cache = api.decode(cfg, params, step_cache,
+                                          tokens[:, i:i + 1], i)
+        stepwise = {}
+        for name, a, b in (("logits", step, want),
+                           ("conv", step_cache["conv"], want_cache["conv"]),
+                           ("state", step_cache["state"],
+                            want_cache["state"])):
+            stepwise[name] = float((a - b).abs().max())
+            if not stepwise[name] < STEPWISE_TOL:
+                fail(f"mamba2-780m stepwise oracle: {name} differs by "
+                     f"{stepwise[name]} >= {STEPWISE_TOL}")
+        print(f"stepwise oracle ({L} decode steps from zero caches): max "
+              f"abs diff {stepwise} < {STEPWISE_TOL}", flush=True)
+        counts = dict(launches)
+    finally:
+        api.prefill, api.decode = prefill, decode
+    prefills = len(timing["prefill"])
+    if prefills != len(MAMBA_PROMPTS) + 1 + (MAMBA_ROWS - 1) + 1:
+        fail(f"mamba2-780m: {prefills} prefills, the path makes "
+             f"{len(MAMBA_PROMPTS) + MAMBA_ROWS + 1}")
+    want_counts = {k: 0 for k in counts}
+    want_counts["ssd_scan"] = cfg.num_layers * prefills
+    print(f"serve-mamba2-780m: launches {counts} (expected {want_counts}: "
+          f"{cfg.num_layers} layers x {prefills} prefills)")
+    if counts != want_counts:
+        fail(f"serve-mamba2-780m: launches {counts}, the path needs "
+             f"{want_counts}")
+
+    # records: prefill seconds by prompt, decode ms per step by rows
+    pre = {}
+    for shape, t in timing["prefill"]:
+        pre.setdefault(f"{shape[0]}x{shape[1]}", []).append(t)
+    seq_pre = [t for _, t in timing["prefill"][:n_seq[0]]]
+    seq_dec = [t for _, t in timing["decode"][:n_seq[1]]]
+    rows_dec = [t for shape, t in timing["decode"]
+                if shape[0] == MAMBA_ROWS]
+    batch_busy = pre[f"{MAMBA_ROWS}x{MAMBA_ROW_PROMPT}"][0] + sum(rows_dec)
+    seq_busy = sum(seq_pre) + sum(seq_dec)
+    out.update({
+        "sequential": {str(L): seq[L][0] for L in MAMBA_PROMPTS},
+        "min_margin": {str(L): min(seq[L][1]) for L in MAMBA_PROMPTS},
+        "batch_tokens": got.tolist(), "tokens_compared": compared,
+        "stepwise_max_abs_diff": stepwise, "launches": counts,
+        "prefill_s": pre,
+        "decode_step_ms_1row": [t * 1e3 for t in seq_dec],
+        "decode_step_ms_rows": [t * 1e3 for t in rows_dec],
+        "tokens_per_s_sequential": len(MAMBA_PROMPTS) * MAMBA_GEN / seq_busy,
+        "tokens_per_s_batch": MAMBA_ROWS * MAMBA_GEN / batch_busy,
+        "sequential_wall_s": seq_wall, "batch_wall_s": batch_wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"serve-mamba2-780m: prefill (s) "
+          f"{ {k: [round(t, 4) for t in v] for k, v in pre.items()} }; "
+          f"decode step median "
+          f"{statistics.median(seq_dec) * 1e3:.1f} ms "
+          f"at 1 row, {statistics.median(rows_dec) * 1e3:.1f} ms at "
+          f"{MAMBA_ROWS} rows; {out['tokens_per_s_sequential']:.1f} tokens/s "
+          f"sequential (engine time {seq_busy:.2f} s), "
+          f"{out['tokens_per_s_batch']:.1f} tokens/s over {MAMBA_ROWS} rows "
+          f"(engine time {batch_busy:.2f} s); peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+    tokens = torch.from_numpy(np.stack(rows)).to(dev)
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {MAMBA_ROW_PROMPT} tokens",
+        lambda: prefill(cfg, params, {"tokens": tokens[:1]}))
+    cache = api.init_cache(cfg, MAMBA_ROWS, 1, torch.float32, dev)
+    step_tok = tokens[:, :1]
+    out["profile_decode"] = profile_device(
+        torch, f"one decode step, {MAMBA_ROWS} rows",
+        lambda: decode(cfg, params, cache, step_tok, 0))
+    return out, real
+
+
+def small_ssm_cpu_vs_card(torch, dev):
+    """Phase 6, mamba2: the smoke config on the CPU (plain scan) and on the
+    card (the kernel), same weights: for each prompt the prefill and 6
+    decode steps, tokens equal and logits within 1e-4."""
+    from repro_torch import convert
+    from repro_torch.configs.mamba2_780m import smoke_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import api
+    cfg = smoke_config()
+    host = api.init(cfg, seed=0, device="cpu")
+    card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host),
+                                        dev)
+    gen = torch.Generator().manual_seed(5)
+    diff, steps, before = 0.0, 0, LAUNCHES["ssd_scan"]
+    for L in (3, 16, 37, 50):
+        prompt = torch.randint(0, cfg.vocab_size, (2, L), generator=gen)
+        runs = {}
+        for name, params, d in (("cpu", host, "cpu"), ("card", card, dev)):
+            logits, cache = api.prefill(cfg, params,
+                                        {"tokens": prompt.to(d)})
+            seen = [logits.cpu()]
+            for i in range(6):
+                token = torch.argmax(seen[-1], -1)[:, None]
+                logits, cache = api.decode(cfg, params, cache, token.to(d),
+                                           L + i)
+                seen.append(logits.cpu())
+            runs[name] = seen
+        for a, b in zip(runs["cpu"], runs["card"]):
+            if not torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)):
+                fail(f"small mamba2 prompt {L}: tokens differ cpu vs card")
+            diff = max(diff, float((a - b).abs().max()))
+            steps += 1
+    n = LAUNCHES["ssd_scan"] - before
+    if diff > SMALL_SERVE_ATOL or n != 4 * cfg.num_layers:
+        fail(f"small mamba2: logits differ by {diff} (> {SMALL_SERVE_ATOL}?)"
+             f" or {n} card launches (needs {4 * cfg.num_layers})")
+    print(f"small mamba2 smoke: cpu == card tokens over {steps} steps, max "
+          f"logit diff {diff:.3g} <= {SMALL_SERVE_ATOL}; {n} kernel launches "
+          f"on the card", flush=True)
+    return {"steps": steps, "max_logit_diff": diff,
+            "atol": SMALL_SERVE_ATOL, "card_launches": n}
+
+
+def ssd_cost(B, S, H, P, N, Q):
+    """Bytes and operations the SSD scan needs for these inputs: each input
+    read once and each output written once; C.B^T once per (batch, chunk)
+    (B and C are shared by the heads) and the causal halves of the two
+    per-head Q x Q products (scores, decay-weighted product with x), 2QNP
+    each for the inter-chunk term and the state update, and the decay
+    weights (3 operations per causal pair)."""
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                  + B * H * P * N)
+    ops = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        pairs = q * (q + 1) // 2
+        ops += B * (2 * pairs * N + H * (2 * pairs * P + 3 * pairs
+                                         + 2 * 2 * q * N * P))
+    return nbytes, ops
+
+
+def time_ssd(torch, ts, real):
+    """Phase 7, the SSD scan at mamba2-780m's prefill shape (B=1, S=4096,
+    H=48, P=64, N=128, Q=128) on layer 0's inputs.  No PyTorch call
+    computes the SSD scan."""
+    x, dt, A, Bm, Cm = real
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes, ops = ssd_cost(B, S, H, P, N, 128)
+    row = _timing_row("ssd_scan", [B, S, H, P, N, 128],
+                      lambda: ts.ssd_scan(x, dt, A, Bm, Cm, 128),
+                      lambda: ts.ssd_scan_plain(x, dt, A, Bm, Cm, 128), None,
+                      nbytes, ops, reps=7, inner=5)
+    row.update({"gflop": ops / 1e9, "mbytes": nbytes / 1e6})
+    return [row]
 
 
 def time_flash(torch, tf, real):
@@ -735,7 +1121,7 @@ def _timing_row(name, shape, fn, plain, library, nbytes, ops, reps=15,
             "library_ms": None if library is None else time_ms(library, **kw)}
 
 
-def time_kernels(torch, tq, tt, dev, launches, worst, flash_rows):
+def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
     """Phase 7: each kernel's time beside its bound, its plain version and
     a library call where one computes the same function: ``torch.mul`` of
     the int8 codes by the scales (one kernel that promotes to fp32) for
@@ -777,7 +1163,7 @@ def time_kernels(torch, tq, tt, dev, launches, worst, flash_rows):
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
         lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
         lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n))
-    rows += flash_rows
+    rows += serving_rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f" window {r['window']} softcap {r['softcap']}"
@@ -795,7 +1181,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, flash_rows):
            "topk_compress": (port + "topk_compress.cu",
                              ref + "topk_compress/topk_compress.py:64"),
            "flash_attention": (port + "flash_attention.cu",
-                               ref + "flash_attention/flash_attention.py:84")}
+                               ref + "flash_attention/flash_attention.py:84"),
+           "ssd_scan": (port + "ssd_scan.cu", ref + "ssd_scan/ssd_scan.py:69")}
     kernels = []
     for r in rows:
         if r["name"] in [k["name"] for k in kernels]:
@@ -836,6 +1223,7 @@ def main() -> None:
         from repro_torch.kernels import LAUNCHES, _build, reset_launches
         from repro_torch.kernels import flash_attention as tf
         from repro_torch.kernels import quant_transfer as tq
+        from repro_torch.kernels import ssd_scan as ts
         from repro_torch.kernels import topk_compress as tt
     except ImportError as e:
         fail(f"the port is not beside chip_smoke.py ({e})")
@@ -856,6 +1244,7 @@ def main() -> None:
         phase("3. kernels vs plain versions")
         worst = check_kernels(torch, tq, tt, dev)
         worst["flash_attention"] = check_flash(torch, tf, dev)
+        worst["ssd_scan"] = check_ssd(torch, ts, dev)
         torch.cuda.synchronize()
 
         phase("4. federated main path: run_federated on VGG-5, full width")
@@ -868,6 +1257,13 @@ def main() -> None:
         record["main_path"]["serve-gemma2-2b"] = serving
         worst["flash_attention"] = max(worst["flash_attention"],
                                        serving["real_layer_max_abs_err"])
+
+        phase("5b. serving main path: mamba2-780m, full width")
+        ssm_serving, ssd_real = mamba2_main_path(torch, ts, dev, LAUNCHES,
+                                                 reset_launches)
+        record["main_path"]["serve-mamba2-780m"] = ssm_serving
+        worst["ssd_scan"] = max(worst["ssd_scan"],
+                                ssm_serving["real_layer_max_abs_err"])
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -875,10 +1271,12 @@ def main() -> None:
         phase("6. small configurations: CPU vs card")
         record["small"] = small_cpu_vs_card(torch, dev)
         record["small_serve"] = small_serve_cpu_vs_card(torch, dev)
+        record["small_ssm"] = small_ssm_cpu_vs_card(torch, dev)
 
         phase("7. kernel times")
-        kernels, rows = time_kernels(torch, tq, tt, dev, launches, worst,
-                                     time_flash(torch, tf, real))
+        kernels, rows = time_kernels(
+            torch, tq, tt, dev, launches, worst,
+            time_flash(torch, tf, real) + time_ssd(torch, ts, ssd_real))
         record["kernels"], record["timings"] = kernels, rows
         torch.cuda.synchronize()
     except SystemExit:

@@ -3,11 +3,15 @@
 The reference's params are pytrees of arrays; as numpy (``np.asarray`` of
 each leaf) they map leaf for leaf onto the port's tensors, bitwise, since
 both keep the same layout: per-layer dicts, HWIO conv weights, ``(in, out)``
-FC and agent weights for VGG and PPO; for the transformer, nested dicts
-with the per-layer leaves stacked on a leading layer axis
-(``{"embed", "layers": {"ln1", "attn": {"wq", ...}, "ffn": {...}, ...},
-"final_norm"}``).  ``tests/test_torch_transformer.py`` checks the
-transformer round trip (reference -> port -> numpy) bit for bit.
+FC and agent weights for VGG and PPO; for the language models, nested
+dicts with the per-layer leaves stacked on a leading layer axis: the
+transformer's ``{"embed", "layers": {"ln1", "attn": {"wq", ...}, "ffn":
+{...}, ...}, "final_norm"}`` and mamba2's ``{"embed", "layers": {"ln",
+"in_proj", "conv_w", ...}, "final_norm", "unembed"}``.  The same two
+functions carry the decode caches (``{"k", "v"}`` and ``{"conv",
+"state"}``).  ``tests/test_torch_transformer.py`` and
+``tests/test_torch_ssm.py`` check the round trip (reference -> port ->
+numpy) bit for bit.
 """
 from __future__ import annotations
 
@@ -51,10 +55,10 @@ def agent_params_from_numpy(params: Dict[str, Dict[str, np.ndarray]],
             for net, p in params.items()}
 
 
-def transformer_params_from_numpy(params: Dict, device=None) -> Dict:
-    """Reference transformer params (nested dicts of arrays, layers
-    stacked) -> port tensors on ``device`` (``None``: the card, raising if
-    none is visible)."""
+def lm_params_from_numpy(params: Dict, device=None) -> Dict:
+    """Reference language-model params or caches (nested dicts of arrays,
+    layers stacked) -> port tensors on ``device`` (``None``: the card,
+    raising if none is visible)."""
     device = resolve_device(device)
 
     def conv(t):
@@ -63,8 +67,8 @@ def transformer_params_from_numpy(params: Dict, device=None) -> Dict:
     return conv(params)
 
 
-def transformer_params_to_numpy(params: Dict) -> Dict:
-    """Port transformer params -> nested dicts of numpy arrays (the
-    reference's layout)."""
-    return {k: transformer_params_to_numpy(v) if isinstance(v, dict)
+def lm_params_to_numpy(params: Dict) -> Dict:
+    """Port language-model params or caches -> nested dicts of numpy arrays
+    (the reference's layout)."""
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict)
             else v.detach().cpu().numpy() for k, v in params.items()}

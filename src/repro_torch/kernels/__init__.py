@@ -8,7 +8,8 @@ run can show that its main path went through the kernels."""
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"quantize": 0, "dequantize": 0,
-                            "topk_compress": 0, "flash_attention": 0}
+                            "topk_compress": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 
 
 def reset_launches() -> None:

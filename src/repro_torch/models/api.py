@@ -4,9 +4,10 @@
     logits, cache = prefill(cfg, params, {"tokens": tokens}, target_seq)
     logits, cache = decode(cfg, params, cache, token, pos)
 
-Only the ``dense`` family is ported; ``moe``, ``vlm``, ``ssm``, ``hybrid``
-and ``encdec`` raise ``NotImplementedError`` naming their ROADMAP item, as
-does ``loss`` (LM training).
+Two families are ported: ``dense`` (module ``transformer``) and ``ssm``
+(mamba2, module ``ssm``); ``moe``, ``vlm``, ``hybrid`` and ``encdec`` raise
+``NotImplementedError`` naming their ROADMAP item, as does ``loss`` (LM
+training).
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
-_FAMILIES: Dict[str, ModuleType] = {"dense": transformer}
+_FAMILIES: Dict[str, ModuleType] = {"dense": transformer, "ssm": ssm}
 _KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 

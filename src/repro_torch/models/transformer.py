@@ -62,7 +62,7 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     card, raising if none is visible), so a full-width model's draws stay
     on the card.  They are not the reference's threefry draws: to hold the
     port against the reference, carry the reference's params across with
-    ``convert.transformer_params_from_numpy``."""
+    ``convert.lm_params_from_numpy``."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)

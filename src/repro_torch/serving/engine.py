@@ -15,7 +15,9 @@
   kernel (on the card); decode is plain PyTorch.  The cache lies where the
   params lie and has their dtype.
 
-Greedy (argmax) sampling, ``dense`` family only.  The reference's
+Greedy (argmax) sampling, ``dense`` family only: like the reference,
+the engine refuses the ``ssm`` family (its recurrent cache has no per-slot
+decode adapter), which ``reference_decode`` serves.  The reference's
 ``compile_counts`` has no counterpart: it counts jit executables, and the
 port runs eagerly with nothing compiled per shape.  ``maybe_swap`` (hot
 param swap from a ``ParamStore``) is not ported yet.
@@ -191,11 +193,11 @@ class ServeEngine:
 def reference_decode(cfg: ModelConfig, params: Params, prompt: np.ndarray,
                      gen: int, *, return_margins: bool = False):
     """Greedy decode of ONE request, unpadded and unbatched: prefill, then
-    scalar-position decode steps.  The continuous-batching engine must
-    match it token for token.  With ``return_margins`` also returns, for
-    each token, the gap between the top two logits it was chosen from (a
-    token chosen under a near-tie may flip under another summation
-    order)."""
+    scalar-position decode steps, for any ported family (the only way the
+    ``ssm`` family is served).  The continuous-batching engine must match
+    it token for token.  With ``return_margins`` also returns, for each
+    token, the gap between the top two logits it was chosen from (a token
+    chosen under a near-tie may flip under another summation order)."""
     device = _first_leaf(params).device
     L = int(len(prompt))
     tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None],

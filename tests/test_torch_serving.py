@@ -50,7 +50,7 @@ def _setup(arch="qwen3-0.6b", seed=0):
     if (arch, seed) not in _SETUPS:
         jcfg = R.get_smoke_config(arch)
         jp = japi.init(jcfg, jax.random.PRNGKey(seed), jnp.float32)
-        tp = convert.transformer_params_from_numpy(
+        tp = convert.lm_params_from_numpy(
             jax.tree_util.tree_map(np.asarray, jp), device="cpu")
         _SETUPS[arch, seed] = (_CONFIGS[arch](), tp, jcfg, jp)
     return _SETUPS[arch, seed]
@@ -241,7 +241,7 @@ def test_launch_serve_matches_reference_driver():
             "--gen", "4", "--seed", "3"]
     from repro.configs.lm_small import LM16M
     jp = japi.init(LM16M, jax.random.PRNGKey(3))
-    tp = convert.transformer_params_from_numpy(
+    tp = convert.lm_params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     want = j_launch.main(argv)
     got = t_launch.main(argv, device="cpu", params=tp)

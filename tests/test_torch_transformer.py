@@ -54,7 +54,7 @@ def setup(request):
     jcfg, tcfg = _reference_config(name), _CONFIGS[name]
     jp = japi.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
     np_params = jax.tree_util.tree_map(np.asarray, jp)
-    tp = convert.transformer_params_from_numpy(np_params, device="cpu")
+    tp = convert.lm_params_from_numpy(np_params, device="cpu")
     toks = np.random.RandomState(1).randint(
         0, tcfg.vocab_size, (2, SEQ)).astype(np.int32)
     return name, jcfg, tcfg, jp, tp, np_params, toks
@@ -107,7 +107,7 @@ def test_decode_step_matches(setup, vector):
 
 def test_convert_round_trip_is_bitwise(setup):
     _, _, _, _, tp, np_params, _ = setup
-    back = convert.transformer_params_to_numpy(tp)
+    back = convert.lm_params_to_numpy(tp)
     flat_a = jax.tree_util.tree_leaves_with_path(np_params)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
@@ -122,7 +122,7 @@ def test_port_init_matches_reference_layout(setup):
     _, jcfg, tcfg, _, _, np_params, _ = setup
     tp = tapi.init(tcfg, seed=0, device="cpu")
     mine = jax.tree_util.tree_leaves_with_path(
-        convert.transformer_params_to_numpy(tp))
+        convert.lm_params_to_numpy(tp))
     ref = jax.tree_util.tree_leaves_with_path(np_params)
     assert [(p, a.shape, a.dtype) for p, a in mine] == \
         [(p, a.shape, a.dtype) for p, a in ref]
@@ -163,9 +163,9 @@ def test_unported_families_raise():
                           "moe": MoEConfig(**dataclasses.asdict(moe.moe))})
     with pytest.raises(NotImplementedError, match="LM families"):
         tapi.init(tmoe, device="cpu")
-    ssm = dataclasses.replace(qwen3_0_6b.smoke_config(), family="ssm")
+    hybrid = dataclasses.replace(qwen3_0_6b.smoke_config(), family="hybrid")
     with pytest.raises(NotImplementedError, match="LM families"):
-        tapi.get_model(ssm)
+        tapi.get_model(hybrid)
     with pytest.raises(NotImplementedError, match="LM training"):
         tapi.loss(qwen3_0_6b.smoke_config(), None, None)
 
@@ -176,4 +176,4 @@ def test_init_means_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.init(qwen3_0_6b.smoke_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        convert.transformer_params_from_numpy({"embed": np.zeros(2)})
+        convert.lm_params_from_numpy({"embed": np.zeros(2)})
