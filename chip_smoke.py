@@ -10,8 +10,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    per source for sm_90a, all at once) and print the build time.
 3. hold every kernel against its plain PyTorch version on the card.  The
    int8 and top-k kernels at the VGG-5 path's shapes plus the tie and
-   masked-tail drills, bit for bit; flash attention over the reference's
-   sweep (``FLASH_CASES`` of tests/test_kernels.py) plus small head dims,
+   masked-tail drills, bit for bit, and for top-k (a radix select) keys
+   that share their top digits, blocks of 100 lanes, and blocks of 99 and
+   37 lanes and a buffer 4 bytes off a 16-byte boundary (its scalar
+   path); flash attention (3xTF32 on
+   the tensor cores) over the reference's sweep (``FLASH_CASES`` of
+   tests/test_kernels.py) plus small head dims, gemma2-2b's head shape
+   (D = 256, softcap 50, global and windowed; and in bf16), a head dim of
+   13 and inputs 4 bytes off a 16-byte boundary (its 4-byte copies),
    within 1e-5 (fp32) and 2e-2 (bf16); the SSD scan over the reference's
    ``SSD_CASES`` plus an entering state and mamba2's widths, on y and the
    final state within 5e-4: the reference's own tolerances.
@@ -63,12 +69,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    logits within 1e-4) and mamba2-780m's smoke config through prefill and
    decode (tokens equal, logits within 1e-4).
 7. time each kernel with CUDA events (median of CUDA-graph replays) beside
-   its bound, its plain version and a library call computing the same
+   its bound (flash attention: the 3xTF32 tensor-core bound, and the fp32
+   CUDA-core bound as ``bound_fp32_ms``), its plain version and a library
+   call computing the same
    function where PyTorch has one (``torch.mul`` for dequantize,
-   ``torch.topk`` for top-k, ``scaled_dot_product_attention`` for flash
-   attention without the softcap: yardsticks the port never calls; no
-   PyTorch call computes the SSD scan), then print the kernels' JSON line
-   and the result line.
+   ``torch.topk`` for top-k, compiled ``flex_attention`` for flash
+   attention with gemma2's softcap and ``scaled_dot_product_attention``
+   without it: yardsticks the port never calls; no PyTorch call computes
+   the SSD scan), then print the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -77,6 +85,8 @@ every comparison is in full fp32.  The full record goes to
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -87,10 +97,13 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor
-# cores (the kernels do fp32 arithmetic and comparisons)
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor
+# cores (the int8, top-k and SSD kernels do fp32 arithmetic and
+# comparisons) and the dense TF32 tensor-core rate (flash attention's
+# 3xTF32 products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 SMALL = dict(rounds=2, local_iters=2, batch_size=10, augment=True, seed=0)
 SMALL_MODES = {
@@ -120,6 +133,12 @@ FLASH_CASES = [
     (2, 70, 70, 4, 2, 16, True, 32, 50.0, "float32"),
     (1, 77, 77, 8, 4, 40, True, 0, 0.0, "float32"),
     (1, 200, 72, 4, 2, 64, True, 16, 0.0, "float32"),
+    # gemma2-2b's head shape with its softcap, global and windowed; in bf16;
+    # and a head dim that is not a multiple of 4 (4-byte copies)
+    (1, 600, 600, 8, 4, 256, True, 0, 50.0, "float32"),
+    (1, 600, 600, 8, 4, 256, True, 256, 50.0, "float32"),
+    (1, 300, 300, 8, 4, 256, True, 0, 50.0, "bfloat16"),
+    (1, 50, 50, 2, 1, 13, True, 0, 0.0, "float32"),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
@@ -206,9 +225,9 @@ def time_ms(fn, graph: bool = True, reps: int = 15, inner: int = 20):
     return statistics.median(samples)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -276,6 +295,26 @@ def check_kernels(torch, tq, tt, dev):
     cases.append(("density from true size", small,
                   torch.from_numpy(tt.density_block_meta(100, 1024, 0.05)),
                   1024))
+    # magnitudes in [1, 2): every key shares its top 9 bits, so the radix
+    # passes at bits 24 and 16 leave one bin each
+    same_exp = (1.0 + torch.rand((1, 4096), generator=gen)) * \
+        torch.where(torch.rand((1, 4096), generator=gen) < 0.5, -1.0, 1.0)
+    cases.append(("equal exponents", same_exp, torch.tensor(
+        [[1024, k] for k in (1, 100, 700, 1023)]), 1024))
+    # a block of 100 lanes (25 threads in one warp, the float4 path); blocks
+    # of 99 and 37 lanes, not a multiple of 4, whose last thread holds lanes
+    # past the block, and a buffer 4 bytes off a 16-byte boundary: the
+    # kernel's scalar path
+    for block, ks in [(100, (1, 10, 33, 50, 99, 100, 5)),
+                      (99, (1, 10, 33, 50, 98, 99, 5)), (37, (1, 7, 36))]:
+        odd = torch.randn((1, block * len(ks)), generator=gen)
+        cases.append((f"block {block}", odd,
+                      torch.tensor([[block, k] for k in ks]), block))
+    shifted = torch.randn(2 * 1024 + 1, generator=gen).to(dev)[1:]
+    if shifted.data_ptr() % 16 == 0:
+        fail("topk misaligned drill: the buffer is 16-byte aligned")
+    cases.append(("misaligned", shifted.view(1, 2048),
+                  torch.tensor([[1024, 102], [1000, 7]]), 1024))
     for name, buf, meta, block in cases:
         buf, meta = buf.to(dev), meta.to(torch.int32).to(dev)
         out = tt.topk_compress_flat(buf, meta, block)
@@ -515,6 +554,18 @@ def check_flash(torch, tf, dev):
             torch, tf, q, k, v, causal, window, cap, FLASH_TOL[dt],
             f"({B}, {Sq}, {Sk}, {H}, {KV}, {D}) causal={causal} "
             f"window={window} softcap={cap} {dt}"))
+    # q, k, v 4 bytes off a 16-byte boundary: the kernel takes its 4-byte
+    # copies though D is a multiple of 4
+    B, S, H, KV, D = 1, 130, 4, 2, 64
+    q, k, v = (torch.randn(n + 1, generator=gen).to(dev)[1:].view(shape)
+               for n, shape in ((B * S * H * D, (B, S, H, D)),
+                                (B * S * KV * D, (B, S, KV, D)),
+                                (B * S * KV * D, (B, S, KV, D))))
+    if q.data_ptr() % 16 == 0:
+        fail("flash misaligned drill: q is 16-byte aligned")
+    worst = max(worst, flash_drill(torch, tf, q, k, v, True, 0, 50.0,
+                                   FLASH_TOL["float32"],
+                                   "(1, 130, 130, 4, 2, 64) misaligned"))
     return worst
 
 
@@ -1071,12 +1122,19 @@ def time_ssd(torch, ts, real):
 def time_flash(torch, tf, real):
     """Phase 7, flash attention at gemma2-2b's two prefill shapes, on the
     real layers' q, k, v: S=4608, H=8, KV=4, D=256, causal, softcap 50,
-    global (window 0) and local (window 4096); plus the global shape
-    without the softcap, where ``scaled_dot_product_attention`` computes
-    the same function (k and v repeated to 8 heads outside the timed
-    call).  The bound counts 4 * D * H operations per visible (q, k) pair
-    over the fp32 rate (TF32 would break the 1e-5 tolerance) and each
-    input and output byte once over the memory rate."""
+    global (window 0) and local (window 4096), beside compiled
+    ``flex_attention`` with the softcap as its ``score_mod``
+    (``flex_softcap_attention``); plus the global shape without the
+    softcap, where ``scaled_dot_product_attention`` computes the same
+    function (k and v repeated to 8 heads outside the timed call).  Each
+    yardstick's max abs difference from the kernel is kept as
+    ``library_err``.  The function is 4 * D * H operations per visible (q, k) pair;
+    each input and output byte counts once over the memory rate.  Two
+    bounds, each named: ``bound_ms``, the 3xTF32 tensor-core bound (three
+    TF32 products per operation pair at 495 TFLOP/s: the least time the
+    card takes at this accuracy, since one TF32 product breaks the 1e-5
+    tolerance), and ``bound_fp32_ms``, the same operations at the fp32
+    CUDA-core rate (67 TFLOP/s)."""
     F = torch.nn.functional
     rows = []
     for kind, cap in (("global", 50.0), ("local", 50.0), ("global", 0.0)):
@@ -1086,33 +1144,72 @@ def time_flash(torch, tf, real):
         pairs = int(tf.visible_mask(S, k.shape[1], True, window,
                                     q.device).sum())
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        library = None
-        if cap == 0.0:
+        library, library_err = None, None
+        if cap > 0.0:
+            library = flex_softcap_attention(torch, q, k, v, window, cap)
+            mine = tf.flash_attention(q, k, v, True, window, cap)
+            library_err = float((library().transpose(1, 2) - mine)
+                                .abs().max())
+            print(f"flash vs flex_attention (window {window}, softcap "
+                  f"{cap}): max abs diff {library_err:.3g}")
+        else:
             qh = q.transpose(1, 2)
             kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
             vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
             sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
             mine = tf.flash_attention(q, k, v, True, window, cap)
-            err = float((sdpa.transpose(1, 2) - mine).abs().max())
+            library_err = float((sdpa.transpose(1, 2) - mine).abs().max())
             print(f"flash vs scaled_dot_product_attention (softcap 0): max "
-                  f"abs diff {err:.3g}")
+                  f"abs diff {library_err:.3g}")
 
             def library():
                 return F.scaled_dot_product_attention(qh, kh, vh,
                                                       is_causal=True)
+        ops = 4 * D * H * pairs
         row = _timing_row(
             "flash_attention", [B, S, H, KV, D],
             lambda: tf.flash_attention(q, k, v, True, window, cap),
             lambda: tf.attention_plain(q, k, v, True, window, cap), library,
-            nbytes, 4 * D * H * pairs, reps=7, inner=5)
-        row.update({"window": window, "softcap": cap, "pairs": pairs})
+            nbytes, 3 * ops, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
+        row.update({"window": window, "softcap": cap, "pairs": pairs,
+                    "gflop": ops / 1e9, "library_err": library_err,
+                    "bound_fp32_ms": bound_ms(nbytes, ops)[0]})
         rows.append(row)
     return rows
 
 
+def flex_softcap_attention(torch, q, k, v, window, cap):
+    """One PyTorch call computing the flash kernel's function with gemma2's
+    softcap: ``flex_attention`` (compiled by inductor, as its documentation
+    asks) with ``score_mod`` = cap * tanh(s / cap) on the scaled scores, the
+    causal and window mask as a block mask (blocks no row sees are
+    skipped), GQA by ``enable_gqa`` and the kernel's scale 1 / sqrt(D), on
+    (B, H, S, D) views of q, k, v.  With TF32 off its products are full
+    fp32.  The block mask is built outside the timed call.  Returns the
+    call; its output is (B, H, S, D)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[3]
+
+    def visible(b, h, qi, ki):
+        if window > 0:
+            return (ki <= qi) & (ki > qi - window)
+        return ki <= qi
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(visible, None, None, S, Sk, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    scale = 1.0 / math.sqrt(D)
+    return lambda: flex(qh, kh, vh, score_mod=softcap, block_mask=mask,
+                        scale=scale, enable_gqa=True)
+
+
 def _timing_row(name, shape, fn, plain, library, nbytes, ops, reps=15,
-                inner=20):
-    b_ms, b_by = bound_ms(nbytes, ops)
+                inner=20, ops_per_s=FP32_OPS_PER_S):
+    b_ms, b_by = bound_ms(nbytes, ops, ops_per_s)
     kw = dict(reps=reps, inner=inner)
     return {"name": name, "shape": shape, "ms": time_ms(fn, **kw),
             "call_ms": time_ms(fn, graph=False, **kw),
@@ -1126,9 +1223,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
     a library call where one computes the same function: ``torch.mul`` of
     the int8 codes by the scales (one kernel that promotes to fp32) for
     dequantize, ``torch.topk`` over the blocks' magnitudes for top-k,
-    ``scaled_dot_product_attention`` for flash attention without the
-    softcap (``time_flash``).  No single PyTorch call computes the rowwise
-    absmax int8 quantizer, nor attention with gemma2's logit softcap."""
+    compiled ``flex_attention`` for flash attention with the softcap and
+    ``scaled_dot_product_attention`` without it (``time_flash``).  No
+    single PyTorch call computes the rowwise absmax int8 quantizer."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.fl.flatbuf import FlatLayout
     from repro_torch.models.vgg import init
@@ -1168,10 +1265,12 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f" window {r['window']} softcap {r['softcap']}"
                  if "window" in r else "")
+        fp32 = (f", 3xTF32 tensor cores; fp32 CUDA-core bound_fp32_ms "
+                f"{r['bound_fp32_ms']:.5f}" if "bound_fp32_ms" in r else "")
         print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
               f"{launches[r['name']]}, kernel_ms {r['ms']:.4f} "
               f"(graph; eager call {r['call_ms']:.4f}), bound_ms "
-              f"{r['bound_ms']:.5f} ({r['bound_by']}), plain_ms "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}{fp32}), plain_ms "
               f"{r['plain_ms']:.4f}, library_ms {lib}")
     port, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     src = {"quantize": (port + "quant_transfer.cu",
@@ -1196,10 +1295,17 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if "bound_fp32_ms" in r:
+            kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
     return kernels, rows
 
 
 def main() -> None:
+    # the flex_attention yardstick compiles through inductor and Triton:
+    # their caches go to the kernels' git-ignored build directory
+    build = HERE / "src" / "repro_torch" / "kernels" / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
     try:
         import torch
     except ImportError:

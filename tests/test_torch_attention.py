@@ -8,9 +8,13 @@ run in interpret mode, over the reference's own sweep ``FLASH_CASES``
 to: 1e-5 in fp32, 2e-2 in bf16.  ``attention_plain`` is also held against
 the model's own prefill attention (``layers.attention_scores_mask`` +
 ``layers.multi_head_attention``): the function the kernel replaces on the
-serving path.  The ``cuda`` cases run the hand-written kernel against the
-plain version and skip where no card is visible.
+serving path.  The kernel's arithmetic, the 3xTF32 split on the tensor
+cores, is emulated here in plain PyTorch (``_attention_tf32``) and held to
+the same tolerances.  The ``cuda`` cases run the hand-written kernel against
+the plain version and skip where no card is visible.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +110,93 @@ def test_flash_attention_rejects_bad_inputs(q_shape, k_shape, dtype, match):
         tf.flash_attention(q, k, k.clone())
 
 
+# =============================================================================
+# the kernel's 3xTF32 arithmetic, emulated on the CPU
+# =============================================================================
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits cleared).  Adding half an
+    ulp to the sign-magnitude bits rounds the magnitude for either sign."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _dot(eq: str, a: torch.Tensor, b: torch.Tensor,
+         split: bool) -> torch.Tensor:
+    """An fp32-accumulated product of TF32 operands.  ``split``: the 3xTF32
+    form, lo.hi + hi.lo before hi.hi, with hi = tf32(x) and
+    lo = tf32(x - hi); otherwise one TF32 product hi.hi.  Products of two
+    TF32 values are exact in fp32, so only the sums round, as in the
+    tensor cores' fp32 accumulation."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _attention_tf32(q, k, v, causal, window, cap, split=True):
+    """The kernel's function with both products in TF32 arithmetic: S from
+    the split q and k, the unnormalized probabilities p = exp(s - max)
+    split again for P.V, and the division by max(sum p, 1e-30) last."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, Sq, KV, H // KV, D)
+    s = _dot("bqkgd,bskd->bkgqs", qg, k.float(), split) / math.sqrt(D)
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
+    mask = tf.visible_mask(Sq, k.shape[1], causal, window)
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros(()))
+    o = _dot("bkgqs,bskd->bkgqd", p, v.float(), split)
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+# the kernel's sweep: the reference's cases and gemma2-2b's head shape
+# (D = 256, GQA 8 over 4) with its softcap, global and with a window
+TF32_CASES = FLASH_CASES + [
+    (1, 600, 600, 8, 4, 256, True, 0, 50.0, jnp.float32),
+    (1, 600, 600, 8, 4, 256, True, 256, 50.0, jnp.float32)]
+
+
+def _tf32_error(B, Sq, Sk, H, KV, D, causal, window, cap, dtype, split):
+    tdt = _TORCH_DTYPE[dtype]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _qkv(B, Sq, Sk, H, KV, D, seed=Sq + H + D))
+    got = _attention_tf32(q, k, v, causal, window, cap, split)
+    want = tf.attention_plain(q, k, v, causal, window, cap)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return got.float(), want.float()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype",
+                         TF32_CASES)
+def test_3xtf32_split_within_tolerance(B, Sq, Sk, H, KV, D, causal, window,
+                                       cap, dtype):
+    """The kernel's 3xTF32 products keep attention within the reference's
+    tolerance of the plain fp32 version: 1e-5 in fp32, 2e-2 in bf16."""
+    got, want = _tf32_error(B, Sq, Sk, H, KV, D, causal, window, cap, dtype,
+                            split=True)
+    tol = _tol(dtype)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype",
+                         [c for c in TF32_CASES if c[-1] == jnp.float32])
+def test_single_tf32_product_breaks_tolerance(B, Sq, Sk, H, KV, D, causal,
+                                              window, cap, dtype):
+    """Why the kernel splits: one TF32 product per operand pair (10-bit
+    mantissas) puts fp32 attention beyond 1e-5 on every case of the sweep
+    (about 1e-3), while the split stays within it."""
+    got, want = _tf32_error(B, Sq, Sk, H, KV, D, causal, window, cap, dtype,
+                            split=False)
+    err = float((got - want).abs().max())
+    assert err > 10 * _tol(dtype), err
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -122,6 +213,10 @@ def cuda_device():
                              (1, 600, 600, 8, 4, 256, True, 256, 50.0,
                               jnp.float32),
                              (1, 77, 77, 4, 2, 40, True, 0, 0.0,
+                              jnp.float32),
+                             (1, 300, 300, 8, 4, 256, True, 0, 50.0,
+                              jnp.bfloat16),
+                             (1, 50, 50, 2, 1, 13, True, 0, 0.0,
                               jnp.float32)])
 def test_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV, D,
                                       causal, window, cap, dtype):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor anything of the JAX package, and no source of the port (nor
-``chip_smoke.py``) imports them."""
+``chip_smoke.py`` and the development scripts in ``scripts/``) imports
+them."""
 import json
 import os
 import re
@@ -10,7 +11,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "scripts").glob("*.py")))
 
 
 def _module_names():

@@ -201,3 +201,187 @@ def test_topk_flat_rows_equal_reference(device):
     out = tt.topk_compress_flat(torch.from_numpy(buf).to(device),
                                 torch.from_numpy(meta).to(device))
     np.testing.assert_array_equal(_np(out), ref)
+
+
+# =============================================================================
+# the radix select of csrc/topk_compress.cu, modelled in numpy
+# =============================================================================
+def _radix_select_model(xb: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """The CUDA kernel's algorithm step by step, over all blocks at once:
+    uint32 magnitude keys; 4 MSB-first passes of 8-bit digit histograms
+    over the valid lanes matching the prefix, the bin found by 32 "lanes"
+    of 8 bins each (a suffix sum over the lanes, then the lane's own bins
+    from the top); then the tie rank as the kernel builds it (a count per
+    thread of 4 lanes, an inclusive scan within each warp of 32 threads,
+    the warp totals before it).  Returns the kept values, 0 elsewhere."""
+    nb, block = xb.shape
+    rows = np.arange(nb)
+    valid = np.minimum(meta[:, 0].astype(np.int64), block)
+    k = meta[:, 1].astype(np.int64)
+    lane = np.arange(block)[None]
+    ok = lane < valid[:, None]
+    key = xb.view(np.uint32) & np.uint32(0x7fffffff)
+    prefix = np.zeros(nb, np.uint32)
+    rem = k.copy()
+    for shift in (24, 16, 8, 0):
+        digit = (key >> np.uint32(shift)) & np.uint32(0xff)
+        match = ok.copy()
+        if shift < 24:
+            match &= (key >> np.uint32(shift + 8)) == prefix[:, None]
+        hist = np.zeros((nb, 256), np.int64)
+        np.add.at(hist, (np.broadcast_to(rows[:, None], key.shape)[match],
+                         digit[match]), 1)
+        per_lane = hist.reshape(nb, 32, 8)
+        sums = per_lane.sum(axis=2)                         # (nb, 32)
+        incl = np.cumsum(sums[:, ::-1], axis=1)[:, ::-1]    # lanes >= l
+        above = incl - sums
+        owner = (above < rem[:, None]) & (rem[:, None] <= incl)
+        new_prefix, new_rem = prefix.copy(), rem.copy()
+        for b in range(nb):
+            if k[b] <= 0 or k[b] >= valid[b]:
+                continue                 # the kernel's short cuts
+            (l,) = np.flatnonzero(owner[b])      # exactly one lane
+            a = above[b, l]
+            for j in range(7, -1, -1):
+                c = per_lane[b, l, j]
+                if a + c >= rem[b]:
+                    new_prefix[b] = (int(prefix[b]) << 8) | (l * 8 + j)
+                    new_rem[b] = rem[b] - a
+                    break
+                a += c
+        prefix, rem = new_prefix, new_rem
+    kth, quota = prefix[:, None], rem[:, None]
+    eq = ok & (key == kth)
+    pad = (-block) % 4
+    per_thread = np.pad(eq, ((0, 0), (0, pad))).reshape(nb, -1, 4).sum(2)
+    nthreads = -(-per_thread.shape[1] // 32) * 32
+    per_thread = np.pad(per_thread, ((0, 0), (0, nthreads -
+                                              per_thread.shape[1])))
+    warps = per_thread.reshape(nb, -1, 32)
+    warp_incl = np.cumsum(warps, axis=2)
+    warp_tot = warp_incl[:, :, -1]
+    before = np.cumsum(warp_tot, axis=1) - warp_tot
+    thread_excl = (warp_incl - warps + before[:, :, None]).reshape(nb, -1)
+    lane_in_thread = np.cumsum(np.pad(eq, ((0, 0), (0, pad))).reshape(
+        nb, -1, 4), axis=2) - np.pad(eq, ((0, 0), (0, pad))).reshape(
+        nb, -1, 4)
+    eq_rank = (thread_excl[:, :lane_in_thread.shape[1], None]
+               + lane_in_thread).reshape(nb, -1)[:, :block]
+    keep = ok & ((key > kth) | (eq & (eq_rank < quota)))
+    keep |= ok & (k[:, None] >= valid[:, None])
+    keep &= (k[:, None] > 0) & (valid[:, None] > 0)
+    return np.where(keep, xb, np.float32(0))
+
+
+def _model_equals_reference(x: np.ndarray, meta: np.ndarray, block: int):
+    nb = x.size // block
+    xb = x.reshape(nb, block)
+    ref = np.asarray(jt._topk_blocks_ref(jnp.asarray(xb), jnp.asarray(meta),
+                                         int(meta[:, 1].max())))
+    got = _radix_select_model(xb, meta)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    plain = tt.topk_blocks_plain(torch.from_numpy(xb),
+                                 torch.from_numpy(meta)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), plain.view(np.int32))
+    return got
+
+
+def _vgg5_row(seed: int, density: float):
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.models.vgg import init
+    layout = FlatLayout(init(VGG5, torch.Generator().manual_seed(seed),
+                             device="cpu"))
+    x = np.random.RandomState(seed).randn(layout.padded).astype(np.float32)
+    return x, layout.block_meta(density).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["ties", "heavy ties k=1..512",
+                                  "masked tail", "density from true size",
+                                  "density 1.0", "VGG-5 row",
+                                  "equal exponents", "zeros and infinities",
+                                  "block 100", "block 99"])
+def test_radix_select_model_equals_reference(case):
+    """The kernel's radix select (digit histograms over uint32 magnitude
+    keys, the prefix and remaining k, the lane-order tie scan) is bit for
+    bit the reference's ``_topk_blocks_ref`` and the plain version."""
+    rng = np.random.RandomState(17)
+    if case == "ties":
+        x = np.asarray([5.0, -3.0, 3.0, 3.0, -5.0, 1.0, 0.5, 0.25] * 16,
+                       np.float32)
+        meta, block = np.asarray([[128, k] for k in (3,)], np.int32), 128
+    elif case == "heavy ties k=1..512":
+        x = rng.randint(-3, 4, 512 * 512).astype(np.float32)
+        x[x == 0] = 1.0
+        meta = np.asarray([[512, k] for k in range(1, 513)], np.int32)
+        block = 512
+    elif case == "masked tail":
+        x = rng.randn(2048).astype(np.float32)
+        x[1500:] = 100.0
+        meta, block = tt.density_block_meta(1500, 1024, 0.02), 1024
+    elif case == "density from true size":
+        x = np.zeros(1024, np.float32)
+        x[:100] = rng.randn(100)
+        meta, block = tt.density_block_meta(100, 1024, 0.05), 1024
+    elif case == "density 1.0":
+        x = rng.randn(3000).astype(np.float32)
+        x = np.pad(x, (0, 72))
+        meta, block = tt.density_block_meta(3000, 1024, 1.0), 1024
+    elif case == "VGG-5 row":
+        x, meta = _vgg5_row(0, 0.1)
+        block = 1024
+    elif case == "equal exponents":
+        # magnitudes in [1, 2): every key shares its top 9 bits, so the
+        # passes at bits 24 and 16 each leave one bin
+        x = (1.0 + rng.rand(4096)).astype(np.float32)
+        x[::3] *= -1
+        meta = np.asarray([[1024, k] for k in (1, 100, 700, 1023)], np.int32)
+        block = 1024
+    elif case == "zeros and infinities":
+        x = rng.randn(1024).astype(np.float32)
+        x[:300] = 0.0
+        x[300:310] = -0.0
+        x[500:503] = np.inf
+        x[900] = -np.inf
+        x = np.tile(x, 3)
+        meta = np.asarray([[1024, 2], [1024, 720], [1000, 990]], np.int32)
+        block = 1024
+    elif case == "block 100":  # a block of 25 threads, one warp
+        x = rng.randn(700).astype(np.float32)
+        meta = np.asarray([[100, k] for k in (1, 10, 33, 50, 99, 100, 5)],
+                          np.int32)
+        block = 100
+    else:                      # not a multiple of 4: the last thread's
+        x = rng.randn(693).astype(np.float32)   # last lane lies past it
+        meta = np.asarray([[99, k] for k in (1, 10, 33, 50, 98, 99, 5)],
+                          np.int32)
+        block = 99
+    got = _model_equals_reference(x, meta, block)
+    kept = (got != 0).sum(axis=1)
+    if case != "zeros and infinities":       # kept zeros count as dropped
+        np.testing.assert_array_equal(kept, np.minimum(meta[:, 1],
+                                                       meta[:, 0]))
+
+
+def test_topk_odd_block_sizes_equal_reference(device):
+    """Blocks smaller than 1024 lanes: 100 and 36 lanes (multiples of 4,
+    the float4 path, 25 and 9 threads rounded up to one warp) and 99 and
+    37 lanes (not multiples of 4: the kernel's scalar path, where the last
+    thread's last lanes fall past the block)."""
+    rng = np.random.RandomState(23)
+    for block, ks in [(100, (1, 10, 33, 50, 99, 100, 5)), (36, (1, 7, 35)),
+                      (99, (1, 10, 33, 50, 98, 99, 5)), (37, (1, 7, 36))]:
+        x = rng.randn(block * len(ks)).astype(np.float32)
+        meta = np.asarray([[block, k] for k in ks], np.int32)
+        ref = np.asarray(jt._topk_blocks_ref(
+            jnp.asarray(x.reshape(len(ks), block)), jnp.asarray(meta),
+            max(ks))).reshape(-1)
+        # one row per block: rows share meta, so give each row its own
+        for b, k in enumerate(ks):
+            row = x[b * block:(b + 1) * block][None]
+            out = tt.topk_compress_flat(torch.from_numpy(row).to(device),
+                                        torch.tensor([[block, k]]).to(
+                                            device), block)
+            np.testing.assert_array_equal(
+                _np(out)[0].view(np.int32),
+                ref[b * block:(b + 1) * block].view(np.int32))
