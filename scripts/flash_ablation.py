@@ -4,9 +4,7 @@
 
 A development script, outside the port's package: nothing the port runs
 calls it.  Each variant is ``src/repro_torch/kernels/csrc/flash_attention.cu``
-with one textual change (a change that no longer applies to the source
-fails the run, naming the text it looked for), built like the kernel
-(``nvcc`` for sm_90a, all variants at once) into the build directory and
+with one textual change, built by ``scripts/variants.py`` and
 timed by ``chip_smoke.time_ms`` (CUDA events over CUDA-graph replays) at
 gemma2-2b's prefill shape (S = 4608, H = 8, KV = 4, D = 256, causal; global
 softcap 50, local window 4096 softcap 50, global softcap 0) on seeded
@@ -24,7 +22,6 @@ a measurement of the kernel's parts, never a kernel the port calls.
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +33,7 @@ import torch  # noqa: E402
 from chip_smoke import time_ms  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tf  # noqa: E402
+from variants import build_variants  # noqa: E402
 
 _TO_TF32 = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 _SPLIT = ("  hi = to_tf32(x);\n"
@@ -57,37 +55,6 @@ VARIANTS = {
 SHAPES = [(0, 50.0), (4096, 50.0), (0, 0.0)]   # (window, softcap)
 
 
-def build_variants() -> dict:
-    """Write and compile every variant; returns ``{name: ctypes.CDLL}``."""
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: the source no longer "
-                                   f"holds {old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        cu = _build.BUILD_DIR / f"flash_ablation_{i}.cu"
-        so = cu.with_suffix(".so")
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        fn = lib.repro_flash_attention
-        fn.argtypes = list(tf._SIGNATURES["repro_flash_attention"])
-        fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def _call(lib, q, k, v, window, cap):
     out = torch.empty_like(q)
     B, S, H, D = q.shape
@@ -107,7 +74,7 @@ def main(rounds: int = 2) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
-    libs = build_variants()
+    libs = build_variants("flash_attention", VARIANTS, tf._SIGNATURES)
     gen = torch.Generator().manual_seed(0)
     S, H, KV, D = 4608, 8, 4, 256
     q, k, v = (torch.randn(shape, generator=gen).cuda()

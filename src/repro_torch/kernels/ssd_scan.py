@@ -7,14 +7,18 @@ takes the layout of the model's ``ssd_chunked``: x ``(B, S, H, P)``, dt
 N)``, an optional ``(B, H, P, N)`` entering state; it returns y ``(B, S,
 H, P)`` and the ``(B, H, P, N)`` state after the last row.  Chunks are
 ``min(chunk, S)`` rows, the last one ragged.  Everything is float32.  A
-CUDA tensor launches the hand-written kernel (``csrc/ssd_scan.cu``); a CPU
-tensor takes ``ssd_scan_plain``, the chunked form of the reference's
-``ssd_chunked`` in PyTorch.  ``ssd_sequential`` is the recurrence itself
+CUDA tensor launches the hand-written kernel (``csrc/ssd_scan.cu``: a
+chunk-parallel scan of four device kernels per call, over one scratch
+buffer this wrapper allocates at the size the source asks for;
+``LAUNCHES`` counts the call once); a CPU tensor takes
+``ssd_scan_plain``, the chunked form of the reference's ``ssd_chunked`` in
+PyTorch.  ``ssd_sequential`` is the recurrence itself
 (the reference's ``ref.ssd_sequential``), for tests and drills.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,8 +30,13 @@ _SIGNATURES = {
     "repro_ssd_scan": (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p),
+    "repro_ssd_scan_scratch": (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p),
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)),
 }
 MAX_CHUNK = 128
 MAX_STATE_DIM = 128
@@ -35,6 +44,16 @@ MAX_STATE_DIM = 128
 
 def _lib():
     return _build.load("ssd_scan", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
+    """The floats of scratch one kernel call takes at these sizes: the
+    source owns the layout (``repro_ssd_scan_scratch``)."""
+    floats = ctypes.c_longlong()
+    _build.check_launch(_lib().repro_ssd_scan_scratch(
+        B, S, H, P, N, Q, ctypes.byref(floats)), "ssd_scan scratch")
+    return floats.value
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -152,16 +171,28 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: the kernel takes chunks up to "
                          f"{MAX_CHUNK} rows and state dims up to "
                          f"{MAX_STATE_DIM}; got chunk {Q}, N {N}")
-    x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
+    # x, Bm and Cm may be views with row strides of their own (the model's
+    # slices of one projection): the kernel takes those as they are
+    if x.stride(3) != 1 or x.stride(2) != P:
+        x = x.contiguous()
+    if Bm.stride(2) != 1 or Cm.stride(2) != 1 or Bm.stride() != Cm.stride():
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    dt, A = dt.contiguous(), A.contiguous()
     init = None if init_state is None else init_state.contiguous()
-    y = torch.empty_like(x)
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((Bsz, H, P, N), dtype=x.dtype, device=x.device)
+    # the passes' scratch: chunk scores, in-chunk cumsums, the chunks' own
+    # states and the states entering them
+    scratch = torch.empty(_scratch_floats(Bsz, S, H, P, N, Q),
+                          dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check_launch(_lib().repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if init is None else init.data_ptr(),
-            y.data_ptr(), final.data_ptr(), Bsz, S, H, P, N, Q, stream),
+            y.data_ptr(), final.data_ptr(), scratch.data_ptr(), Bsz, S, H, P,
+            N, Q, x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+            stream),
             "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, final

@@ -136,6 +136,142 @@ def test_ssd_scan_rejects_bad_inputs(change, match):
 
 
 # =============================================================================
+# the kernel's four passes and 3xTF32 arithmetic, emulated on the CPU
+# =============================================================================
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits cleared); copied from
+    tests/test_torch_attention.py."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _dot_parts(eq: str, a: torch.Tensor, b: torch.Tensor, tf32: int):
+    """A product in the arithmetic ``tf32`` names, as (small, large) sums.
+    3: the kernel's 3xTF32, hi = tf32(x), lo = tf32(x - hi), the small
+    products lo.hi + hi.lo summed apart from hi.hi (its two accumulators);
+    products of two TF32 values are exact in fp32, so only the sums round.
+    1: one TF32 product hi.hi.  0: the fp32 product."""
+    if not tf32:
+        return 0.0, torch.einsum(eq, a, b)
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    if tf32 == 1:
+        return 0.0, torch.einsum(eq, ah, bh)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl),
+            torch.einsum(eq, ah, bh))
+
+
+def _dot(eq: str, a: torch.Tensor, b: torch.Tensor,
+         tf32: int) -> torch.Tensor:
+    small, large = _dot_parts(eq, a, b, tf32)
+    return small + large
+
+
+def _ssd_passes(x, dt, A, Bm, Cm, chunk, init_state=None, tf32=3):
+    """The four passes of ``csrc/ssd_scan.cu`` in plain PyTorch: the chunk
+    scores C.B^T once per (batch, chunk); per head the in-order cumsum of
+    the rounded dt * A and the chunk states (w o x)^T.B with w_j =
+    exp(cum_last - cum_j) dt_j; the state pass S <- exp(cum_last) S +
+    states[c] from ``init_state``; the chunk scan, its decay evaluated only
+    at j <= i, (e o C).S_enter^T and G.x summed into the same two
+    accumulators, e_i = exp(cum_i).  Test code: no path of the package runs
+    it."""
+    F = torch.nn.functional
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xc = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, H, P)
+    dtc = F.pad(dt, (0, 0, 0, pad)).reshape(Bsz, nc, Q, H)
+    Bc = F.pad(Bm, (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    Cc = F.pad(Cm, (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    # 1. chunk scores
+    scores = _dot("bcin,bcjn->bcij", Cc, Bc, tf32)
+    # 2. cum in order, weights, chunk states
+    dtA = dtc * A
+    run, cums = torch.zeros_like(dtA[:, :, 0]), []
+    for r in range(Q):
+        run = run + dtA[:, :, r]
+        cums.append(run)
+    cum = torch.stack(cums, dim=2)                       # (B, nc, Q, H)
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc
+    states = _dot("bcjhp,bcjn->bchpn", xc * w[..., None], Bc, tf32)
+    # 3. the state pass
+    s = init_state if init_state is not None else torch.zeros(Bsz, H, P, N)
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = torch.exp(cum[:, c, -1])[..., None, None] * s + states[:, c]
+    # 4. the chunk scan
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :,
+                                                        None]
+    diff = torch.where(causal, cum[:, :, :, None] - cum[:, :, None], 0.0)
+    G = torch.where(causal, scores[..., None] * torch.exp(diff)
+                    * dtc[:, :, None], 0.0)
+    Ce = torch.exp(cum)[..., None] * Cc[:, :, :, None]   # (B, nc, Q, H, N)
+    small_e, large_e = _dot_parts("bcihn,bchpn->bcihp", Ce,
+                                  torch.stack(entering, dim=1), tf32)
+    small_i, large_i = _dot_parts("bcijh,bcjhp->bcihp", G, xc, tf32)
+    y = (small_e + small_i) + (large_e + large_i)
+    return y.reshape(Bsz, nc * Q, H, P)[:, :S], s
+
+
+# mamba2-780m's widths with H cut to 4, ragged (300) and whole chunks
+# (384); one case with a small dt (the real layers' range), where the
+# entering state reaches far into the sequence; N=12, P=40 with a chunk of
+# 40 (not a multiple of the 16-row tiles): B, S, H, P, N, chunk, init,
+# dt scale
+SSD_PASS_CASES = [
+    (1, 300, 4, 64, 128, 128, False, 1.0),
+    (1, 300, 4, 64, 128, 128, True, 1.0),
+    (1, 384, 4, 64, 128, 128, False, 1.0),
+    (1, 384, 4, 64, 128, 128, True, 1.0),
+    (1, 384, 4, 64, 128, 128, True, 0.02),
+    (2, 70, 3, 40, 12, 40, True, 1.0),
+]
+SSD_REL = 1e-5   # relative bound: max abs error <= SSD_REL * max |want|
+
+
+@pytest.mark.parametrize("tf32", [0, 3], ids=["fp32", "3xtf32"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init,dt_scale", SSD_PASS_CASES)
+def test_kernel_passes_match_reference(B, S, H, P, N, chunk, init,
+                                       dt_scale, tf32):
+    """The kernel's design, before any chip time: its four passes, in fp32
+    and in the 3xTF32 split, against the reference's ``ssd_ref`` (no
+    entering state) or ``ssd_chunked(init_state=...)``, at SSD_TOL and
+    within SSD_REL of the largest reference value, on y and on the
+    state."""
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(B, S, H, P, N, seed=S + N, init=init)
+    dt = (dt * dt_scale).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    if init:
+        want_y, want_s = JS.ssd_chunked(*jargs, chunk,
+                                        init_state=jnp.asarray(s0))
+    else:
+        want_y, want_s = ssd_ref(*jargs, chunk)
+    y, state = _ssd_passes(*_t(x, dt, A, Bm, Cm), chunk, *_t(s0), tf32=tf32)
+    for got, want in ((y, want_y), (state, want_s)):
+        want = np.asarray(want)
+        _close(got.numpy(), want, SSD_TOL)
+        err = np.abs(got.numpy() - want).max()
+        assert err <= SSD_REL * np.abs(want).max(), (err,
+                                                      np.abs(want).max())
+
+
+def test_single_tf32_product_breaks_relative_bound():
+    """The split is needed: the passes with one TF32 product (hi.hi) miss
+    the relative bound by far on mamba2's widths."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 300, 4, 64, 128, seed=3)
+    args = _t(x, dt, A, Bm, Cm)
+    want, _ = ts.ssd_scan_plain(*args, 128)
+    y, _ = _ssd_passes(*args, 128, tf32=1)
+    err = float((y - want).abs().max())
+    assert err > 10 * SSD_REL * float(want.abs().max())
+
+
+# =============================================================================
 # the model
 # =============================================================================
 @pytest.fixture(scope="module")
@@ -327,6 +463,13 @@ def cuda_device():
     (2, 96, 4, 16, 16, 32, True),       # entering state, ragged
     (1, 1000, 48, 64, 128, 128, False),  # mamba2-780m widths, ragged
     (1, 70, 3, 40, 12, 64, True),        # P not a multiple of 32, N of 4
+    (1, 4096, 8, 64, 128, 128, False),   # many chunks (32)
+    (2, 1000, 4, 64, 128, 128, True),    # B > 1, ragged, entering state
+    (2, 50, 4, 64, 128, 128, True),      # S < chunk: one chunk of 50
+    (1, 300, 4, 64, 128, 40, True),      # Q = 40: not a multiple of 16
+    (1, 200, 2, 130, 20, 64, False),     # P over two 64-column slices
+    (1, 200, 3, 65, 16, 64, True),       # odd P over 64: odd row starts
+    (2, 37, 3, 5, 3, 7, True),           # odd P and N, chunks of 7 rows
 ])
 def test_kernel_matches_plain_on_card(cuda_device, B, S, H, P, N, chunk,
                                       init):
@@ -338,6 +481,26 @@ def test_kernel_matches_plain_on_card(cuda_device, B, S, H, P, N, chunk,
     y, state = ts.ssd_scan(x, dt, A, Bm, Cm, chunk, init_state=s0)
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_s = ts.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, s0)
+    torch.testing.assert_close(y, want_y, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(state, want_s, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_strided_views_on_card(cuda_device):
+    """x, Bm and Cm as the model passes them: views of one projection with
+    a row stride of their own, which the kernel reads in place."""
+    B, S, H, P, N, chunk = 2, 300, 4, 64, 128, 128
+    x, dt, A, Bm, Cm, s0 = (torch.from_numpy(a).to(cuda_device)
+                            for a in _ssd_inputs(B, S, H, P, N, seed=11,
+                                                 init=True))
+    row = torch.cat([x.reshape(B, S, H * P), Bm, Cm,
+                     torch.zeros(B, S, 4, device=cuda_device)], dim=-1)
+    xv = row[..., :H * P].reshape(B, S, H, P)
+    Bv, Cv = row[..., H * P:H * P + N], row[..., H * P + N:H * P + 2 * N]
+    assert not xv.is_contiguous() and not Bv.is_contiguous()
+    y, state = ts.ssd_scan(xv, dt, A, Bv, Cv, chunk, init_state=s0)
+    torch.cuda.synchronize()
     want_y, want_s = ts.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, s0)
     torch.testing.assert_close(y, want_y, atol=SSD_TOL, rtol=SSD_TOL)
     torch.testing.assert_close(state, want_s, atol=SSD_TOL, rtol=SSD_TOL)
