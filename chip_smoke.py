@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    per source for sm_90a, all at once) and print the build time.
 3. hold every kernel against its plain PyTorch version on the card.  The
    int8 and top-k kernels at the VGG-5 path's shapes plus the tie and
-   masked-tail drills, bit for bit, and for top-k (a radix select) keys
+   masked-tail drills, bit for bit; for quantize/dequantize also one row,
+   odd widths, a CTA a row (4096), widths above the register limit (8200,
+   2053) and inputs 4 (x) and 1 (codes) bytes off a 16-byte boundary; for
+   top-k (a radix select) keys
    that share their top digits, blocks of 100 lanes, and blocks of 99 and
    37 lanes and a buffer 4 bytes off a 16-byte boundary (its scalar
    path); flash attention (3xTF32 on
@@ -272,23 +275,42 @@ def check_kernels(torch, tq, tt, dev):
             return 0.0
         return float((a.double() - b.double()).abs().max())
 
-    # quantize / dequantize: the VGG-5 cut at B=100 and the delta wire
-    for R, C in [(25600, 32), (6400, 64), (580, 1024), (300, 32)]:
-        x = (torch.randn((R, C), generator=gen) * 3.0)
-        for i, scale in enumerate((1.0, 2.0, 3.0)):   # exact .5 ties
-            x[i] = (torch.arange(C) % 9 - 4.5) * scale
-            x[i, 0] = 127.0 * scale
-        x[3] = 0.0                                     # all-zero row
-        x = x.to(dev)
+    # quantize / dequantize: the VGG-5 cut at B=100 (OP1, OP2) and the delta
+    # wire, then the paths the kernels' plans split on: odd C (scalar
+    # loads, 1 to 32 threads a row), one row, a CTA a row (4096), C above
+    # the register limit (the row read twice: 8200 in float4s, 2053 in
+    # scalars), and x and the codes 4 and 1 bytes off a 16-byte boundary
+    def quant_drill(x, what):
         q, s = tq.quantize_rows(x)
         qp, sp = tq.quantize_rows_plain(x)
         worst["quantize"] = max(worst["quantize"],
-                                same(q, qp, f"quantize codes ({R}, {C})"),
-                                same(s, sp, f"quantize scales ({R}, {C})"))
+                                same(q, qp, f"quantize codes {what}"),
+                                same(s, sp, f"quantize scales {what}"))
+        if x.data_ptr() % 16:
+            shifted = torch.zeros(q.numel() + 1, dtype=torch.int8,
+                                  device=dev)
+            shifted[1:] = q.reshape(-1)
+            q = shifted[1:].view(q.shape)
         worst["dequantize"] = max(worst["dequantize"], same(
             tq.dequantize_rows(q, s), tq.dequantize_rows_plain(q, s),
-            f"dequantize ({R}, {C})"))
-        print(f"quantize/dequantize ({R}, {C}): equal")
+            f"dequantize {what}"))
+        print(f"quantize/dequantize {what}: equal")
+
+    for R, C in [(25600, 32), (6400, 64), (580, 1024), (300, 32), (33, 13),
+                 (300, 37), (5, 3), (1, 1), (1, 64), (3, 4096), (2, 8200),
+                 (2, 2053)]:
+        x = (torch.randn((R, C), generator=gen) * 3.0)
+        for i, scale in enumerate((1.0, 2.0, 3.0)[:R]):   # exact .5 ties
+            x[i] = (torch.arange(C) % 9 - 4.5) * scale
+            x[i, 0] = 127.0 * scale
+        x[3:4] = 0.0                                       # all-zero row
+        quant_drill(x.to(dev), f"({R}, {C})")
+    for R, C in [(580, 1024), (300, 32), (3, 4096)]:
+        buf = torch.randn(R * C + 1, generator=gen).to(dev)
+        view = buf[1:].view(R, C)
+        if view.data_ptr() % 16 != 4:
+            fail("quantize misaligned drill: the view is not 4 bytes off")
+        quant_drill(view, f"({R}, {C}) 4 bytes off")
 
     # top-k: one VGG-5 client row at density 0.1, three rows at once, and
     # the drills (ties, masked tail, density from the true size, density 1)
@@ -1277,9 +1299,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
     from repro_torch.models.vgg import init
     gen = torch.Generator().manual_seed(1)
     rows = []
-    # quantize / dequantize at the cut (OP1, B=100: 150 calls per run) and
-    # on the delta wire (one VGG-5 client row)
-    for R, C in [(25600, 32), (580, 1024)]:
+    # quantize / dequantize at the cut (B=100: OP1, 150 calls per run, and
+    # OP2) and on the delta wire (one VGG-5 client row)
+    for R, C in [(25600, 32), (6400, 64), (580, 1024)]:
         x = torch.randn((R, C), generator=gen).to(dev)
         q, s = tq.quantize_rows(x)
         n = R * C

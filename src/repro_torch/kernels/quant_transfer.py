@@ -12,23 +12,89 @@ quantize -> dequantize with a straight-through gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 
+_PLAN_ARGS = (ctypes.c_int,) * 4   # group_log2, width, vecs, threads
 _SIGNATURES = {
     "repro_quantize_rows": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p),
+                            ctypes.c_longlong, ctypes.c_int, *_PLAN_ARGS,
+                            ctypes.c_void_p),
     "repro_dequantize_rows": (ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_void_p),
+                              ctypes.c_int, *_PLAN_ARGS, ctypes.c_void_p),
 }
 
 
 def _lib():
     return _build.load("quant_transfer", _SIGNATURES)
+
+
+# -----------------------------------------------------------------------------
+# launch plans (the kernels' thread layout, chosen here and checked there)
+# -----------------------------------------------------------------------------
+class Plan(NamedTuple):
+    """How a kernel covers an (R, C) matrix: ``group`` threads a row (a
+    power of two; at most 32 share a warp, more make the whole CTA), each
+    holding ``vecs`` vectors of ``width`` elements per pass over the row,
+    in CTAs of ``threads``.  Vector k of pass p of thread t sits at
+    ``(p * vecs + k) * group + t``."""
+    group: int
+    width: int
+    vecs: int
+    threads: int
+
+    def args(self):
+        return (self.group.bit_length() - 1, self.width, self.vecs,
+                self.threads)
+
+
+MAX_VECS = 8        # vectors a thread holds per pass (32 floats at width 4)
+MAX_GROUP = 256     # threads a row; a longer row is walked in passes
+MAX_THREADS = 256   # threads a CTA (the kernels' launch bounds)
+MIN_THREADS = 128
+SMS = 132           # H100 SXM: a grid of fewer CTAs leaves SMs idle
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=256)     # the wrappers plan every call
+def _row_plan(R: int, C: int, width: int) -> Plan:
+    n = -(-C // width)                     # vectors in a row
+    if n <= 32:
+        group, vecs = _pow2(n), 1
+    elif n <= 32 * MAX_VECS:
+        group, vecs = 32, _pow2(-(-n // 32))
+    else:
+        group = min(MAX_GROUP, _pow2(-(-n // MAX_VECS)))
+        vecs = min(MAX_VECS, _pow2(-(-n // group)))
+    if group > 32:                         # the row is the whole CTA
+        return Plan(group, width, vecs, group)
+    threads = MIN_THREADS
+    # smaller CTAs while that spreads a short matrix over more SMs
+    while threads > max(group, 32) and -(-R * group // threads) < SMS:
+        threads //= 2
+    return Plan(group, width, vecs, threads)
+
+
+def _quant_plan(R: int, C: int, data_ptr: int) -> Plan:
+    """float4 loads where every row starts 16-byte aligned, else scalar."""
+    return _row_plan(R, C, 4 if C % 4 == 0 and data_ptr % 16 == 0 else 1)
+
+
+def _dequant_plan(R: int, C: int, data_ptr: int) -> Plan:
+    """16 codes a load where every row of ``q`` starts 16-byte aligned, 4
+    where 4-byte aligned, else 1 (the output is the wrapper's, aligned)."""
+    for width in (16, 4):
+        if C % width == 0 and data_ptr % width == 0:
+            return _row_plan(R, C, width)
+    return _row_plan(R, C, 1)
 
 
 # -----------------------------------------------------------------------------
@@ -68,7 +134,8 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check_launch(_lib().repro_quantize_rows(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), R, C, stream),
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), R, C,
+            *_quant_plan(R, C, x.data_ptr()).args(), stream),
             "quantize_rows")
     LAUNCHES["quantize"] += 1
     return q, s
@@ -94,7 +161,8 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.check_launch(_lib().repro_dequantize_rows(
-            q.data_ptr(), scales.data_ptr(), out.data_ptr(), R, C, stream),
+            q.data_ptr(), scales.data_ptr(), out.data_ptr(), R, C,
+            *_dequant_plan(R, C, q.data_ptr()).args(), stream),
             "dequantize_rows")
     LAUNCHES["dequantize"] += 1
     return out

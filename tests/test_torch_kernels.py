@@ -51,12 +51,23 @@ def _tie_rows(C: int) -> np.ndarray:
 
 def _quant_inputs(R: int, C: int, seed: int) -> np.ndarray:
     x = np.random.RandomState(seed).randn(R, C).astype(np.float32) * 3.0
-    x[:3] = _tie_rows(C)
-    x[3] = 0.0                                    # all-zero row
+    x[:3] = _tie_rows(C)[:R]
+    x[3:4] = 0.0                                  # all-zero row
     return x
 
 
-@pytest.mark.parametrize("R,C", [(300, 32), (256, 64), (7, 1024)])
+# every path the kernels' plans split on (``_quant_plan``, ``_dequant_plan``):
+# C of 1, 3, 13 and 37 (scalar: 1 to 32 threads a row, 2 vectors a lane), 4
+# (a float4 a row, 16-byte loads of codes off), 32 and 64 (float4 groups of
+# 8 and 16 lanes), 1024 (a warp a row, 8 float4 a lane), 4096 (a CTA a row),
+# 8200 and 2053 (above the register limit: the row read twice, in float4s and
+# in scalars); R of 1 and R that no CTA's rows divide (300 rows of 16 a CTA)
+QUANT_SHAPES = [(300, 32), (256, 64), (7, 1024), (1, 1), (5, 3), (1, 4),
+                (33, 13), (300, 37), (1, 64), (3, 4096), (2, 8200),
+                (2, 2053)]
+
+
+@pytest.mark.parametrize("R,C", QUANT_SHAPES)
 def test_quantize_dequantize_equal_reference(R, C, device):
     x = _quant_inputs(R, C, seed=R + C)
     q_ref, s_ref = jq.quantize(jnp.asarray(x), interpret=True)
@@ -73,6 +84,72 @@ def test_quantize_dequantize_equal_reference(R, C, device):
     launched = device.type == "cuda"
     assert LAUNCHES["quantize"] - before["quantize"] == int(launched)
     assert LAUNCHES["dequantize"] - before["dequantize"] == int(launched)
+
+
+def _plan_columns(plan, C: int) -> np.ndarray:
+    """The columns a plan's threads touch, one entry per touch: thread t,
+    pass p, vector k, lane w of the vector, as the kernels index them."""
+    n = C // plan.width
+    passes = -(-n // (plan.group * plan.vecs))
+    p, k, t = np.meshgrid(np.arange(passes), np.arange(plan.vecs),
+                          np.arange(plan.group), indexing="ij")
+    vec = ((p * plan.vecs + k) * plan.group + t).ravel()
+    vec = vec[vec < n]
+    return (vec[:, None] * plan.width + np.arange(plan.width)).ravel()
+
+
+@pytest.mark.parametrize("which", ["quantize", "dequantize"])
+def test_quant_plans_cover_every_column_once_within_limits(which):
+    plan_of = tq._quant_plan if which == "quantize" else tq._dequant_plan
+    # registers a thread holds per pass: fp32 values, or 4 codes a register;
+    # a vector's load needs its own size of alignment
+    per_reg = 1 if which == "quantize" else 4
+    elem_bytes = 4 if which == "quantize" else 1
+    for C in [*range(1, 3001), 4096, 8192, 8196, 8200, 20000, 65536]:
+        for ptr in (0, 4, 1) if which == "dequantize" else (0, 4):
+            for R in (1, 580, 25600):
+                plan = plan_of(R, C, ptr)
+                g, w, v, threads = plan
+                assert C % w == 0 and ptr % (w * elem_bytes) == 0, plan
+                assert g & (g - 1) == 0 and v in (1, 2, 4, 8), plan
+                assert threads % 32 == 0 and 32 <= threads <= tq.MAX_THREADS, plan
+                assert (g <= 32 and threads % g == 0) or g == threads, plan
+                assert v * w <= 32 * per_reg, plan
+                cols = _plan_columns(plan, C)
+                assert len(cols) == C, (C, plan)
+                np.testing.assert_array_equal(np.sort(cols), np.arange(C))
+                # up to the register limit the row is read once
+                if C <= (8192 if w >= 4 else 2048):
+                    assert g * v * w >= C, (C, plan)
+    # the main path's shapes: float4 groups at the cut, a warp a row on
+    # the delta wire with a CTA per SM at least
+    assert tq._quant_plan(25600, 32, 0) == (8, 4, 1, 128)
+    assert tq._quant_plan(580, 1024, 0) == (32, 4, 8, 128)
+    assert tq._dequant_plan(580, 1024, 0) == (32, 16, 2, 128)
+
+
+@pytest.mark.cuda
+def test_quantize_misaligned_view_equals_plain():
+    """A contiguous view 4 bytes off a 16-byte boundary takes the kernels'
+    scalar paths (``_quant_plan`` width 1; codes 1 byte off: width 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for R, C in [(300, 32), (580, 1024), (3, 4096)]:
+        x = torch.from_numpy(_quant_inputs(R, C, seed=C)).reshape(-1)
+        buf = torch.zeros(R * C + 1, device="cuda")
+        buf[1:] = x.cuda()
+        view = buf[1:1 + R * C].view(R, C)
+        assert view.data_ptr() % 16 == 4
+        q, s = tq.quantize_rows(view)
+        qp, sp = tq.quantize_rows_plain(view)
+        assert torch.equal(q, qp)
+        assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
+        qbuf = torch.zeros(R * C + 1, dtype=torch.int8, device="cuda")
+        qbuf[1:] = q.reshape(-1)
+        qview = qbuf[1:].view(R, C)
+        assert torch.equal(tq.dequantize_rows(qview, s).view(torch.int32),
+                           tq.dequantize_rows_plain(qview, s)
+                           .view(torch.int32))
 
 
 def test_quantize_ties_round_half_to_even():

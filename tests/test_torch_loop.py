@@ -51,8 +51,17 @@ MODES = {
     "sfl-op2-int8": dict(mode="sfl", static_op=2, quantize_transfer=True),
     "fedadapt-topk-int8": dict(mode="fedadapt", delta_density=0.5,
                                quantize_deltas=True),
+    # failures and the straggler deadline: which clients are kept, and the
+    # round time of the slowest kept one
+    "fl-fail-deadline": dict(mode="fl", fail_prob=0.3, deadline_factor=1.0),
+    "sfl-op2-deadline": dict(mode="sfl", static_op=2, deadline_factor=1.05),
+    "fedadapt-fail-deadline-topk": dict(mode="fedadapt", fail_prob=0.3,
+                                        deadline_factor=1.05,
+                                        delta_density=0.5),
 }
-PARAMS_ATOL = {"fl": 1e-5, "sfl-op2-int8": 1e-3, "fedadapt-topk-int8": 1e-3}
+PARAMS_ATOL = {"fl": 1e-5, "sfl-op2-int8": 1e-3, "fedadapt-topk-int8": 1e-3,
+               "fl-fail-deadline": 1e-5, "sfl-op2-deadline": 1e-5,
+               "fedadapt-fail-deadline-topk": 1e-3}
 SMALL = dict(rounds=2, local_iters=2, batch_size=10, augment=True, seed=0)
 
 
