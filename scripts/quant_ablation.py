@@ -11,14 +11,16 @@ the parent (from the unpacked tree; ``archive_check/`` is git-ignored) and
 of this tree with the kernels' own ``nvcc`` flags (``scripts/variants.py``),
 calls each library directly on the same inputs and outputs at the main
 path's shapes (the VGG-5 cut at B=100, OP1 (25600, 32) and OP2 (6400, 64);
-the delta wire, (580, 1024)), requires the codes, scales and values of both
+the delta wire, (580, 1024)) and at (1, 4), the fixed cost of a launch,
+requires the codes, scales and values of both
 to equal the plain version's bit for bit, and times them in turns (parent,
 this tree, this tree, parent) with ``chip_smoke.time_ms``: CUDA events over
 CUDA-graph replays, the inputs resident in L2 as on the main path.  This
-tree's kernels also run under plans that ``_quant_plan`` /
-``_dequant_plan`` do not choose (scalar loads; 4 codes a load), to show
-what the wide accesses buy.  The bound is the bytes each call must move
-over 3.35 TB/s.  The record goes to ``chiprun_out/quant_ablation.json``.
+tree's kernels also run under the scalar plan (what ``_quant_plan`` /
+``_dequant_plan`` give a misaligned input), to show what the 16- and
+4-byte accesses buy; ``--sweep`` first times them under every plan
+that holds a row in one pass (the data the plans' rules were chosen on).
+The bound is the bytes each call must move over 3.35 TB/s.  The record goes to ``chiprun_out/quant_ablation.json``.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ from repro_torch.kernels import quant_transfer as tq  # noqa: E402
 from variants import build_sources  # noqa: E402
 
 SHAPES = [(25600, 32), (6400, 64), (580, 1024)]
+# one row of 4: a launch that does almost nothing, the fixed cost of a
+# kernel in a graph that the main path's shapes pay besides their bytes
+FLOOR = (1, 4)
 SOURCE = Path("src/repro_torch/kernels/csrc/quant_transfer.cu")
 # the parent's entry points took no plan
 PARENT_SIGNATURES = {
@@ -72,12 +77,71 @@ def calls(lib, R, C, x, q, s, out, quant_plan, dequant_plan):
     return quantize, dequantize
 
 
+def candidate_plans(C, widths):
+    """Every plan the kernels take that holds the row in one pass and is
+    less than twice as wide as the row."""
+    for width in widths:
+        if C % width:
+            continue
+        n = C // width
+        for group in (1 << i for i in range(9)):
+            for vecs in (1, 2, 4, 8):
+                span = group * vecs
+                if span >= n and (span < 2 * n or span == 1):
+                    yield tq.Plan(group, width, vecs, tq.cta_threads(group))
+
+
+def sweep(libs, dev) -> list:
+    """This tree's kernels under every candidate plan at each shape, each
+    checked bit for bit against the plain version; fastest first."""
+    gen = torch.Generator().manual_seed(2)
+    rows = []
+    for R, C in SHAPES:
+        x = torch.randn((R, C), generator=gen).to(dev)
+        qp, sp = tq.quantize_rows_plain(x)
+        dp = tq.dequantize_rows_plain(qp, sp)
+        q, s, out = (torch.empty_like(t) for t in (qp, sp, dp))
+        found = []
+        for kernel in ("quantize", "dequantize"):
+            for plan in candidate_plans(C, (4, 1)):
+                quantize, dequantize = calls(libs["new"], R, C, x, q, s, out,
+                                             plan, plan)
+                if kernel == "dequantize":
+                    q.copy_(qp)
+                    s.copy_(sp)
+                fn = quantize if kernel == "quantize" else dequantize
+                fn()
+                torch.cuda.synchronize()
+                ok = (torch.equal(q, qp) and torch.equal(s, sp)
+                      if kernel == "quantize" else torch.equal(out, dp))
+                if not ok:
+                    sys.exit(f"quant_ablation: {kernel} under {plan} at "
+                             f"({R}, {C}) differs from the plain version")
+                found.append({"shape": [R, C], "kernel": kernel,
+                              "plan": list(plan), "ms": time_ms(fn)})
+        for kernel in ("quantize", "dequantize"):
+            mine = sorted((r for r in found if r["kernel"] == kernel),
+                          key=lambda r: r["ms"])
+            chosen = list((tq._quant_plan if kernel == "quantize"
+                           else tq._dequant_plan)(C, 0))
+            for r in mine:
+                mark = "  <- the wrapper's plan" if r["plan"] == chosen else ""
+                print(f"sweep ({R}, {C}) {kernel:10s} plan (group, width, "
+                      f"vecs, threads) {tuple(r['plan'])}: {r['ms']:.5f} ms"
+                      f"{mark}", flush=True)
+            rows += mine
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default="archive_check/parent",
                     help="the parent tree, unpacked from git archive")
     ap.add_argument("--rounds", type=int, default=2,
                     help="turns of (parent, this tree) and back")
+    ap.add_argument("--sweep", action="store_true",
+                    help="first time this tree's kernels under every "
+                         "candidate plan")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("quant_ablation: no CUDA device")
@@ -94,20 +158,20 @@ def main(argv=None) -> None:
     gen = torch.Generator().manual_seed(1)
     dev = torch.device("cuda", 0)
     record = {"card": card, "rows": []}
-    for R, C in SHAPES:
+    if args.sweep:
+        record["sweep"] = sweep(libs, dev)
+    for R, C in SHAPES + [FLOOR]:
         x = torch.randn((R, C), generator=gen).to(dev)
         qp, sp = tq.quantize_rows_plain(x)
         dp = tq.dequantize_rows_plain(qp, sp)
         n = R * C
         nbytes = n * 4 + n + R * 4          # the same for both directions
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        qplan, dplan = tq._quant_plan(R, C, 0), tq._dequant_plan(R, C, 0)
+        qplan, dplan = tq._quant_plan(C, 0), tq._dequant_plan(C, 0)
         runs = {"parent": (libs["parent"], None, None),
                 "new": (libs["new"], qplan, dplan),
-                "new, scalar": (libs["new"], tq._row_plan(R, C, 1),
-                                tq._row_plan(R, C, 1)),
-                "new, 4 codes a load": (libs["new"], qplan,
-                                        tq._row_plan(R, C, 4))}
+                "new, scalar": (libs["new"], tq._row_plan(C, 1),
+                                tq._row_plan(C, 1))}
         fns = {}
         for name, (lib, qpl, dpl) in runs.items():
             q = torch.empty_like(qp)
@@ -124,12 +188,9 @@ def main(argv=None) -> None:
                     sys.exit(f"quant_ablation: {name} {what} at ({R}, {C}) "
                              f"differ from the plain version")
             fns[name] = (quantize, dequantize)
-        order = (["parent", "new", "new", "parent"] * args.rounds
-                 + ["new, scalar", "new, 4 codes a load"])
-        for name in order:
+        order = ["parent", "new", "new", "parent"] * args.rounds
+        for name in order + ["new, scalar"]:
             for kernel, fn in zip(("quantize", "dequantize"), fns[name]):
-                if kernel == "quantize" and name == "new, 4 codes a load":
-                    continue                  # the same quantize as "new"
                 row = {"shape": [R, C], "tree": name, "kernel": kernel,
                        "ms": time_ms(fn), "call_ms": time_ms(fn, graph=False),
                        "bound_ms": bound}

@@ -29,22 +29,28 @@
 // whole CTA (one row per CTA).  Each thread holds, per pass over its row, V
 // vectors of W elements, vector k of the pass at (pass * V + k) * G + t for
 // thread t of the group: neighbouring threads take neighbouring vectors, so
-// every access of a warp is contiguous.  The plan (G, W, V, threads per CTA)
-// is chosen in Python (`quant_transfer._quant_plan` / `_dequant_plan`, which
-// the CPU tests check for cover and limits) and checked again here.
-// - quantize: W = 4 (16-byte float4 loads, 4-byte char4 code stores) when C
-//   is a multiple of 4 and x is 16-byte aligned, else W = 1 (scalar).  When
-//   G * V * W >= C the row is read once and stays in registers (at most 32
-//   floats a thread) through the absmax reduction (shuffles over the group's
-//   width only, then, for a CTA group, one shared-memory step) and the code
-//   pass.  A longer row is read twice, in passes of G * V vectors: absmax,
-//   then the codes.  At (25600, 32): 8 threads a row, 4 rows a warp, one
-//   float4 each; at (580, 1024): a warp a row, 8 float4 a lane (128 B in
-//   flight), 4 warps a CTA: 145 CTAs for the 132 SMs.
-// - dequantize: W = 16 codes (one 16-byte load, four float4 stores), or 4
-//   (one 4-byte load, one float4 store), or 1, by C and q's alignment.  The
-//   row comes from the thread's index by shifts, not by a division, and its
-//   scale is read once; the V loads of a pass are issued before the stores.
+// every access of a warp is contiguous.  W = 4 (a 16-byte float4 of x, a
+// 4-byte char4 of codes) when C is a multiple of 4 and the input's rows
+// start aligned (x 16-byte, q 4-byte), else W = 1.  The plan (G, W, V,
+// threads per CTA) is chosen in Python (`quant_transfer._row_plan`: about 4
+// elements a thread, up to 256 threads a row, then up to 8 vectors a
+// thread, then passes; the CPU tests check its cover and limits) and
+// checked again here.  Many threads with one vector each beat fewer
+// threads with many: at (580, 1024) a CTA of 256 a row took 0.0031 ms, a
+// warp a row with 8 float4 a lane 0.0039 (scripts/quant_ablation.py
+// --sweep, H100 80GB HBM3, 700 W).
+// - quantize: when G * V * W >= C the row is read once and stays in
+//   registers (at most 32 floats a thread) through the absmax reduction
+//   (shuffles over the group's width only, then, for a CTA group, one
+//   shared-memory step) and the code pass.  A longer row is read twice, in
+//   passes of G * V vectors: absmax, then the codes.  At (25600, 32): 8
+//   threads a row, 4 rows a warp, one float4 each, one 128-byte store of
+//   codes per warp.
+// - dequantize: a thread loads its V code vectors before it stores any
+//   (4 codes -> one float4).  The row comes from the thread's index by
+//   shifts, not by a division, and its scale is read once.  (16 codes a
+//   load, four float4 stores 64 bytes apart across the lanes, was 1.5-1.7x
+//   slower at every main-path shape in this design's first sweep.)
 // Offsets are 64-bit; a launch needs rows * cols to fit in a long long only.
 
 #include <cuda_runtime.h>
@@ -156,9 +162,8 @@ quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
-// Codes held by one thread for one vector: 16 in an int4, 4 in an int, 1.
+// Codes held by one thread for one vector: 4 in an int, or 1.
 template <int W> struct Codes;
-template <> struct Codes<16> { using T = int4; };
 template <> struct Codes<4> { using T = int; };
 template <> struct Codes<1> { using T = int8_t; };
 
@@ -197,13 +202,7 @@ dequantize_rows_kernel(const int8_t* __restrict__ q,
     for (int k = 0; k < V; ++k) {
       const int i = base + k * group + t;
       if (i >= n) continue;
-      if constexpr (W == 16) {
-        float4* o = reinterpret_cast<float4*>(orow + 16LL * i);
-        o[0] = decode4(c[k].x, s);
-        o[1] = decode4(c[k].y, s);
-        o[2] = decode4(c[k].z, s);
-        o[3] = decode4(c[k].w, s);
-      } else if constexpr (W == 4) {
+      if constexpr (W == 4) {
         *reinterpret_cast<float4*>(orow + 4LL * i) = decode4(c[k], s);
       } else {
         orow[i] = (float)c[k] * s;
@@ -290,13 +289,13 @@ extern "C" int repro_quantize_rows(const void* x, void* q, void* scales,
 }
 
 // q (rows, cols) int8, scales (rows,) fp32 -> out (rows, cols) fp32 (out
-// 16-byte aligned), under the plan: `width` codes a vector (16, 4 or 1).
+// 16-byte aligned), under the plan: `width` codes a vector (4 or 1).
 extern "C" int repro_dequantize_rows(const void* q, const void* scales,
                                      void* out, long long rows, int cols,
                                      int group_log2, int width, int vecs,
                                      int threads, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  if ((width != 16 && width != 4 && width != 1) ||
+  if ((width != 4 && width != 1) ||
       !plan_ok(cols, group_log2, width, vecs, threads, (uintptr_t)q, width) ||
       (uintptr_t)out % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -305,12 +304,8 @@ extern "C" int repro_dequantize_rows(const void* q, const void* scales,
   const auto* qq = (const int8_t*)q;
   const auto* ss = (const float*)scales;
   auto* oo = (float*)out;
-  switch (width) {
-    case 16: return launch_dequantize<16>(vecs, grid, threads, st, qq, ss, oo,
-                                          rows, cols, group_log2);
-    case 4: return launch_dequantize<4>(vecs, grid, threads, st, qq, ss, oo,
-                                        rows, cols, group_log2);
-    default: return launch_dequantize<1>(vecs, grid, threads, st, qq, ss, oo,
-                                         rows, cols, group_log2);
-  }
+  return width == 4 ? launch_dequantize<4>(vecs, grid, threads, st, qq, ss,
+                                           oo, rows, cols, group_log2)
+                    : launch_dequantize<1>(vecs, grid, threads, st, qq, ss,
+                                           oo, rows, cols, group_log2);
 }

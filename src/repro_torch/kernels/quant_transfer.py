@@ -53,11 +53,15 @@ class Plan(NamedTuple):
                 self.threads)
 
 
+MAX_GROUP = 256     # threads a row and a CTA at most: the launch bounds
 MAX_VECS = 8        # vectors a thread holds per pass (32 floats at width 4)
-MAX_GROUP = 256     # threads a row; a longer row is walked in passes
-MAX_THREADS = 256   # threads a CTA (the kernels' launch bounds)
 MIN_THREADS = 128
-SMS = 132           # H100 SXM: a grid of fewer CTAs leaves SMs idle
+
+
+def cta_threads(group: int) -> int:
+    """A group above 32 threads is the whole CTA; smaller groups share CTAs
+    of MIN_THREADS."""
+    return group if group > 32 else MIN_THREADS
 
 
 def _pow2(n: int) -> int:
@@ -65,36 +69,30 @@ def _pow2(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)     # the wrappers plan every call
-def _row_plan(R: int, C: int, width: int) -> Plan:
+def _row_plan(C: int, width: int) -> Plan:
+    """About 4 elements a thread (one float4, or 4 scalars), as many
+    threads as that gives the row up to a CTA of MAX_GROUP; a longer row up
+    to MAX_VECS vectors a thread; longer still, passes of MAX_GROUP x
+    MAX_VECS vectors.  Of the plans that hold a row in one pass, this was
+    the fastest, or within 2% of it, at each main-path shape in one sweep on
+    an H100 (``scripts/quant_ablation.py --sweep``)."""
     n = -(-C // width)                     # vectors in a row
-    if n <= 32:
-        group, vecs = _pow2(n), 1
-    elif n <= 32 * MAX_VECS:
-        group, vecs = 32, _pow2(-(-n // 32))
-    else:
-        group = min(MAX_GROUP, _pow2(-(-n // MAX_VECS)))
-        vecs = min(MAX_VECS, _pow2(-(-n // group)))
-    if group > 32:                         # the row is the whole CTA
-        return Plan(group, width, vecs, group)
-    threads = MIN_THREADS
-    # smaller CTAs while that spreads a short matrix over more SMs
-    while threads > max(group, 32) and -(-R * group // threads) < SMS:
-        threads //= 2
-    return Plan(group, width, vecs, threads)
+    vecs = min(max(4 // width, 1), _pow2(n))
+    group = _pow2(-(-n // vecs))
+    if group > MAX_GROUP:
+        group, vecs = MAX_GROUP, min(MAX_VECS, _pow2(-(-n // MAX_GROUP)))
+    return Plan(group, width, vecs, cta_threads(group))
 
 
-def _quant_plan(R: int, C: int, data_ptr: int) -> Plan:
+def _quant_plan(C: int, data_ptr: int) -> Plan:
     """float4 loads where every row starts 16-byte aligned, else scalar."""
-    return _row_plan(R, C, 4 if C % 4 == 0 and data_ptr % 16 == 0 else 1)
+    return _row_plan(C, 4 if C % 4 == 0 and data_ptr % 16 == 0 else 1)
 
 
-def _dequant_plan(R: int, C: int, data_ptr: int) -> Plan:
-    """16 codes a load where every row of ``q`` starts 16-byte aligned, 4
-    where 4-byte aligned, else 1 (the output is the wrapper's, aligned)."""
-    for width in (16, 4):
-        if C % width == 0 and data_ptr % width == 0:
-            return _row_plan(R, C, width)
-    return _row_plan(R, C, 1)
+def _dequant_plan(C: int, data_ptr: int) -> Plan:
+    """4 codes a load (one float4 store) where every row of ``q`` starts
+    4-byte aligned, else 1; the output is the wrapper's, aligned."""
+    return _row_plan(C, 4 if C % 4 == 0 and data_ptr % 4 == 0 else 1)
 
 
 # -----------------------------------------------------------------------------
@@ -135,7 +133,7 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check_launch(_lib().repro_quantize_rows(
             x.data_ptr(), q.data_ptr(), s.data_ptr(), R, C,
-            *_quant_plan(R, C, x.data_ptr()).args(), stream),
+            *_quant_plan(C, x.data_ptr()).args(), stream),
             "quantize_rows")
     LAUNCHES["quantize"] += 1
     return q, s
@@ -162,7 +160,7 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.check_launch(_lib().repro_dequantize_rows(
             q.data_ptr(), scales.data_ptr(), out.data_ptr(), R, C,
-            *_dequant_plan(R, C, q.data_ptr()).args(), stream),
+            *_dequant_plan(C, q.data_ptr()).args(), stream),
             "dequantize_rows")
     LAUNCHES["dequantize"] += 1
     return out

@@ -56,12 +56,12 @@ def _quant_inputs(R: int, C: int, seed: int) -> np.ndarray:
     return x
 
 
-# every path the kernels' plans split on (``_quant_plan``, ``_dequant_plan``):
-# C of 1, 3, 13 and 37 (scalar: 1 to 32 threads a row, 2 vectors a lane), 4
-# (a float4 a row, 16-byte loads of codes off), 32 and 64 (float4 groups of
-# 8 and 16 lanes), 1024 (a warp a row, 8 float4 a lane), 4096 (a CTA a row),
-# 8200 and 2053 (above the register limit: the row read twice, in float4s and
-# in scalars); R of 1 and R that no CTA's rows divide (300 rows of 16 a CTA)
+# every path the kernels' plans (``_row_plan``) split on: C of 1, 3, 13 and
+# 37 (scalar, 4 a thread: 1 to 16 threads a row), 4 (a float4 a row), 32 and
+# 64 (float4 groups of 8 and 16 lanes), 1024 (a CTA of 256 threads a row),
+# 4096 (a CTA a row, 4 float4 a thread), 8200 and 2053 (above the register
+# limit: the row read twice, in float4s and in scalars); R of 1 and R that
+# no CTA's rows divide (300 rows of 16 a CTA)
 QUANT_SHAPES = [(300, 32), (256, 64), (7, 1024), (1, 1), (5, 3), (1, 4),
                 (33, 13), (300, 37), (1, 64), (3, 4096), (2, 8200),
                 (2, 2053)]
@@ -107,31 +107,31 @@ def test_quant_plans_cover_every_column_once_within_limits(which):
     elem_bytes = 4 if which == "quantize" else 1
     for C in [*range(1, 3001), 4096, 8192, 8196, 8200, 20000, 65536]:
         for ptr in (0, 4, 1) if which == "dequantize" else (0, 4):
-            for R in (1, 580, 25600):
-                plan = plan_of(R, C, ptr)
-                g, w, v, threads = plan
-                assert C % w == 0 and ptr % (w * elem_bytes) == 0, plan
-                assert g & (g - 1) == 0 and v in (1, 2, 4, 8), plan
-                assert threads % 32 == 0 and 32 <= threads <= tq.MAX_THREADS, plan
-                assert (g <= 32 and threads % g == 0) or g == threads, plan
-                assert v * w <= 32 * per_reg, plan
-                cols = _plan_columns(plan, C)
-                assert len(cols) == C, (C, plan)
-                np.testing.assert_array_equal(np.sort(cols), np.arange(C))
-                # up to the register limit the row is read once
-                if C <= (8192 if w >= 4 else 2048):
-                    assert g * v * w >= C, (C, plan)
-    # the main path's shapes: float4 groups at the cut, a warp a row on
-    # the delta wire with a CTA per SM at least
-    assert tq._quant_plan(25600, 32, 0) == (8, 4, 1, 128)
-    assert tq._quant_plan(580, 1024, 0) == (32, 4, 8, 128)
-    assert tq._dequant_plan(580, 1024, 0) == (32, 16, 2, 128)
+            plan = plan_of(C, ptr)
+            g, w, v, threads = plan
+            assert C % w == 0 and ptr % (w * elem_bytes) == 0, plan
+            assert g & (g - 1) == 0 and v in (1, 2, 4, 8), plan
+            assert threads % 32 == 0 and 32 <= threads <= tq.MAX_GROUP, plan
+            assert (g <= 32 and threads % g == 0) or g == threads, plan
+            assert v * w <= 32 * per_reg, plan
+            cols = _plan_columns(plan, C)
+            assert len(cols) == C, (C, plan)
+            np.testing.assert_array_equal(np.sort(cols), np.arange(C))
+            # up to the register limit the row is read once
+            if C <= (8192 if w >= 4 else 2048):
+                assert g * v * w >= C, (C, plan)
+    # the main path's shapes: float4 groups of 8 and 16 lanes at the cut,
+    # a CTA a row on the delta wire
+    for plan_of in (tq._quant_plan, tq._dequant_plan):
+        assert plan_of(32, 0) == (8, 4, 1, 128)
+        assert plan_of(64, 0) == (16, 4, 1, 128)
+        assert plan_of(1024, 0) == (256, 4, 1, 256)
 
 
 @pytest.mark.cuda
 def test_quantize_misaligned_view_equals_plain():
-    """A contiguous view 4 bytes off a 16-byte boundary takes the kernels'
-    scalar paths (``_quant_plan`` width 1; codes 1 byte off: width 1)."""
+    """A contiguous view 4 bytes off a 16-byte boundary takes quantize's
+    scalar path (``_quant_plan`` width 1), codes 1 byte off dequantize's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     for R, C in [(300, 32), (580, 1024), (3, 4096)]:

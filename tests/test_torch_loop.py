@@ -17,6 +17,16 @@ sample.  Final params agree within a per-mode atol:
   the error feedback keeping the unsent one.  Either moves a few params by
   up to an lr-scaled step or one delta entry times its client weight
   (observed 1.9e-4 with the int8 cut, 6.1e-5 with top-k and int8 deltas).
+
+The ``fail_prob`` / ``deadline_factor`` cases choose the kept clients
+(FailureInjector's numpy draws, the deadline over Eq. 1 times) and the
+round time of the slowest kept one, so ``dropped`` is exact.  ``fl`` drops
+1 and 2 of 3 clients, ``fedadapt`` 1 and 1, ``sfl`` at deadline 1.05 none;
+params agree within 2.4e-7 (``fedadapt`` takes the top-k atol).  A tighter
+deadline can keep a client whose training crosses a ReLU / max-pool flip
+(at 0.9, ``fl``: a pre-ReLU value of +1.85e-6 in the reference is <= 0 in
+the port, and the max pool routes the gradient elsewhere: 5.06e-5 apart);
+such a case would take the discrete-step atol 1e-3, as int8 and top-k do.
 """
 import jax
 import numpy as np
