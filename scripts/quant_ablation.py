@@ -20,7 +20,8 @@ tree's kernels also run under the scalar plan (what ``_quant_plan`` /
 ``_dequant_plan`` give a misaligned input), to show what the 16- and
 4-byte accesses buy; ``--sweep`` first times them under every plan
 that holds a row in one pass (the data the plans' rules were chosen on).
-The bound is the bytes each call must move over 3.35 TB/s.  The record goes to ``chiprun_out/quant_ablation.json``.
+The bound is the bytes each call must move over 3.35 TB/s.  The record
+goes to ``chiprun_out/quant_ablation.json``.
 """
 from __future__ import annotations
 
