@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    int8 and top-k kernels at the VGG-5 path's shapes plus the tie and
    masked-tail drills, bit for bit; for quantize/dequantize also one row,
    odd widths, a CTA a row (4096), widths above the register limit (8200,
-   2053) and inputs 4 (x) and 1 (codes) bytes off a 16-byte boundary; for
-   top-k (a radix select) keys
+   2053), the batched engine's stacked cut (5 x 25600, 32) and inputs 4
+   (x) and 1 (codes) bytes off a 16-byte boundary; for
+   top-k (a radix select) every VGG-5 leaf as the reference server step
+   cuts it (one buffer a leaf, short leaves one short block), keys
    that share their top digits, blocks of 100 lanes, and blocks of 99 and
    37 lanes and a buffer 4 bytes off a 16-byte boundary (its scalar
    path); flash attention (3xTF32 on
@@ -39,6 +41,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kept clients) says, and flash attention never.  Then one more sfl-op1
    round under ``torch.profiler`` gives the card's busy share (the round
    must succeed; a profiler without device time gives "not measured").
+4b. the control plane's training: the quickstart driver
+   (``repro_torch.launch.quickstart``) trains the PPO agent on the card
+   (``train_rl_agent``, 350 rounds, factored, G=3, the paper testbed) and
+   deploys it (``run_fl_with_controller``, 5 rounds), then does the same on
+   the CPU from the same params and noise: the first 30 rounds' OPs must be
+   equal and their actions within 1e-5, the deployed agent must cut the
+   card's round time by more than 25% against classic FL, and no repo
+   kernel may launch.  Both wall times are printed.
+4c. phase 4's two runs again with the batched engine (clients vmapped per
+   OP group, the int8 cut quantizing the chunk's stacked activations in
+   one call) and the per-leaf reference server step (top-k per leaf, one
+   int8 round trip per client): launch counts exact as their histories
+   need (the cut per chunk and local iteration, top-k per leaf and kept
+   client), OPs and modelled round times equal to phase 4's, accuracy
+   within 0.02 a round; one more sfl-op1 round under the profiler.
 5. the serving main path: ``ServeEngine`` on gemma2-2b at full width
    (26 layers, d_model 2304, 8 query heads over 4 KV heads of dim 256,
    vocab 256000; fp32 weights drawn on the card from a seed).  First the
@@ -76,8 +93,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tolerances), gemma2-2b's smoke config through ``serve`` (tokens equal,
    logits within 1e-4) and mamba2-780m's smoke config through prefill and
    decode (tokens equal, logits within 1e-4).
-7. time each kernel with CUDA events (median of CUDA-graph replays) beside
-   its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
+7. time each kernel with CUDA events (median of CUDA-graph replays; the
+   int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
+   beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
    bound, and the fp32 CUDA-core bound as ``bound_fp32_ms``), its plain
    version and a library call computing the same function where PyTorch
    has one (``torch.mul`` for dequantize,
@@ -92,6 +110,8 @@ every comparison is in full fp32.  The full record goes to
 """
 from __future__ import annotations
 
+import collections
+import inspect
 import json
 import math
 import os
@@ -127,6 +147,21 @@ SMALL_MODES = {
 # the tests' bound for an int8 code or a top-k near-tie going the other way.
 
 VGG_KERNELS = ("quantize", "dequantize", "topk_compress")
+# the batched engine's chunk: get_engine builds it with BatchedEngine's
+# default max_group (the reference's 8); the main path checks the default
+BATCHED_MAX_GROUP = 8
+# the stacked int8 cut of the batched engine: 5 clients at OP1 in one chunk,
+# 100 samples of 16 x 16 x 32 each
+STACKED_CUT = 5 * 25600
+# phase 4b: the PPO agent trained on the card against the same training on
+# the CPU (same params, same noise).  The first 30 rounds (three updates)
+# must give the same OPs and actions within 1e-5: the actor's fp32 matmuls
+# and the updates' sums round differently on the two devices, by ~1e-7 a
+# step (the CPU tests against JAX see 1.3e-7 after 350 rounds)
+PPO_TRAIN_ROUNDS, PPO_CHECK_ROUNDS, PPO_ACTION_ATOL = 350, 30, 1e-5
+# phase 4c against phase 4: accuracy within 0.02 a round, the reference's
+# own bound between its two engines (tests/test_fleet.py)
+BATCHED_ACC_ATOL = 0.02
 # the reference's flash-attention sweep (tests/test_kernels.py FLASH_CASES,
 # copied: this script imports nothing of JAX) plus the smoke head dims of
 # gemma2/qwen3 (16) and lm16m (40) and a row range that sees no key:
@@ -296,9 +331,9 @@ def check_kernels(torch, tq, tt, dev):
             f"dequantize {what}"))
         print(f"quantize/dequantize {what}: equal")
 
-    for R, C in [(25600, 32), (6400, 64), (580, 1024), (300, 32), (33, 13),
-                 (300, 37), (5, 3), (1, 1), (1, 64), (3, 4096), (2, 8200),
-                 (2, 2053)]:
+    for R, C in [(25600, 32), (6400, 64), (580, 1024), (STACKED_CUT, 32),
+                 (300, 32), (33, 13), (300, 37), (5, 3), (1, 1), (1, 64),
+                 (3, 4096), (2, 8200), (2, 2053)]:
         x = (torch.randn((R, C), generator=gen) * 3.0)
         for i, scale in enumerate((1.0, 2.0, 3.0)[:R]):   # exact .5 ties
             x[i] = (torch.arange(C) % 9 - 4.5) * scale
@@ -359,6 +394,15 @@ def check_kernels(torch, tq, tt, dev):
         fail("topk misaligned drill: the buffer is 16-byte aligned")
     cases.append(("misaligned", shifted.view(1, 2048),
                   torch.tensor([[1024, 102], [1000, 7]]), 1024))
+    # the reference server step's per-leaf calls: every VGG-5 leaf as its
+    # own buffer, a leaf under 1024 elements one short block
+    for shape in layout.shapes:
+        n = math.prod(shape)
+        b = min(1024, n)
+        leaf = torch.randn(n + (-n) % b, generator=gen)
+        leaf[n:] = 0.0
+        cases.append((f"VGG-5 leaf {shape} at density 0.1", leaf[None],
+                      torch.from_numpy(tt.density_block_meta(n, b, 0.1)), b))
     for name, buf, meta, block in cases:
         buf, meta = buf.to(dev), meta.to(torch.int32).to(dev)
         out = tt.topk_compress_flat(buf, meta, block)
@@ -373,57 +417,80 @@ def check_kernels(torch, tq, tt, dev):
     return worst
 
 
-def expected_launches(h, fl, native_op):
+def expected_launches(h, fl, native_op, n_leaves):
     """Each kernel's launches in one ``run_federated`` run without failures
-    or deadline, from its history: a fake-quantized cut (one quantize, one
-    dequantize) per local iteration of a client below the native OP, and
-    per client row of the server step one top-k (density < 1) and one int8
-    round trip."""
+    or deadline, from its history.  The int8 cut (one quantize, one
+    dequantize) runs per local iteration of every client below the native
+    OP in the sequential engine, and per local iteration of every chunk
+    (an OP group below the native OP, cut into ``BATCHED_MAX_GROUP``
+    clients at most) in the batched one.  The fused server step takes one
+    top-k (density < 1) and one int8 round trip per client row; the
+    reference step one top-k per leaf (``n_leaves``) and one int8 round
+    trip per kept client."""
     assert fl.fail_prob == 0 and fl.deadline_factor == 0, \
         "every client trains and is kept"
-    cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
-                                   for op in row)) \
-        if fl.quantize_transfer else 0
+    if not fl.quantize_transfer:
+        cut = 0
+    elif fl.engine == "batched":
+        cut = fl.local_iters * sum(
+            -(-n // BATCHED_MAX_GROUP)
+            for row in h["ops"]
+            for op, n in collections.Counter(int(o) for o in row).items()
+            if op < native_op)
+    else:
+        cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
+                                       for op in row))
     rows = len(h["ops"]) * len(h["ops"][0])
     quant = cut + (rows if fl.quantize_deltas else 0)
+    per_row = n_leaves if fl.server_step == "reference" else 1
     return {"quantize": quant, "dequantize": quant,
-            "topk_compress": rows if fl.delta_density < 1 else 0,
+            "topk_compress": rows * per_row if fl.delta_density < 1 else 0,
             "flash_attention": 0, "ssd_scan": 0}
 
 
-def vgg5_main_path(torch, dev, launches, reset_launches):
-    """Phase 4: the port's entry point at full width on the paper testbed.
-    Each path's launch counts are zeroed just before its run and read just
-    after; every VGG-path kernel must have launched exactly as often as
-    the run's history says it should, flash attention and the SSD scan
-    never.  Then one more sfl-op1 round, from the same set-up, runs under
-    ``torch.profiler``."""
+def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
+                   server_step="fused"):
+    """Phase 4 (sequential engine, fused server step) and 4c (batched
+    engine, reference server step): the port's entry point at full width on
+    the paper testbed.  Each path's launch counts are zeroed just before its
+    run and read just after; every VGG-path kernel must have launched
+    exactly as often as the run's history says it should, flash attention
+    and the SSD scan never.  Then one more sfl-op1 round, from the same
+    set-up, runs under ``torch.profiler``."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.core.controller import FedAdaptController
     from repro_torch.core.env import SimulatedCluster
     from repro_torch.core.testbed import paper_testbed
     from repro_torch.data import make_cifar_like, split_clients
     from repro_torch.fl.comm import Transport, device_bandwidths
+    from repro_torch.fl.fleet import BatchedEngine
     from repro_torch.fl.loop import FLConfig, run_federated
     from repro_torch.models.split_program import get_split_program
 
+    if inspect.signature(BatchedEngine).parameters["max_group"].default \
+            != BATCHED_MAX_GROUP:
+        fail("BatchedEngine's default max_group is not BATCHED_MAX_GROUP")
     clients = split_clients(make_cifar_like(5000, seed=1), 5)
     test = make_cifar_like(1000, seed=2)
     w, devices, c_srv, ovh = paper_testbed(VGG5)
     native_op = get_split_program(VGG5).native_op
     paths = {"sfl-op1": dict(mode="sfl", static_op=VGG5.ops[0]),
              "fedadapt": dict(mode="fedadapt")}
+    suffix = "" if engine == "sequential" else f"-{engine}-{server_step}"
 
     def run(name, rounds):
         fl = FLConfig(rounds=rounds, local_iters=10, batch_size=100, seed=0,
                       quantize_transfer=True, delta_density=0.1,
-                      quantize_deltas=True, **paths[name])
+                      quantize_deltas=True, engine=engine,
+                      server_step=server_step, **paths[name])
         sim = SimulatedCluster(w, devices, c_srv, VGG5.ops,
                                iterations=fl.local_iters, overhead_s=ovh)
-        ctl = (FedAdaptController(w, VGG5.ops, num_groups=3, seed=0)
+        ctl = (FedAdaptController(w, VGG5.ops, num_groups=3, seed=0,
+                                  device=dev)
                if fl.mode == "fedadapt" else None)
         h = run_federated(VGG5, clients, test, fl, sim=sim, controller=ctl,
-                          transport=Transport(device_bandwidths(devices)))
+                          transport=Transport(device_bandwidths(devices)),
+                          device=dev)
         torch.cuda.synchronize()
         return h, fl
 
@@ -434,7 +501,9 @@ def vgg5_main_path(torch, dev, launches, reset_launches):
         h, fl = run(name, rounds=3)
         total = time.perf_counter() - t0
         counts = dict(launches)
-        want = expected_launches(h, fl, native_op)
+        n_leaves = sum(len(layer) for layer in h["params"])
+        want = expected_launches(h, fl, native_op, n_leaves)
+        name += suffix
         print(f"{name}: launches {counts} (expected from its history "
               f"{want})")
         for kernel, n in counts.items():
@@ -456,15 +525,100 @@ def vgg5_main_path(torch, dev, launches, reset_launches):
                       "accuracy": [float(a) for a in acc],
                       "round_time_model_s": h["round_time"].tolist(),
                       "comm_time_model_s": h["comm_time"].tolist(),
-                      "ops": ops, "launches": counts}
+                      "ops": ops, "launches": counts,
+                      "engine": engine, "server_step": server_step}
         print(f"{name}: wall per round (s) "
               f"{[round(t, 4) for t in runs[name]['wall_s']]}, "
               f"accuracy {acc.tolist()}, modelled round time (s) "
               f"{[round(t, 3) for t in h['round_time'].tolist()]}, "
               f"ops {ops}", flush=True)
     return runs, profile_device(
-        torch, "one sfl-op1 round", lambda: run("sfl-op1", rounds=1)[0],
+        torch, f"one sfl-op1{suffix} round",
+        lambda: run("sfl-op1", rounds=1)[0],
         lambda h: float(h["wall_s"][0]) * 1e3)
+
+
+def batched_against_sequential(runs):
+    """Phase 4c's check: the batched engine with the reference server step
+    gives phase 4's OPs and modelled round times exactly and its accuracy
+    within BATCHED_ACC_ATOL a round."""
+    for name in ("sfl-op1", "fedadapt"):
+        seq, bat = runs[name], runs[f"{name}-batched-reference"]
+        for key in ("ops", "round_time_model_s", "comm_time_model_s"):
+            if seq[key] != bat[key]:
+                fail(f"{name}: batched/reference {key} {bat[key]} != "
+                     f"sequential/fused {seq[key]}")
+        diff = max(abs(a - b) for a, b in zip(seq["accuracy"],
+                                              bat["accuracy"]))
+        if diff > BATCHED_ACC_ATOL:
+            fail(f"{name}: batched/reference accuracy {bat['accuracy']} vs "
+                 f"sequential/fused {seq['accuracy']}")
+        print(f"{name}: batched/reference == sequential/fused (ops, round "
+              f"times), accuracy within {diff:.4f} <= {BATCHED_ACC_ATOL}; "
+              f"wall per round {bat['wall_s']} vs {seq['wall_s']} s")
+
+
+def ppo_training_path(torch, dev, launches, reset_launches):
+    """Phase 4b: the PPO agent trained on the card through the quickstart
+    driver (``train_rl_agent``, 350 rounds, factored, G=3, the paper
+    testbed; then ``run_fl_with_controller``, 5 rounds), and the same run
+    of the port on the CPU: the same initial params and the same noise
+    (both from the CPU generator of the seed).  The first 30 rounds' OPs
+    must be equal and their actions within PPO_ACTION_ATOL; the deployed
+    agent on the card must cut the round time by more than 25% against
+    classic FL (the repo's end-to-end bar, tests/test_system.py).  PPO
+    launches no repo kernel: the counts must stay 0."""
+    import numpy as np
+    from repro_torch.launch.quickstart import main as quickstart
+    argv = ["--train-rounds", str(PPO_TRAIN_ROUNDS), "--deploy-rounds", "5"]
+    reset_launches()
+    card = quickstart(argv + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    cpu = quickstart(argv + ["--device", "cpu"])
+    print(f"train-ppo: launches {counts} (expected none)")
+    if any(counts.values()):
+        fail(f"train-ppo: repo kernels launched {counts}")
+    if card["agent"].params["actor"]["w0"].device.type != "cuda":
+        fail("train-ppo: the agent did not train on the card")
+    a, b = card["train"], cpu["train"]
+    n = PPO_CHECK_ROUNDS
+    if not np.array_equal(a["ops"][:n], b["ops"][:n]):
+        fail(f"train-ppo: the first {n} rounds' OPs differ card vs cpu")
+    act_diff = float(np.abs(a["actions"][:n] - b["actions"][:n]).max())
+    if act_diff > PPO_ACTION_ATOL:
+        fail(f"train-ppo: actions differ by {act_diff} > {PPO_ACTION_ATOL}")
+    parted = np.flatnonzero((a["ops"] != b["ops"]).any(axis=1))
+    first = int(parted[0]) + 1 if parted.size else None
+    if card["reduction"] <= 0.25:
+        fail(f"train-ppo: only {card['reduction']:.0%} reduction on the "
+             f"card (paper: 40%)")
+    # where the card's time goes: one update (50 epochs) of the trained
+    # agent over a buffer of 10 seeded transitions, under the profiler
+    agent = card["agent"]
+    rng = np.random.RandomState(0)
+    buf = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(10, 6), rng.rand(10, 3), rng.randn(10, 3),
+        rng.randn(10, 3), rng.rand(10, 6))]
+    std = torch.tensor(0.5, device=dev)
+    prof = profile_device(
+        torch, "one PPO update, 50 epochs",
+        lambda: agent._update(agent.params, agent.opt_state, *buf, std))
+    out = {"train_s_card": card["train_s"], "train_s_cpu": cpu["train_s"],
+           "profile_update": prof,
+           "reduction_card": card["reduction"],
+           "reduction_cpu": cpu["reduction"],
+           "max_action_diff_first_rounds": act_diff,
+           "max_action_diff_all": float(np.abs(a["actions"]
+                                               - b["actions"]).max()),
+           "first_round_ops_differ": first, "rounds": PPO_TRAIN_ROUNDS,
+           "launches": counts}
+    print(f"train-ppo: {PPO_TRAIN_ROUNDS} rounds in {card['train_s']:.2f} s "
+          f"on the card, {cpu['train_s']:.2f} s on the CPU; first {n} "
+          f"rounds' OPs equal, actions within {act_diff:.3g}; OPs part at "
+          f"round {first}; reduction {card['reduction']:.4f} (card), "
+          f"{cpu['reduction']:.4f} (cpu)", flush=True)
+    return out
 
 
 def profile_device(torch, what, run, wall_of=None):
@@ -507,8 +661,10 @@ def profile_device(torch, what, run, wall_of=None):
                   (t / 1e3, c) for k, t, c in stats if "ssd_scan_" in k}
     top = [{"kernel": k[:80], "ms": t / 1e3, "count": c}
            for k, t, c in stats[:10]]
+    launches = sum(c for _, _, c in stats)
     print(f"profile ({what}, profiler on): wall {wall_ms:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), flash "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{launches} kernels and copies, flash "
           f"attention {ours['flash_attention']:.1f} ms, ssd_scan "
           f"{ours['ssd_scan']:.1f} ms")
     for row in top:
@@ -516,7 +672,7 @@ def profile_device(torch, what, run, wall_of=None):
     for name, (ms, count) in ssd_passes.items():
         print(f"  ssd_scan pass {name}: {ms:.3f} ms over {count} launches")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "port_kernels_ms": ours, "top": top,
+            "device_launches": launches, "port_kernels_ms": ours, "top": top,
             "ssd_scan_passes_ms": {k: v[0] for k, v in ssd_passes.items()}}
 
 
@@ -545,7 +701,7 @@ def small_cpu_vs_card(torch, dev):
             sim = SimulatedCluster(w, devices[:3], c_srv, VGG5.ops,
                                    iterations=2, jitter=0.05, seed=3,
                                    overhead_s=ovh)
-            ctl = (FedAdaptController(w, VGG5.ops, 3, seed=4)
+            ctl = (FedAdaptController(w, VGG5.ops, 3, seed=4, device=d)
                    if kw["mode"] == "fedadapt" else None)
             hists[str(d)] = run_federated(
                 VGG5, clients, test, FLConfig(**SMALL, **kw), sim=sim,
@@ -1300,8 +1456,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
     gen = torch.Generator().manual_seed(1)
     rows = []
     # quantize / dequantize at the cut (B=100: OP1, 150 calls per run, and
-    # OP2) and on the delta wire (one VGG-5 client row)
-    for R, C in [(25600, 32), (6400, 64), (580, 1024)]:
+    # OP2), on the delta wire (one VGG-5 client row) and at the batched
+    # engine's stacked cut (5 clients at OP1)
+    for R, C in [(25600, 32), (6400, 64), (580, 1024), (STACKED_CUT, 32)]:
         x = torch.randn((R, C), generator=gen).to(dev)
         q, s = tq.quantize_rows(x)
         n = R * C
@@ -1328,6 +1485,20 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
         lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
         lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n))
+    # top-k over VGG-5's largest leaf (the FC128 weight, 4096 x 128), one
+    # of the reference server step's per-leaf calls
+    n = 4096 * 128
+    leaf_meta = torch.from_numpy(tt.density_block_meta(n, 1024, 0.1)).to(
+        torch.int32).to(dev)
+    leaf = torch.randn((1, n), generator=gen).to(dev)
+    nb = n // 1024
+    leaf_mag, leaf_k = leaf.view(nb, 1024).abs(), int(leaf_meta[:, 1].max())
+    rows.append(_timing_row(
+        "topk_compress", [1, n], lambda: tt.topk_compress_flat(leaf,
+                                                               leaf_meta),
+        lambda: tt.topk_blocks_plain(leaf.view(nb, 1024), leaf_meta),
+        lambda: torch.topk(leaf_mag, leaf_k, dim=1), 2 * 4 * n + 8 * nb,
+        4 * n))
     rows += serving_rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1424,6 +1595,18 @@ def main() -> None:
         phase("4. federated main path: run_federated on VGG-5, full width")
         record["main_path"], record["profile"] = vgg5_main_path(
             torch, dev, LAUNCHES, reset_launches)
+
+        phase("4b. control plane: the PPO agent trained on the card")
+        record["main_path"]["train-ppo"] = ppo_training_path(
+            torch, dev, LAUNCHES, reset_launches)
+
+        phase("4c. federated main path: the batched engine and the "
+              "reference server step")
+        batched, record["profile_batched"] = vgg5_main_path(
+            torch, dev, LAUNCHES, reset_launches, engine="batched",
+            server_step="reference")
+        record["main_path"].update(batched)
+        batched_against_sequential(record["main_path"])
 
         phase("5. serving main path: ServeEngine on gemma2-2b, full width")
         serving, real = gemma2_main_path(torch, tf, dev, LAUNCHES,

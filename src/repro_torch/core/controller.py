@@ -8,14 +8,14 @@
 The controller is *elastic*: because the agent sees G groups, not K devices,
 devices may join or leave between rounds (the reference's
 runtime/elastic.py drills this).
-Counterpart of ``repro/core/controller.py``.  The agent acts without
-exploration (deployment, as ``run_federated`` uses it); the offline PPO
-training ``train_rl_agent`` is not ported yet.
+Counterpart of ``repro/core/controller.py``: ``train_rl_agent`` runs the
+offline truncated-round training of §IV against a ``SimulatedCluster``,
+``run_fl_with_controller`` deploys the trained agent (§V-D).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -23,6 +23,7 @@ from repro_torch.core import offload
 from repro_torch.core.agent import PPOAgent, PPOConfig
 from repro_torch.core.clustering import Grouping, cluster_devices
 from repro_torch.core.costmodel import Workload
+from repro_torch.core.env import SimulatedCluster
 
 
 @dataclasses.dataclass
@@ -42,14 +43,17 @@ class FedAdaptController:
         low_bw_threshold: Optional[float] = 25e6,   # paper: < 25 Mbps
         agent: Optional[PPOAgent] = None,
         seed: int = 0,
+        device=None,
     ):
+        """``device`` places the agent built when none is given (``None``:
+        the card, raising if none is visible)."""
         self.workload = workload
         self.ops = list(op_candidates)
         self.fractions = offload.op_fractions(workload, self.ops)
         self.G = num_groups
         self.low_bw_threshold = low_bw_threshold
         self.agent = agent or PPOAgent(PPOConfig(num_groups=num_groups),
-                                       seed=seed)
+                                       seed=seed, device=device)
         self.baselines: Optional[np.ndarray] = None
         self.prev_actions = np.ones(num_groups, np.float32)   # native
         self._last_grouping: Optional[Grouping] = None
@@ -147,3 +151,55 @@ class FedAdaptController:
         if hasattr(self.agent, "observe"):
             self.agent.observe(r)
         return r
+
+
+# =============================================================================
+# offline RL training (truncated rounds, paper §IV)
+# =============================================================================
+def train_rl_agent(
+    sim: SimulatedCluster,
+    controller: FedAdaptController,
+    rounds: int = 500,
+    log_every: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Returns history: per-round actions, ops, times, rewards."""
+    baseline = sim.round_times(sim.native_ops(), 0)
+    controller.begin(baseline)
+    times = baseline
+    hist: Dict[str, list] = {"actions": [], "ops": [], "reward": [],
+                             "max_time": [], "mean_time": []}
+    for r in range(1, rounds + 1):
+        bw = sim.bandwidths(r)
+        plan = controller.plan(times, bw, explore=True)
+        times = sim.round_times(plan.ops, r)
+        rew = controller.feedback(times)
+        hist["actions"].append(plan.actions.copy())
+        hist["ops"].append(list(plan.ops))
+        hist["reward"].append(rew)
+        hist["max_time"].append(float(times.max()))
+        hist["mean_time"].append(float(times.mean()))
+        if log_every and r % log_every == 0:
+            print(f"round {r:4d}  reward={rew:8.3f}  "
+                  f"actions={np.round(plan.actions, 3)}  ops={plan.ops}")
+    return {k: np.asarray(v) for k, v in hist.items()}
+
+
+def run_fl_with_controller(
+    sim: SimulatedCluster,
+    controller: FedAdaptController,
+    rounds: int,
+) -> Dict[str, np.ndarray]:
+    """Deployment loop (§V-D): trained agent, no exploration, reacting to the
+    bandwidth schedule each round."""
+    baseline = sim.round_times(sim.native_ops(), 0)
+    controller.begin(baseline)
+    times = baseline
+    hist: Dict[str, list] = {"times": [], "ops": [], "round_time": []}
+    for r in range(1, rounds + 1):
+        bw = sim.bandwidths(r)
+        plan = controller.plan(times, bw, explore=False)
+        times = sim.round_times(plan.ops, r)
+        hist["times"].append(times.copy())
+        hist["ops"].append(list(plan.ops))
+        hist["round_time"].append(float(times.max()))
+    return {k: np.asarray(v) for k, v in hist.items()}

@@ -26,24 +26,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.fl.fedavg import fedavg_apply_deltas
 from repro_torch.kernels.quant_transfer import dequantize_rows, quantize_rows
 from repro_torch.kernels.topk_compress import (
+    compress_tree,
     density_block_meta,
     topk_compress_flat,
 )
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = List[Dict[str, torch.Tensor]]
-
-
-def tree_leaves(params: Params) -> List[torch.Tensor]:
-    """The reference's pytree leaf order for a per-layer list of dicts."""
-    return [layer[k] for layer in params for k in sorted(layer)]
-
-
-def model_bytes(params: Params) -> int:
-    """Bytes of all parameters (reference: ``fl/fedavg.py``)."""
-    return int(sum(leaf.numel() * leaf.element_size()
-                   for leaf in tree_leaves(params)))
 
 
 class FlatLayout:
@@ -78,10 +70,22 @@ class FlatLayout:
                       zip(self.offsets, self.sizes, self.shapes))
         return [{k: next(leaves) for k in keys} for keys in self.keys]
 
-    def rows_to_deltas(self, rows: Sequence[Params], g_flat: torch.Tensor
-                       ) -> torch.Tensor:
-        """Client parameter rows -> stacked fp32 deltas ``(R, padded)``."""
-        return torch.stack([self.flatten(r) for r in rows]) - g_flat[None]
+    def flatten_stacked(self, tree: Params) -> torch.Tensor:
+        """A tree whose leaves carry a leading client axis ``(K, ...)`` ->
+        ``(K, padded)``, each row ``flatten`` of that client's params."""
+        parts = [F.pad(leaf.detach().reshape(leaf.shape[0], -1)
+                       .to(torch.float32), (0, seg - sz))
+                 for leaf, sz, seg in zip(tree_leaves(tree), self.sizes,
+                                          self.segs)]
+        return torch.cat(parts, dim=1)
+
+    def rows_to_deltas(self, rows, g_flat: torch.Tensor) -> torch.Tensor:
+        """Client parameter rows (the sequential engine's list, or the
+        batched engine's ``StackedRows``) -> stacked fp32 deltas
+        ``(R, padded)``."""
+        if isinstance(rows, list):
+            return torch.stack([self.flatten(r) for r in rows]) - g_flat[None]
+        return self.flatten_stacked(rows.tree) - g_flat[None]
 
     def block_meta(self, density: float) -> np.ndarray:
         """Per-block ``(valid, k)`` rows over the whole buffer, each leaf's
@@ -137,3 +141,51 @@ class ServerStep:
                 new_err[i] = carried - sent
             acc = acc + w[i] * sent
         return g_flat + acc, new_err
+
+
+# =============================================================================
+# reference path: the per-leaf, per-client pipeline the fused step is held
+# against (O(K x leaves) kernel launches)
+# =============================================================================
+def quantize_delta_flat(layout: FlatLayout, tree: Params) -> Params:
+    """int8 wire format of one delta, unfused: flatten, quantize rows of
+    ``block``, dequantize, unflatten.  The rows are the fused step's, so
+    the scales and values agree with it."""
+    q, s = quantize_rows(layout.flatten(tree).view(-1, layout.block))
+    return layout.unflatten(dequantize_rows(q, s).view(-1))
+
+
+def reference_server_step(
+    layout: FlatLayout,
+    params: Params,
+    deltas: List[Params],
+    weights: Sequence[float],
+    errors: Optional[torch.Tensor],
+    density: float = 1.0,
+    quantize: bool = False,
+) -> Tuple[Params, Optional[torch.Tensor]]:
+    """Per-leaf, per-client server step with the fused ``ServerStep``'s
+    algorithm: error-feedback carry, per-leaf top-k (``compress_tree``, a
+    budget from each leaf's true size), optional int8 wire format, weighted
+    apply (``fedavg_apply_deltas``).  ``errors`` are flat ``(len(deltas),
+    padded)`` rows, as the loop keeps them; returns ``(params, new error
+    rows)``.  (The reference's width-masked branch, ``masks``, comes with
+    HeteroFL widths.)"""
+    track = density < 1.0
+    sents, new_err_rows = [], []
+    for i, delta in enumerate(deltas):
+        if track:
+            err_tree = layout.unflatten(errors[i])
+            carried = tree_map(lambda d, e: d.to(torch.float32)
+                               + e.to(torch.float32), delta, err_tree)
+            comp, _ = compress_tree(delta, err_tree, density=density,
+                                    block=layout.block)
+        else:
+            carried, comp = None, delta
+        sent = quantize_delta_flat(layout, comp) if quantize else comp
+        if track:
+            new_err_rows.append(layout.flatten(
+                tree_map(lambda c, s: c - s, carried, sent)))
+        sents.append(sent)
+    new_params = fedavg_apply_deltas(params, sents, weights)
+    return new_params, (torch.stack(new_err_rows) if track else None)

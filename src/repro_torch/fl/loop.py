@@ -1,17 +1,21 @@
 """The synchronous federated round loop: classic FL, SplitFed (static OP)
 and FedAdapt (counterpart of ``repro/fl/loop.py``).
 
-Each round the planner picks every device's offloading point, the
-sequential engine trains the clients through that cut (the smashed data
-optionally crossing as int8), and the server step aggregates the survivors'
-deltas (optionally top-k sparsified with error feedback and sent as int8).
-Round times come from the Eq. 1 cost model (``SimulatedCluster``) and, when
-a ``Transport`` is given, its communication accounting.
+Each round the planner picks every device's offloading point, the fleet
+engine (``engine``: sequential, or batched by OP group) trains the clients
+through that cut (the smashed data optionally crossing as int8), and the
+server step aggregates the survivors' deltas (optionally top-k sparsified
+with error feedback and sent as int8): the fused flat-buffer
+``ServerStep`` by default, or with ``server_step="reference"`` the
+per-leaf, per-client pipeline it is held against (the batched engine's
+plain average then stays one stacked ``tensordot`` per leaf).  Round times
+come from the Eq. 1 cost model (``SimulatedCluster``) and, when a
+``Transport`` is given, its communication accounting.
 
-The reference's knobs that the port does not run yet (the batched engine,
-the per-leaf reference server step, HeteroFL widths, cohorts, the two-tier
-server, a device mesh, checkpoints) raise ``NotImplementedError`` naming
-their ROADMAP item rather than being ignored.
+The reference's knobs that the port does not run yet (HeteroFL widths,
+cohorts, the two-tier server, a device mesh, checkpoints) raise
+``NotImplementedError`` naming their ROADMAP item rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -27,8 +31,18 @@ from repro_torch.core.controller import FedAdaptController
 from repro_torch.core.env import SimulatedCluster
 from repro_torch.data.loader import FleetLoader
 from repro_torch.fl.comm import Transport
-from repro_torch.fl.flatbuf import FlatLayout, ServerStep, model_bytes
-from repro_torch.fl.fleet import SequentialEngine
+from repro_torch.fl.fedavg import fedavg_delta_stacked, model_bytes
+from repro_torch.fl.flatbuf import (
+    FlatLayout,
+    ServerStep,
+    reference_server_step,
+)
+from repro_torch.fl.fleet import (
+    StackedRows,
+    get_engine,
+    rows_as_list,
+    take_rows,
+)
 from repro_torch.fl.planner import FedAdaptPlanner, Planner, StaticPlanner
 from repro_torch.models.split_program import get_split_program
 from repro_torch.runtime.failures import FailureInjector
@@ -37,6 +51,7 @@ from repro_torch.runtime.straggler import (
     deadline_value,
     reweight,
 )
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -56,10 +71,10 @@ class FLConfig:
     delta_density: float = 1.0       # <1: top-k sparsified weight deltas
     quantize_deltas: bool = False    # int8 wire format for the delta sync
     seed: int = 0
+    engine: str = "sequential"       # sequential | batched
+    server_step: str = "fused"       # fused | reference
     # the reference's knobs the port does not run yet: any other value
     # than these defaults raises
-    engine: str = "sequential"
-    server_step: str = "fused"
     client_widths: Optional[Sequence[float]] = None
     cohort_size: int = 0
     num_edges: int = 0
@@ -69,10 +84,6 @@ class FLConfig:
 
 _UNPORTED = (
     # (field, default, what, ROADMAP item)
-    ("engine", "sequential", "engine='batched'",
-     "batched engine and reference server step"),
-    ("server_step", "fused", "server_step='reference'",
-     "batched engine and reference server step"),
     ("client_widths", None, "client_widths (HeteroFL)",
      "heterogeneity, cohorts and hierarchy"),
     ("cohort_size", 0, "cohort_size", "heterogeneity, cohorts and hierarchy"),
@@ -89,6 +100,9 @@ def _check_ported(fl: FLConfig) -> None:
             raise not_ported(what, item)
     if fl.mode not in ("fl", "sfl", "fedadapt"):
         raise ValueError(f"unknown mode {fl.mode!r}")
+    if fl.server_step not in ("fused", "reference"):
+        raise ValueError(f"unknown server_step {fl.server_step!r}; "
+                         f"known: fused, reference")
 
 
 def _resolve_planner(fl: FLConfig, native_op: int,
@@ -103,6 +117,13 @@ def _resolve_planner(fl: FLConfig, native_op: int,
         return StaticPlanner(fl.static_op if fl.static_op is not None
                              else native_op)
     return StaticPlanner(native_op)
+
+
+def _delta_trees(params, client_params: List) -> List:
+    """Per-client fp32 weight deltas against the current global (the
+    reference server step's per-leaf input)."""
+    return [tree_map(lambda c, g: c.to(torch.float32) - g.to(torch.float32),
+                     cp, params) for cp in client_params]
 
 
 class RoundClock:
@@ -189,10 +210,12 @@ def run_federated(
                        if isinstance(v, torch.Tensor) else
                        torch.tensor(np.asarray(v, np.float32), device=device))
                    for k, v in layer.items()} for layer in init_params]
+    fused = fl.server_step == "fused"
     layout = FlatLayout(params)
-    loaders = FleetLoader(clients_data, fl.batch_size, seed=fl.seed)
-    engine = SequentialEngine(program, fl.local_iters, fl.seed, fl.augment,
-                              fl.quantize_transfer, device)
+    loaders = FleetLoader.for_clients(clients_data, fl.batch_size,
+                                      seed=fl.seed)
+    engine = get_engine(fl.engine, program, fl.local_iters, fl.seed,
+                        fl.augment, fl.quantize_transfer, device)
     injector = FailureInjector(fl.fail_prob, seed=fl.seed)
     native_op = program.native_op
     sizes = np.asarray([len(d["labels"]) for d in clients_data], np.float64)
@@ -200,8 +223,9 @@ def run_federated(
     delta_errors = (torch.zeros((K, layout.padded), dtype=torch.float32,
                                 device=device) if track_errors else None)
     clock = RoundClock(program, fl, K, params, sim=sim, transport=transport)
-    step = ServerStep(layout, fl.delta_density, fl.quantize_deltas)
-    g_flat = layout.flatten(params)
+    step = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
+            if fused else None)
+    g_flat = layout.flatten(params) if fused else None
 
     # round-0 baselines (classic FL, no offloading)
     times, _ = clock.times([native_op] * K, 0)
@@ -233,16 +257,30 @@ def run_federated(
         weights = reweight(sizes, keep)
         kept_pos = [i for i, k in enumerate(idxs) if keep[k]]
         surv_idx = [idxs[i] for i in kept_pos]
-        if kept_pos:
-            deltas = layout.rows_to_deltas([rows[i] for i in kept_pos],
-                                           g_flat)
+        surv_w = [weights[k] for k in surv_idx]
+        if kept_pos and not fused and not track_errors and \
+                not fl.quantize_deltas and isinstance(rows, StackedRows):
+            # reference path, plain averaging, batched engine: one stacked
+            # tensordot per leaf rather than a per-client loop
+            params = fedavg_delta_stacked(
+                params, take_rows(rows, kept_pos).tree, surv_w)
+        elif kept_pos:
             ids = torch.as_tensor(surv_idx, dtype=torch.int64, device=device)
             err_rows = delta_errors[ids] if track_errors else None
-            g_flat, new_err = step(g_flat, deltas,
-                                   [weights[k] for k in surv_idx], err_rows)
+            if fused:
+                deltas = layout.rows_to_deltas(take_rows(rows, kept_pos),
+                                               g_flat)
+                g_flat, new_err = step(g_flat, deltas, surv_w, err_rows)
+                params = layout.unflatten(g_flat)
+            else:
+                # the per-leaf, per-client reference server step
+                params, new_err = reference_server_step(
+                    layout, params, _delta_trees(
+                        params, rows_as_list(rows, kept_pos)),
+                    surv_w, err_rows, density=fl.delta_density,
+                    quantize=fl.quantize_deltas)
             if track_errors:
                 delta_errors[ids] = new_err
-            params = layout.unflatten(g_flat)
         plan.feedback(times)
         with torch.no_grad():
             acc = float(program.eval_metric(params, test_batch))

@@ -22,8 +22,9 @@ heuristics all drive the same loop:
   learning, no grouping; the natural ablation between static OPs and the RL
   agent.
 
-Counterpart of ``repro/fl/planner.py``; the FedAdapt planner runs the
-trained agent without exploration (PPO training is not ported yet).
+Counterpart of ``repro/fl/planner.py``.  ``FedAdaptPlanner(explore=True)``
+lets the agent explore and learn from the realized round times (PPO
+updates every ``update_every`` rounds); the default deploys it.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch import not_ported
 from repro_torch.core import costmodel as cm
 from repro_torch.core.controller import FedAdaptController
 
@@ -61,9 +61,6 @@ class StaticPlanner(Planner):
 
 class FedAdaptPlanner(Planner):
     def __init__(self, controller: FedAdaptController, explore: bool = False):
-        if explore:
-            raise not_ported("an exploring FedAdapt agent",
-                             "PPO training and exploration")
         self.controller = controller
         self.explore = explore
 

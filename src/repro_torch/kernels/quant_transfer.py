@@ -186,13 +186,27 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 class _FakeQuantInt8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         q, s = quantize(x)
         return dequantize(q, s)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
     def backward(ctx, g):
         return g   # straight-through, as the reference's custom_vjp
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        """Under ``torch.func.vmap`` (the batched engine's clients): the
+        rows are the last axis, quantized one by one, so the clients' rows
+        go through one call over the stacked tensor, as the kernels see
+        plain tensors and never a batched one."""
+        if in_dims[0] is None:
+            return _FakeQuantInt8.apply(x), None
+        return _FakeQuantInt8.apply(x.movedim(in_dims[0], 0)), 0
 
 
 def fake_quant_int8(x: torch.Tensor) -> torch.Tensor:

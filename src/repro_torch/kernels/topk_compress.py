@@ -11,16 +11,24 @@ kept, ties going to the earlier lane; everything else becomes 0.
 ``topk_compress_flat`` is the kernel wrapper (``csrc/topk_compress.cu``,
 whose header proves the selection rule equal to the reference's);
 ``topk_blocks_plain`` is the same function in plain PyTorch.
+
+``topk_compress_density`` and ``compress_tree`` are the per-leaf entry
+points of the reference server step: each leaf is its own buffer (a leaf
+smaller than a block is one short block), one kernel launch a leaf, and
+``compress_tree`` carries the error feedback (``carried = leaf + error``,
+the new error ``carried - kept``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.tree import tree_map, tree_unzip
 
 _SIGNATURES = {
     "repro_topk_blocks": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -96,3 +104,35 @@ def topk_compress_flat(buf: torch.Tensor,
             block, stream), "topk_compress_flat")
     LAUNCHES["topk_compress"] += 1
     return out
+
+
+def topk_compress_density(x: torch.Tensor, density: float,
+                          block: int = 1024) -> torch.Tensor:
+    """Every block of ``x`` (flattened, fp32, padded to blocks of
+    ``min(block, numel)``) keeps ``max(1, int(density * true lanes))``
+    entries; same shape and dtype out."""
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.numel()
+    b = min(block, n)
+    flat = F.pad(flat, (0, (-n) % b))
+    out = topk_compress_flat(flat[None], density_block_meta(n, b, density),
+                             b)[0]
+    return out[:n].reshape(x.shape).to(x.dtype)
+
+
+def compress_tree(tree: Any, error: Optional[Any], density: float = 0.01,
+                  block: int = 1024) -> Tuple[Any, Any]:
+    """Error-feedback top-k over every leaf: ``(kept tree, new error
+    tree)``, the per-block budget from each leaf's true size."""
+
+    def one(leaf, err):
+        carried = leaf.to(torch.float32) + (
+            0.0 if err is None else err.to(torch.float32))
+        comp = topk_compress_density(carried, density, block)
+        return comp.to(leaf.dtype), carried - comp
+
+    if error is None:
+        pairs = tree_map(lambda leaf: one(leaf, None), tree)
+    else:
+        pairs = tree_map(one, tree, error)
+    return tree_unzip(pairs, 0), tree_unzip(pairs, 1)

@@ -33,7 +33,7 @@ from repro_torch.core.testbed import paper_testbed
 from repro_torch.data import FleetLoader, make_cifar_like
 from repro_torch.fl.comm import Transport, paper_schedule
 from repro_torch.fl.fleet import flip_augment
-from repro_torch.fl.planner import FedAdaptPlanner, GreedyPlanner
+from repro_torch.fl.planner import GreedyPlanner
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.runtime.straggler import deadline_mask, reweight
 
@@ -162,14 +162,3 @@ def test_greedy_planner_transport_and_straggler_rules_are_exact():
         np.testing.assert_array_equal(
             FailureInjector(0.4, seed=9).round_mask(6, round_idx=r),
             JInjector(0.4, seed=9).round_mask(6, round_idx=r))
-
-
-def test_exploration_is_not_ported_and_says_so():
-    tw, *_ = paper_testbed(VGG5)
-    ctl = FedAdaptController(tw, VGG5.ops, 3)
-    times = [1.0, 2.0, 3.0, 4.0, 5.0]
-    ctl.begin(times)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctl.plan(times, [75e6] * 5, explore=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedAdaptPlanner(ctl, explore=True)

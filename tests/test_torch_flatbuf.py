@@ -22,7 +22,8 @@ from repro.fl.flatbuf import FlatLayout as JFlatLayout
 from repro.fl.flatbuf import ServerStep as JServerStep
 from repro.models import vgg as jvgg
 from repro_torch.convert import vgg_params_from_numpy, vgg_params_to_numpy
-from repro_torch.fl.flatbuf import FlatLayout, ServerStep, model_bytes
+from repro_torch.fl.fedavg import model_bytes
+from repro_torch.fl.flatbuf import FlatLayout, ServerStep
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,14 @@ deadline can keep a client whose training crosses a ReLU / max-pool flip
 (at 0.9, ``fl``: a pre-ReLU value of +1.85e-6 in the reference is <= 0 in
 the port, and the max pool routes the gradient elsewhere: 5.06e-5 apart);
 such a case would take the discrete-step atol 1e-3, as int8 and top-k do.
+
+The ``*-batched-*`` and ``*-reference`` cases run the batched engine
+(clients vmapped per OP group; ``fedadapt`` plans two OP groups in its
+second round) and the per-leaf reference server step on both sides: the
+stacked ``tensordot`` for plain averaging, else per-client top-k with error
+feedback and the int8 wire.  They hold the same contract and atols
+(observed: ``fl`` 6.0e-8, ``sfl`` at OP1 with the int8 cut, top-k 0.1 and
+int8 deltas 6.2e-4, ``fedadapt`` with top-k and int8 deltas 3.2e-5).
 """
 import jax
 import numpy as np
@@ -68,10 +76,28 @@ MODES = {
     "fedadapt-fail-deadline-topk": dict(mode="fedadapt", fail_prob=0.3,
                                         deadline_factor=1.05,
                                         delta_density=0.5),
+    # the batched engine and the per-leaf reference server step
+    "fl-batched-reference": dict(mode="fl", engine="batched",
+                                 server_step="reference"),
+    "sfl-op1-batched-reference-int8-topk": dict(
+        mode="sfl", static_op=2, quantize_transfer=True, delta_density=0.1,
+        quantize_deltas=True, engine="batched", server_step="reference"),
+    "fedadapt-batched-reference-topk-int8": dict(
+        mode="fedadapt", delta_density=0.5, quantize_deltas=True,
+        engine="batched", server_step="reference"),
+    "sfl-op1-batched-fused-int8-topk": dict(
+        mode="sfl", static_op=2, quantize_transfer=True, delta_density=0.1,
+        quantize_deltas=True, engine="batched"),
+    "fl-sequential-reference": dict(mode="fl", server_step="reference"),
 }
 PARAMS_ATOL = {"fl": 1e-5, "sfl-op2-int8": 1e-3, "fedadapt-topk-int8": 1e-3,
                "fl-fail-deadline": 1e-5, "sfl-op2-deadline": 1e-5,
-               "fedadapt-fail-deadline-topk": 1e-3}
+               "fedadapt-fail-deadline-topk": 1e-3,
+               "fl-batched-reference": 1e-5,
+               "sfl-op1-batched-reference-int8-topk": 1e-3,
+               "fedadapt-batched-reference-topk-int8": 1e-3,
+               "sfl-op1-batched-fused-int8-topk": 1e-3,
+               "fl-sequential-reference": 1e-5}
 SMALL = dict(rounds=2, local_iters=2, batch_size=10, augment=True, seed=0)
 
 
@@ -132,8 +158,10 @@ def test_entry_point_runs_on_the_card_by_default():
     lambda: vgg_params_from_numpy(vgg_params_to_numpy(
         tvgg.init(VGG5, torch.Generator().manual_seed(0), device="cpu"))),
     lambda: agent_params_from_numpy({"actor": {"w0": np.ones((6, 64))}}),
+    lambda: PPOAgent(PPOConfig(num_groups=3)),
+    lambda: FedAdaptController(paper_testbed(VGG5)[0], VGG5.ops, 3),
 ], ids=["vgg.init", "SplitProgram.init", "vgg_params_from_numpy",
-        "agent_params_from_numpy"])
+        "agent_params_from_numpy", "PPOAgent", "FedAdaptController"])
 def test_param_constructors_default_to_the_card(make):
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is valid here")
@@ -142,13 +170,21 @@ def test_param_constructors_default_to_the_card(make):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("engine", "batched"), ("server_step", "reference"),
     ("client_widths", (1.0, 0.5)), ("cohort_size", 1), ("num_edges", 1),
     ("mesh_shape", (1, 1)), ("checkpoint_dir", "ckpt")])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, value):
     clients = split_clients(make_cifar_like(20, seed=1), 2)
     fl = FLConfig(rounds=1, local_iters=1, batch_size=10, **{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_federated(VGG5, clients, clients[0], fl, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [("engine", "warp"),
+                                        ("server_step", "fast")])
+def test_unknown_engine_or_server_step_raises(knob, value):
+    clients = split_clients(make_cifar_like(20, seed=1), 2)
+    fl = FLConfig(rounds=1, local_iters=1, batch_size=10, **{knob: value})
+    with pytest.raises(ValueError, match="unknown"):
         run_federated(VGG5, clients, clients[0], fl, device="cpu")
 
 
