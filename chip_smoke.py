@@ -56,6 +56,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    need (the cut per chunk and local iteration, top-k per leaf and kept
    client), OPs and modelled round times equal to phase 4's, accuracy
    within 0.02 a round; one more sfl-op1 round under the profiler.
+4d. the async runtime and checkpoints, phase 4's set-up (sfl-op1, the
+   sequential engine, the fused server step), with cuDNN held
+   deterministic: ``run_federated_async`` with buffer 5 and discount 0
+   against ``run_federated`` over 3 aggregations (ops, times, accuracy and
+   params bit for bit, round times within 1e-12); buffer 3, discount 0.5,
+   6 aggregations checkpointed at 3 and resumed from there (the suffix bit
+   for bit); the fault-tolerance driver's crash and resume
+   (``launch/fault_tolerance_drill.py``, bit for bit); a combined chaos
+   drill (5 clients, 6 aggregations, buffer 2) that keeps its invariants
+   and resumes bit for bit from its mid-drill checkpoint.  The async runs'
+   launch counts must be what their histories need (218/218/18
+   uninterrupted, 69/69/9 resumed).  Also printed: wall seconds per
+   aggregation, one checkpoint's save and restore seconds, and whether the
+   buffered pair replays bit for bit with cuDNN's default algorithms.
 5. the serving main path: ``ServeEngine`` on gemma2-2b at full width
    (26 layers, d_model 2304, 8 query heads over 4 KV heads of dim 256,
    vocab 256000; fp32 weights drawn on the card from a seed).  First the
@@ -448,6 +462,32 @@ def expected_launches(h, fl, native_op, n_leaves):
             "flash_attention": 0, "ssd_scan": 0}
 
 
+def expected_async_launches(h, fl, native_op, K, resumed=False):
+    """Each kernel's launches in one ``run_federated_async`` run on live
+    links (the sequential engine, an ``sfl`` static OP, the fused server
+    step), from its history: the in-flight set of C clients is dispatched
+    once at the start (not on resume) and each aggregation but the last
+    re-dispatches its ``buffer_size`` reporters, every dispatch running
+    the int8 cut once per local iteration below the native OP; each
+    aggregation applies its reports less the ``max_staleness`` drops, one
+    top-k and one int8 round trip a row."""
+    import numpy as np
+    assert fl.mode == "sfl" and fl.engine == "sequential" \
+        and fl.server_step == "fused", "a static-OP sequential/fused run"
+    assert np.isfinite(h["times"]).all(), "every report arrives"
+    C = fl.cohort_size or K
+    buf = fl.buffer_size or C
+    n_agg = len(h["accuracy"])
+    dispatched = (0 if resumed else C) + buf * (n_agg - 1)
+    cut = (fl.local_iters * dispatched
+           if fl.quantize_transfer and fl.static_op < native_op else 0)
+    rows = int(sum(buf - int(d) for d in h["dropped"]))
+    quant = cut + (rows if fl.quantize_deltas else 0)
+    return {"quantize": quant, "dequantize": quant,
+            "topk_compress": rows if fl.delta_density < 1 else 0,
+            "flash_attention": 0, "ssd_scan": 0}
+
+
 def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
                    server_step="fused"):
     """Phase 4 (sequential engine, fused server step) and 4c (batched
@@ -556,6 +596,226 @@ def batched_against_sequential(runs):
         print(f"{name}: batched/reference == sequential/fused (ops, round "
               f"times), accuracy within {diff:.4f} <= {BATCHED_ACC_ATOL}; "
               f"wall per round {bat['wall_s']} vs {seq['wall_s']} s")
+
+
+def _same_history(a, b, keys, what):
+    """Fail unless the histories' ``keys`` and final params are equal, bit
+    for bit."""
+    import numpy as np
+    import torch
+    for key in keys:
+        if not np.array_equal(a[key], b[key]):
+            fail(f"{what}: {key} {b[key]} != {a[key]}")
+    for la, lb in zip(a["params"], b["params"]):
+        for k in la:
+            if not torch.equal(la[k], lb[k]):
+                fail(f"{what}: final params differ ({k})")
+
+
+def async_checkpoint_path(torch, dev, launches, reset_launches):
+    """Phase 4d: the async runtime and checkpoints at VGG-5's full width,
+    phase 4's set-up (K=5 on the paper testbed, 1000 samples a client,
+    batch 100, 10 local iterations, sfl at OP1 with the int8 cut, top-k
+    0.1 and int8 deltas, the sequential engine and the fused server step),
+    cuDNN held deterministic.  1. ``run_federated_async`` with buffer 5 and
+    discount 0 against ``run_federated``, 3 aggregations (rounds): equal.
+    2. buffer 3, discount 0.5, 6 aggregations, a checkpoint at 3, then the
+    same config resumed: the suffix bitwise, launches exactly as the
+    histories need.  3. the fault-tolerance driver's crash and resume
+    (``launch/fault_tolerance_drill.py``): bitwise.  4. a combined chaos
+    drill (5 clients, 6 aggregations, buffer 2) passes its invariants and
+    resumes bitwise from its mid-drill checkpoint.  Also: one checkpoint's
+    save and restore seconds, and whether the buffered pair replays bitwise
+    with cuDNN's default (non-deterministic) algorithms."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager, save_tree
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.core.env import SimulatedCluster
+    from repro_torch.core.testbed import paper_testbed
+    from repro_torch.data import make_cifar_like, split_clients
+    from repro_torch.fl.async_loop import run_federated_async
+    from repro_torch.fl.comm import Transport, device_bandwidths
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.fl.loop import FLConfig, run_federated
+    from repro_torch.fl.state import async_state_tree
+    from repro_torch.launch.fault_tolerance_drill import main as drill_main
+    from repro_torch.models.split_program import get_split_program
+    from repro_torch.runtime.chaos import ChaosScript, run_chaos_drill
+
+    K = 5
+    clients = split_clients(make_cifar_like(1000 * K, seed=1), K)
+    test = make_cifar_like(1000, seed=2)
+    w, devices, c_srv, ovh = paper_testbed(VGG5)
+    program = get_split_program(VGG5)
+    native_op = program.native_op
+    init = program.init(torch.Generator().manual_seed(0), "cpu")
+    base = dict(local_iters=10, batch_size=100, seed=0, mode="sfl",
+                static_op=VGG5.ops[0], quantize_transfer=True,
+                delta_density=0.1, quantize_deltas=True)
+    suffix_keys = ("accuracy", "virtual_time", "staleness", "round_time",
+                   "dropped", "agg_weight_sum")
+    out = {}
+
+    def counted(name, run, want=None):
+        """``run()`` between a zeroing and a read of the launch counts;
+        with ``want(h)``, the counts must equal it."""
+        reset_launches()
+        t0 = time.perf_counter()
+        h = run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = dict(launches)
+        hist = h.history if hasattr(h, "history") else h
+        row = {"total_s": total, "launches": counts,
+               "wall_s": [float(t) for t in hist.get("wall_s", [])],
+               "accuracy": [float(a) for a in hist["accuracy"]]}
+        if want is not None:
+            row["expected_launches"] = want(hist)
+            if counts != row["expected_launches"]:
+                fail(f"{name}: launches {counts}, its history needs "
+                     f"{row['expected_launches']}")
+        out[name] = row
+        print(f"{name}: {total:.2f} s, wall per aggregation (s) "
+              f"{[round(t, 4) for t in row['wall_s']]}, launches {counts}"
+              + (" (as its history needs)" if want is not None else ""),
+              flush=True)
+        return h
+
+    def run_async(fl, resume=False):
+        sim = SimulatedCluster(w, devices, c_srv, VGG5.ops,
+                               iterations=fl.local_iters, overhead_s=ovh)
+        return run_federated_async(
+            VGG5, clients, test, fl, sim=sim,
+            transport=Transport(device_bandwidths(devices)), resume=resume,
+            init_params=init, device=dev)
+
+    def buffered_pair(ck, tag):
+        fl = FLConfig(rounds=6, buffer_size=3, staleness_discount=0.5,
+                      checkpoint_dir=ck, checkpoint_every=3, **base)
+        full = counted(f"async-buffered{tag}", lambda: run_async(fl),
+                       lambda h: expected_async_launches(h, fl, native_op,
+                                                         K))
+        resumed = counted(
+            f"async-resumed{tag}", lambda: run_async(fl, resume=True),
+            lambda h: expected_async_launches(h, fl, native_op, K,
+                                              resumed=True))
+        return fl, full, resumed
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. buffer K, discount 0: the sync loop
+        fl = FLConfig(rounds=3, buffer_size=K, **base)
+        sim = SimulatedCluster(w, devices, c_srv, VGG5.ops,
+                               iterations=fl.local_iters, overhead_s=ovh)
+        h_sync = counted("async-equiv-sync", lambda: run_federated(
+            VGG5, clients, test, fl, sim=sim,
+            transport=Transport(device_bandwidths(devices)),
+            init_params=init, device=dev),
+            lambda h: expected_launches(
+                h, fl, native_op, sum(len(x) for x in h["params"])))
+        h_async = counted("async-equiv-async", lambda: run_async(fl),
+                          lambda h: expected_async_launches(h, fl, native_op,
+                                                            K))
+        _same_history(h_sync, h_async, ("ops", "times", "accuracy"),
+                      "async buffer=K vs sync")
+        if not np.allclose(h_async["round_time"], h_sync["round_time"],
+                           rtol=1e-12, atol=0):
+            fail(f"async buffer=K round_time {h_async['round_time']} vs "
+                 f"sync {h_sync['round_time']}")
+        if (h_async["staleness"] != 0).any():
+            fail(f"async buffer=K staleness {h_async['staleness']}")
+        print("async buffer=K, discount 0 == run_federated on the card "
+              "(ops, times, accuracy and params bitwise)")
+
+        # 2. buffered async, checkpoint at 3, resume
+        with tempfile.TemporaryDirectory() as ck:
+            fl, full, resumed = buffered_pair(ck, "")
+            tail = {k: (v[-3:] if k != "params" else v)
+                    for k, v in full.items()}
+            _same_history(tail, resumed, suffix_keys, "async resume")
+            if full["staleness"].max() <= 0:
+                fail("buffered async: no report was ever stale")
+            # one checkpoint's restore and save: params, the dense EF rows
+            # and the in-flight rows, host <-> card
+            mgr = CheckpointManager(ck)
+            layout = FlatLayout(full["params"])
+            template = async_state_tree(
+                full["params"], torch.zeros((K, layout.padded), device=dev),
+                None, K, K, layout, template=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, _ = mgr.restore_latest(template)
+            tree["async"]["ev_delta"] = torch.from_numpy(
+                tree["async"]["ev_delta"]).to(dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            path = os.path.join(ck, "timed.npz")
+            t0 = time.perf_counter()
+            save_tree(path, tree, 3)
+            save_s = time.perf_counter() - t0
+            out["checkpoint"] = {"bytes": os.path.getsize(path),
+                                 "save_s": save_s, "restore_s": restore_s}
+            print(f"checkpoint at version 3: {os.path.getsize(path)} bytes, "
+                  f"save {save_s:.4f} s, restore {restore_s:.4f} s "
+                  f"(params, 5 EF rows and 5 in-flight rows of "
+                  f"{layout.padded} fp32)")
+        print("async buffered resume == uninterrupted suffix, bitwise")
+
+        # 3. the sync loop's crash and resume, through the driver
+        reset_launches()
+        drill = drill_main(["--device", str(dev)])
+        torch.cuda.synchronize()
+        if not drill["bitwise"]:
+            fail("fault-tolerance drill: resume not bitwise")
+        out["sync-resume-drill"] = {
+            "launches": dict(launches),
+            "accuracy": [float(a) for a in drill["full"]["accuracy"]],
+            "wall_s": [float(t) for t in drill["resumed"]["wall_s"]]}
+
+        # 4. a chaos drill and its mid-drill resume
+        script = ChaosScript.combined(K, 6, seed=7)
+        with tempfile.TemporaryDirectory() as ck:
+            fl = FLConfig(rounds=6, buffer_size=2, staleness_discount=0.5,
+                          checkpoint_dir=ck, checkpoint_every=3, **base)
+
+            def drill(resume=False):
+                res = run_chaos_drill(VGG5, clients, test, fl, script,
+                                      resume=resume, init_params=init,
+                                      device=dev)
+                if not res.ok():
+                    fail(f"chaos drill: {res.violations}")
+                return res
+            full = counted("chaos-drill", drill).history
+            resumed = counted("chaos-drill-resumed",
+                              lambda: drill(resume=True)).history
+            tail = {k: (v[-3:] if k != "params" else v)
+                    for k, v in full.items()}
+            _same_history(tail, resumed, suffix_keys, "chaos drill resume")
+        print("chaos drill (combined, 5 clients) ok; mid-drill resume "
+              "bitwise")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # the buffered pair once more with cuDNN's default algorithms: does
+    # replay stay bitwise without the setting?  A measurement, not a check
+    with tempfile.TemporaryDirectory() as ck:
+        _, full, resumed = buffered_pair(ck, "-nondeterministic")
+    differ = [k for k in suffix_keys
+              if not np.array_equal(full[k][-3:], resumed[k])]
+    param_diff = max(float((a[k] - b[k]).abs().max())
+                     for a, b in zip(full["params"], resumed["params"])
+                     for k in a)
+    out["without_cudnn_deterministic"] = {
+        "bitwise": not differ and param_diff == 0.0,
+        "differing_columns": differ, "max_param_diff": param_diff}
+    print(f"cudnn.deterministic={deterministic} (default): buffered resume "
+          f"{'bitwise' if not differ and param_diff == 0 else 'NOT bitwise'}"
+          f" (columns that differ: {differ}, final params within "
+          f"{param_diff:.3g})")
+    return out
 
 
 def ppo_training_path(torch, dev, launches, reset_launches):
@@ -1607,6 +1867,14 @@ def main() -> None:
             server_step="reference")
         record["main_path"].update(batched)
         batched_against_sequential(record["main_path"])
+
+        phase("4d. the async runtime and checkpoints: run_federated_async, "
+              "resume and a chaos drill on VGG-5, full width")
+        record["async"] = async_checkpoint_path(torch, dev, LAUNCHES,
+                                                reset_launches)
+        record["main_path"].update(
+            {name: run for name, run in record["async"].items()
+             if isinstance(run, dict) and "launches" in run})
 
         phase("5. serving main path: ServeEngine on gemma2-2b, full width")
         serving, real = gemma2_main_path(torch, tf, dev, LAUNCHES,

@@ -47,6 +47,10 @@ class FlatLayout:
         self.keys = tuple(tuple(sorted(layer)) for layer in params)
         leaves = tree_leaves(params)
         self.shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+        # fp32 params round-trip through the flat buffer without rounding:
+        # the async loop checkpoints in-flight deltas as flat rows, which
+        # is bitwise only then
+        self.exact_fp32 = all(leaf.dtype == torch.float32 for leaf in leaves)
         self.sizes = tuple(int(np.prod(s)) if s else 1 for s in self.shapes)
         self.segs = tuple(-(-sz // self.block) * self.block
                           for sz in self.sizes)

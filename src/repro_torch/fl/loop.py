@@ -12,8 +12,13 @@ plain average then stays one stacked ``tensordot`` per leaf).  Round times
 come from the Eq. 1 cost model (``SimulatedCluster``) and, when a
 ``Transport`` is given, its communication accounting.
 
-The reference's knobs that the port does not run yet (HeteroFL widths,
-cohorts, the two-tier server, a device mesh, checkpoints) raise
+A seeded cohort (``cohort_size``) trains in place of the whole fleet
+each round, its error feedback kept host-side in an ``EFStore``; every
+``checkpoint_every`` rounds the run's state goes to ``checkpoint_dir``
+(``fl/state.py``), and ``resume=True`` restores the latest checkpoint,
+replays the loaders' draws of the rounds before it and returns the rest of
+the history.  The reference's knobs that the port does not run yet
+(HeteroFL widths, the two-tier server, a device mesh) raise
 ``NotImplementedError`` naming their ROADMAP item rather than being
 ignored.
 """
@@ -27,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported, resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.controller import FedAdaptController
 from repro_torch.core.env import SimulatedCluster
 from repro_torch.data.loader import FleetLoader
+from repro_torch.fl.cohort import CohortSampler, EFStore
 from repro_torch.fl.comm import Transport
 from repro_torch.fl.fedavg import fedavg_delta_stacked, model_bytes
 from repro_torch.fl.flatbuf import (
@@ -44,6 +51,7 @@ from repro_torch.fl.fleet import (
     take_rows,
 )
 from repro_torch.fl.planner import FedAdaptPlanner, Planner, StaticPlanner
+from repro_torch.fl.state import base_state_tree, ef_template_len
 from repro_torch.models.split_program import get_split_program
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.runtime.straggler import (
@@ -73,24 +81,30 @@ class FLConfig:
     seed: int = 0
     engine: str = "sequential"       # sequential | batched
     server_step: str = "fused"       # fused | reference
+    cohort_size: int = 0             # >0: a seeded cohort of this many
+                                     # clients trains each round (EF rows
+                                     # in a host EFStore); 0: every client
+    # the async runtime (fl/async_loop.run_federated_async)
+    buffer_size: int = 0             # aggregate once this many reports
+                                     # arrive; 0: the in-flight set (K)
+    staleness_discount: float = 0.0  # a in the weight discount (1 + s)^-a
+    max_staleness: Optional[int] = None  # drop staler reports (None: none)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0        # rounds (aggregations) between saves
     # the reference's knobs the port does not run yet: any other value
     # than these defaults raises
     client_widths: Optional[Sequence[float]] = None
-    cohort_size: int = 0
     num_edges: int = 0
     mesh_shape: Optional[Sequence[int]] = None
-    checkpoint_dir: Optional[str] = None
 
 
 _UNPORTED = (
     # (field, default, what, ROADMAP item)
     ("client_widths", None, "client_widths (HeteroFL)",
      "heterogeneity, cohorts and hierarchy"),
-    ("cohort_size", 0, "cohort_size", "heterogeneity, cohorts and hierarchy"),
     ("num_edges", 0, "num_edges (two-tier server)",
      "heterogeneity, cohorts and hierarchy"),
     ("mesh_shape", None, "mesh_shape", "multi-device"),
-    ("checkpoint_dir", None, "checkpoint_dir", "checkpoints"),
 )
 
 
@@ -177,6 +191,47 @@ class RoundClock:
         return np.ones(self.K), np.zeros(self.K)
 
 
+def _initial_params(program, fl: FLConfig, init_params, device):
+    """The run's starting weights on ``device``: ``init_params`` (numpy or
+    tensors) as fp32 copies, else drawn from the seed's generator."""
+    if init_params is None:
+        return program.init(torch.Generator().manual_seed(fl.seed), device)
+    return [{k: (v.detach().to(device, torch.float32).clone()
+                 if isinstance(v, torch.Tensor) else
+                 torch.tensor(np.asarray(v, np.float32), device=device))
+             for k, v in layer.items()} for layer in init_params]
+
+
+def _error_state(fl: FLConfig, cohort: Optional[CohortSampler], K: int,
+                 layout: FlatLayout, device: torch.device):
+    """The EF rows: none without top-k, a host ``EFStore`` under a cohort
+    (the device holds only the rows a step fetches), else a dense zero
+    ``(K, padded)`` tensor on the device."""
+    if fl.delta_density >= 1.0:
+        return None
+    if cohort is not None:
+        return EFStore(K, layout.padded, device)
+    return torch.zeros((K, layout.padded), dtype=torch.float32,
+                       device=device)
+
+
+def _restore_errors(errors, state: dict):
+    """The EF rows of a restored tree, in the run's representation."""
+    if isinstance(errors, EFStore):
+        errors.restore(np.asarray(state["ef"]["ids"], np.int64),
+                       state["ef"]["rows"])
+        return errors
+    return state["delta_errors"] if errors is not None else None
+
+
+def _restore_controller(ctl, state: dict) -> None:
+    if ctl is not None:
+        ctl.baselines = np.asarray(state["controller"]["baselines"],
+                                   np.float64)
+        ctl.prev_actions = np.asarray(state["controller"]["prev_actions"],
+                                      np.float32)
+
+
 def run_federated(
     cfg,
     clients_data: List[Dict[str, np.ndarray]],
@@ -186,6 +241,7 @@ def run_federated(
     controller: Optional[FedAdaptController] = None,
     planner: Optional[Planner] = None,
     transport: Optional[Transport] = None,
+    resume: bool = False,
     init_params=None,
     device=None,
 ) -> Dict[str, np.ndarray]:
@@ -196,20 +252,19 @@ def run_federated(
     list of dicts, numpy or tensors) starts the run from given weights;
     by default they are drawn from ``torch.Generator().manual_seed(seed)``.
     Returns the history: per-round accuracy, modelled round and comm times,
-    per-device OPs and drop counts, the measured wall time of each round
-    (``wall_s``), plus the final ``params``.
+    per-device OPs and drop counts (clients outside the round's cohort
+    count as dropped), the measured wall time of each round (``wall_s``),
+    plus the final ``params``.  With ``resume=True`` and a checkpoint in
+    ``fl.checkpoint_dir``, the run continues from it and the history holds
+    the remaining rounds only.
     """
     device = resolve_device(device)
     _check_ported(fl)
     program = get_split_program(cfg)
     K = len(clients_data)
-    if init_params is None:
-        params = program.init(torch.Generator().manual_seed(fl.seed), device)
-    else:
-        params = [{k: (v.detach().to(device, torch.float32).clone()
-                       if isinstance(v, torch.Tensor) else
-                       torch.tensor(np.asarray(v, np.float32), device=device))
-                   for k, v in layer.items()} for layer in init_params]
+    if not 0 <= fl.cohort_size <= K:
+        raise ValueError(f"cohort_size={fl.cohort_size} outside [0, K={K}]")
+    params = _initial_params(program, fl, init_params, device)
     fused = fl.server_step == "fused"
     layout = FlatLayout(params)
     loaders = FleetLoader.for_clients(clients_data, fl.batch_size,
@@ -219,9 +274,37 @@ def run_federated(
     injector = FailureInjector(fl.fail_prob, seed=fl.seed)
     native_op = program.native_op
     sizes = np.asarray([len(d["labels"]) for d in clients_data], np.float64)
+    cohort = (CohortSampler(K, fl.cohort_size, seed=fl.seed)
+              if fl.cohort_size > 0 else None)
     track_errors = fl.delta_density < 1.0
-    delta_errors = (torch.zeros((K, layout.padded), dtype=torch.float32,
-                                device=device) if track_errors else None)
+    delta_errors = _error_state(fl, cohort, K, layout, device)
+    virtualized = isinstance(delta_errors, EFStore)
+    ctl = controller if controller is not None \
+        else getattr(planner, "controller", None)
+
+    mgr = CheckpointManager(fl.checkpoint_dir) if fl.checkpoint_dir else None
+    start_round = 0
+    shapes = mgr.latest_shapes() if mgr is not None and resume else None
+    if shapes is not None:
+        # the sparse EF snapshot's row count is data-dependent: size the
+        # template from the file before the strict restore
+        restored, start_round = mgr.restore_latest(base_state_tree(
+            params, delta_errors, ctl, K, template=True,
+            ef_len=ef_template_len(shapes)))
+        params = restored["params"]
+        delta_errors = _restore_errors(delta_errors, restored)
+        _restore_controller(ctl, restored)
+        # replay the loaders: a client drew local_iters batches in every
+        # earlier round it was alive and in the cohort, and both are pure
+        # functions of the seed and the round
+        alive_rounds = np.zeros(K, np.int64)
+        for rr in range(start_round):
+            m = injector.round_mask(K, round_idx=rr)
+            if cohort is not None:
+                m = m & cohort.member_mask(rr)
+            alive_rounds += m
+        for k in np.flatnonzero(alive_rounds):
+            loaders.skip_client(int(k), int(alive_rounds[k]) * fl.local_iters)
     clock = RoundClock(program, fl, K, params, sim=sim, transport=transport)
     step = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
             if fused else None)
@@ -240,12 +323,18 @@ def run_federated(
     test_batch = {k: torch.from_numpy(v).to(device)
                   for k, v in test_data.items()}
 
-    for r in range(fl.rounds):
+    for r in range(start_round, fl.rounds):
         t0 = time.perf_counter()
         lr = fl.lr * (fl.lr_drop_factor if r >= fl.lr_drop_round else 1.0)
         bandwidths = sim.bandwidths(r) if sim is not None else None
         ops = plan.plan(r, times, bandwidths)
         alive = injector.round_mask(K, round_idx=r)
+        if cohort is not None:
+            alive &= cohort.member_mask(r)
+            if virtualized:
+                # the host gather of the cohort's EF rows overlaps its
+                # training; the survivors' fetch takes the staged rows
+                delta_errors.prefetch(np.flatnonzero(alive))
         idxs, rows = engine.run_round(params, loaders, ops,
                                       [int(k) for k in np.flatnonzero(alive)],
                                       r, lr)
@@ -266,7 +355,12 @@ def run_federated(
                 params, take_rows(rows, kept_pos).tree, surv_w)
         elif kept_pos:
             ids = torch.as_tensor(surv_idx, dtype=torch.int64, device=device)
-            err_rows = delta_errors[ids] if track_errors else None
+            if not track_errors:
+                err_rows = None
+            elif virtualized:
+                err_rows = delta_errors.fetch(surv_idx)
+            else:
+                err_rows = delta_errors[ids]
             if fused:
                 deltas = layout.rows_to_deltas(take_rows(rows, kept_pos),
                                                g_flat)
@@ -279,7 +373,9 @@ def run_federated(
                         params, rows_as_list(rows, kept_pos)),
                     surv_w, err_rows, density=fl.delta_density,
                     quantize=fl.quantize_deltas)
-            if track_errors:
+            if virtualized:
+                delta_errors.store(surv_idx, new_err)
+            elif track_errors:
                 delta_errors[ids] = new_err
         plan.feedback(times)
         with torch.no_grad():
@@ -302,7 +398,12 @@ def run_federated(
         hist["times"].append(times.copy())
         hist["comm_time"].append(comm.copy())
         hist["dropped"].append(int(K - keep.sum()))
+        if mgr is not None and fl.checkpoint_every and \
+                (r + 1) % fl.checkpoint_every == 0:
+            mgr.save(base_state_tree(params, delta_errors, ctl, K), r + 1)
 
+    if virtualized:
+        delta_errors.close()
     hist_np = {k: np.asarray(v) for k, v in hist.items()}
     hist_np["params"] = params
     return hist_np

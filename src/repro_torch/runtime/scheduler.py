@@ -3,8 +3,8 @@
 
 The serving loop (``serving/queue.py``) schedules request arrivals on it
 and advances the clock by modeled prefill/decode costs, so its latency
-results are a pure function of the traffic seed and the cost model.  The
-async federated loop, its other user in the reference, is not ported yet.
+results are a pure function of the traffic seed and the cost model; the
+async federated loop (``fl/async_loop.py``) schedules client reports.
 
 The contract: a monotonic virtual clock plus a priority queue of
 timestamped events, with deterministic FIFO tie-breaking (two events at

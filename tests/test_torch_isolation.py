@@ -95,6 +95,11 @@ ENTRY_POINTS = {
 }
 
 
+# the fault-tolerance and async drivers, run as a user runs them
+DRIVERS = ["repro_torch.launch.async_federated",
+           "repro_torch.launch.fault_tolerance_drill"]
+
+
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
 def test_training_entry_points_run_without_jax(name):
     out = subprocess.run([sys.executable, "-c", NO_JAX + ENTRY_POINTS[name]],
@@ -103,8 +108,26 @@ def test_training_entry_points_run_without_jax(name):
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+@pytest.mark.parametrize("module", DRIVERS)
+def test_launch_drivers_run_without_jax(module):
+    code = (NO_JAX + "import runpy, sys\n"
+            f"sys.argv = [{module!r}, '--device', 'cpu']\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
+    # one intra-op thread: test workers run side by side
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src"),
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "virtual time" in out.stdout or "bitwise resume: OK" in out.stdout
+
+
 def test_the_new_training_modules_are_in_the_import_check():
     for name in ("repro_torch.optim.optimizers", "repro_torch.optim.schedule",
                  "repro_torch.tree", "repro_torch.fl.fedavg",
-                 "repro_torch.launch.quickstart"):
+                 "repro_torch.launch.quickstart",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.fl.state", "repro_torch.fl.cohort",
+                 "repro_torch.fl.async_loop", "repro_torch.runtime.chaos",
+                 "repro_torch.runtime.elastic", *DRIVERS):
         assert name in _module_names()
