@@ -13,7 +13,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    masked-tail drills, bit for bit; for quantize/dequantize also one row,
    odd widths, a CTA a row (4096), widths above the register limit (8200,
    2053), the batched engine's stacked cut (5 x 25600, 32) and inputs 4
-   (x) and 1 (codes) bytes off a 16-byte boundary; for
+   (x) and 1 (codes) bytes off a 16-byte boundary; a real VGG-5 client
+   delta masked at width 0.25 as the server step masks it (whole zero
+   blocks and -0.0 entries: top-k at density 0.1 decides many lanes on
+   its tie path at kth == 0, and its 580 x 1024 int8 round trip has
+   all-zero rows); for
    top-k (a radix select) every VGG-5 leaf as the reference server step
    cuts it (one buffer a leaf, short leaves one short block), keys
    that share their top digits, blocks of 100 lanes, and blocks of 99 and
@@ -70,6 +74,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    uninterrupted, 69/69/9 resumed).  Also printed: wall seconds per
    aggregation, one checkpoint's save and restore seconds, and whether the
    buffered pair replays bit for bit with cuDNN's default algorithms.
+4e. HeteroFL widths and the two-tier server, phase 4's set-up (sfl at
+   OP1, the int8 cut, top-k 0.1, int8 deltas) with client widths (1.0,
+   0.5, 0.25, 0.25, 0.5): the sequential engine and the fused step (each
+   device's modelled time its phase-4 compute times ``w**2`` plus its
+   comm); widths (0.5, 0.5, 0.25, 0.25, 0.5), whose uncovered coordinates
+   must keep their initial values bit for bit; ``num_edges=1`` against
+   the flat step (cuDNN deterministic, bit for bit); two edges with an
+   edge->root hop of 50 and 10 Mbit/s (``edge_time`` the slow edge's
+   hop, ``round_time`` the flat run's plus it), and one round's real
+   deltas, EF rows and masks through two and three edges against the
+   flat step (EF rows bit for bit, the global within 1e-6); the batched
+   engine (OPs and times equal, accuracy within 0.02 a round); the async
+   runtime with two edges (buffer 3, discount 0.5, 6 aggregations; the
+   hop reported, the virtual clock the run's without it).  Every run's
+   launches exactly as its history needs.
 5. the serving main path: ``ServeEngine`` on gemma2-2b at full width
    (26 layers, d_model 2304, 8 query heads over 4 KV heads of dim 256,
    vocab 256000; fp32 weights drawn on the card from a seed).  First the
@@ -104,7 +123,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
-   tolerances), gemma2-2b's smoke config through ``serve`` (tokens equal,
+   tolerances) plus one with widths (0.5, 1.0, 0.25), two edges, top-k 0.5
+   and int8 deltas (the edge hop too exact), gemma2-2b's smoke config
+   through ``serve`` (tokens equal,
    logits within 1e-4) and mamba2-780m's smoke config through prefill and
    decode (tokens equal, logits within 1e-4).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
@@ -154,6 +175,10 @@ SMALL_MODES = {
                      1e-3),
     "fedadapt-topk-int8": (dict(mode="fedadapt", delta_density=0.5,
                                 quantize_deltas=True), 1e-3),
+    "hetero-edges-topk-int8": (dict(mode="sfl", static_op=2,
+                                    client_widths=(0.5, 1.0, 0.25),
+                                    num_edges=2, delta_density=0.5,
+                                    quantize_deltas=True), 1e-3),
 }
 # final-params atol, CPU vs card.  fl: 1e-4, looser than the CPU tests'
 # 1e-5 against JAX because cuDNN may pick a Winograd or FFT convolution whose
@@ -176,6 +201,16 @@ PPO_TRAIN_ROUNDS, PPO_CHECK_ROUNDS, PPO_ACTION_ATOL = 350, 30, 1e-5
 # phase 4c against phase 4: accuracy within 0.02 a round, the reference's
 # own bound between its two engines (tests/test_fleet.py)
 BATCHED_ACC_ATOL = 0.02
+# phase 4e: the Jetson at full width, the Pi 4s at half, the Pi 3s at a
+# quarter (paper_testbed's order: jetson, pi4_1, pi3_1, pi3_2, pi4_2); a
+# fleet with no full-width client; the edge->root links of two edges
+HETERO_WIDTHS = (1.0, 0.5, 0.25, 0.25, 0.5)
+NARROW_WIDTHS = (0.5, 0.5, 0.25, 0.25, 0.5)
+EDGE_BPS = (50e6, 10e6)
+# one round's real deltas through two and three edges against the flat
+# step: the global within 1e-6 (each edge normalizes by its own mass and
+# the root re-weights, so fp32 sums run in another order)
+TIERED_ATOL = 1e-6
 # the reference's flash-attention sweep (tests/test_kernels.py FLASH_CASES,
 # copied: this script imports nothing of JAX) plus the smoke head dims of
 # gemma2/qwen3 (16) and lm16m (40) and a row range that sees no key:
@@ -428,7 +463,54 @@ def check_kernels(torch, tq, tt, dev):
         if not torch.equal(kept, meta[:, 1].repeat(buf.shape[0]).long()):
             fail(f"topk {name}: survivors per block != k")
         print(f"topk_compress {name}: equal")
+
+    # a real client delta masked at width 0.25, as the server step masks it
+    # (m * d): whole zero blocks, -0.0 where the mask zeroes a negative
+    # entry.  Top-k at density 0.1 decides the lanes of every block with
+    # fewer nonzeros than k on its tie path at kth == 0, where the
+    # magnitude key makes -0.0 equal to 0.0; the output keeps each lane's
+    # sign, so bitwise equality is the keep mask lane for lane.  Then the
+    # row's int8 round trip, whose all-zero rows take the floor scale
+    row, layout = masked_delta_row(torch, dev)
+    blocks = row.view(-1, 1024)
+    zero_blocks = int((blocks == 0).all(1).sum())
+    neg_zeros = int(((row == 0) & torch.signbit(row)).sum())
+    if not zero_blocks or not neg_zeros:
+        fail(f"masked delta row: {zero_blocks} zero blocks, {neg_zeros} "
+             f"-0.0 entries (the drill needs both)")
+    meta = torch.from_numpy(layout.block_meta(0.1)).to(torch.int32).to(dev)
+    tie_blocks = int(((blocks != 0).sum(1) < meta[:, 1]).sum())
+    out = tt.topk_compress_flat(row[None], meta, 1024)
+    worst["topk_compress"] = max(worst["topk_compress"], same(
+        out, tt.topk_blocks_plain(blocks, meta).view_as(out),
+        "topk masked delta row"))
+    print(f"topk_compress masked VGG-5 delta row at width 0.25: equal "
+          f"({zero_blocks} zero blocks, {tie_blocks} blocks with kth == 0, "
+          f"{neg_zeros} -0.0 entries)")
+    quant_drill(blocks, "masked VGG-5 delta row (580, 1024)")
     return worst
+
+
+def masked_delta_row(torch, dev):
+    """A real VGG-5 client delta at width 0.25, masked as the server step
+    masks it: one client of phase 4's data, 2 local iterations at OP1 from
+    the seed's weights (no int8 cut), ``m * (row - g)`` on the card.
+    Returns the row and the layout."""
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.data import FleetLoader, make_cifar_like
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.fl.fleet import SequentialEngine
+    from repro_torch.fl.hetero import HeteroSpec
+    from repro_torch.models.split_program import get_split_program
+    program = get_split_program(VGG5)
+    params = program.init(torch.Generator().manual_seed(0), dev)
+    layout = FlatLayout(params)
+    spec = HeteroSpec(program, params, [0.25], layout=layout)
+    loader = FleetLoader.for_clients([make_cifar_like(200, seed=1)], 100)
+    _, rows = SequentialEngine(program, 2, 0, True, False, dev).run_round(
+        params, loader, [VGG5.ops[0]], [0], 0, 0.01, hetero=spec)
+    g = layout.flatten(params)
+    return spec.mask_row(0) * (layout.flatten(rows[0]) - g), layout
 
 
 def expected_launches(h, fl, native_op, n_leaves):
@@ -436,20 +518,22 @@ def expected_launches(h, fl, native_op, n_leaves):
     or deadline, from its history.  The int8 cut (one quantize, one
     dequantize) runs per local iteration of every client below the native
     OP in the sequential engine, and per local iteration of every chunk
-    (an OP group below the native OP, cut into ``BATCHED_MAX_GROUP``
-    clients at most) in the batched one.  The fused server step takes one
-    top-k (density < 1) and one int8 round trip per client row; the
-    reference step one top-k per leaf (``n_leaves``) and one int8 round
-    trip per kept client."""
+    (an ``(OP, width)`` group below the native OP, cut into
+    ``BATCHED_MAX_GROUP`` clients at most) in the batched one.  The fused
+    server step takes one top-k (density < 1) and one int8 round trip per
+    client row, flat or through the edges; the reference step one top-k
+    per leaf (``n_leaves``) and one int8 round trip per kept client."""
     assert fl.fail_prob == 0 and fl.deadline_factor == 0, \
         "every client trains and is kept"
+    widths = fl.client_widths or (1.0,) * len(h["ops"][0])
     if not fl.quantize_transfer:
         cut = 0
     elif fl.engine == "batched":
         cut = fl.local_iters * sum(
             -(-n // BATCHED_MAX_GROUP)
             for row in h["ops"]
-            for op, n in collections.Counter(int(o) for o in row).items()
+            for (op, _), n in collections.Counter(
+                (int(o), float(wk)) for o, wk in zip(row, widths)).items()
             if op < native_op)
     else:
         cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
@@ -564,6 +648,7 @@ def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
                       "total_s": total,
                       "accuracy": [float(a) for a in acc],
                       "round_time_model_s": h["round_time"].tolist(),
+                      "times_model_s": h["times"].tolist(),
                       "comm_time_model_s": h["comm_time"].tolist(),
                       "ops": ops, "launches": counts,
                       "engine": engine, "server_step": server_step}
@@ -818,6 +903,272 @@ def async_checkpoint_path(torch, dev, launches, reset_launches):
     return out
 
 
+def hetero_hierarchy_path(torch, dev, launches, reset_launches, flat_run,
+                          samples=1000, local_iters=10):
+    """Phase 4e: HeteroFL widths and the two-tier server at VGG-5's full
+    width, phase 4's set-up (K=5 on the paper testbed, ``samples`` a
+    client, batch 100, ``local_iters`` local iterations, sfl at OP1 with the
+    int8 cut, top-k 0.1 and int8 deltas; 3 rounds).  ``flat_run`` is phase
+    4's sfl-op1 record at the same set-up (its per-device modelled times
+    and comm).  Every run's launch counts are zeroed just before it and
+    must equal what its history needs; the runs:
+
+    1. ``hetero-sfl-op1``: widths ``HETERO_WIDTHS``, the sequential engine
+       and the fused step; each device's modelled time is its phase-4
+       compute times ``w**2`` plus its comm (rtol 1e-12).
+    2. ``hetero-narrow-sfl-op1``: ``NARROW_WIDTHS``; coordinates outside
+       every mask keep their initial values bit for bit, a covered one
+       moves.
+    3. ``edges1-sfl-op1`` against ``flat-sfl-op1`` (homogeneous), cuDNN
+       deterministic: histories and params bit for bit.
+    4. ``edges2-hetero-sfl-op1``: run 1 through two edges with an
+       ``EDGE_BPS`` edge->root hop: ``edge_time`` the slow edge's hop,
+       ``round_time`` run 1's plus it.  Then one round's real deltas, EF
+       rows and masks through two and three edges against the flat step:
+       EF rows bit for bit, the global within ``TIERED_ATOL``.
+    5. ``hetero-batched``: run 1 on the batched engine: OPs and times equal
+       run 1's, accuracy within ``BATCHED_ACC_ATOL`` a round.
+    6. ``async-hetero-edges2``: ``run_federated_async``, buffer 3, discount
+       0.5, run 1's widths, two edges and run 4's hop, 6 aggregations:
+       ``edge_time`` as derived, ``virtual_time`` that of the same run
+       without the hop (``async-hetero-edges2-free``).
+
+    One more round of run 1 runs under ``torch.profiler``."""
+    import numpy as np
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.core.env import SimulatedCluster
+    from repro_torch.core.testbed import paper_testbed
+    from repro_torch.data import make_cifar_like, split_clients
+    from repro_torch.fl.async_loop import run_federated_async
+    from repro_torch.fl.comm import (Transport, device_bandwidths,
+                                     indexed_bandwidths)
+    from repro_torch.fl.fedavg import model_bytes
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.fl.hetero import HeteroSpec
+    from repro_torch.fl.loop import FLConfig, run_federated
+    from repro_torch.models.split_program import get_split_program
+
+    K = 5
+    clients = split_clients(make_cifar_like(samples * K, seed=1), K)
+    test = make_cifar_like(1000, seed=2)
+    w, devices, c_srv, ovh = paper_testbed(VGG5)
+    program = get_split_program(VGG5)
+    native_op = program.native_op
+    init = program.init(torch.Generator().manual_seed(0), "cpu")
+    base = dict(local_iters=local_iters, batch_size=100, seed=0, mode="sfl",
+                static_op=VGG5.ops[0], quantize_transfer=True,
+                delta_density=0.1, quantize_deltas=True)
+    hop = 2 * model_bytes(init) * 8.0 / min(EDGE_BPS)
+    out = {}
+
+    def edge_link():
+        return Transport(indexed_bandwidths(EDGE_BPS))
+
+    def counted(name, fl, run, want):
+        """``run()`` between a zeroing and a read of the launch counts,
+        which must equal ``want(h)``."""
+        reset_launches()
+        t0 = time.perf_counter()
+        h = run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = dict(launches)
+        expected = want(h)
+        if counts != expected:
+            fail(f"{name}: launches {counts}, its history needs {expected}")
+        out[name] = {"wall_s": [float(t) for t in h["wall_s"]],
+                     "total_s": total, "launches": counts,
+                     "accuracy": [float(a) for a in h["accuracy"]],
+                     "round_time_model_s": h["round_time"].tolist(),
+                     "edge_time_model_s": h["edge_time"].tolist(),
+                     "ops": h["ops"].tolist(),
+                     "client_widths": list(fl.client_widths or ()),
+                     "num_edges": fl.num_edges, "engine": fl.engine}
+        print(f"{name}: {total:.2f} s, wall per round/aggregation (s) "
+              f"{[round(t, 4) for t in out[name]['wall_s']]}, launches "
+              f"{counts} (as its history needs), accuracy "
+              f"{[round(a, 4) for a in out[name]['accuracy']]}", flush=True)
+        return h
+
+    def sim():
+        return SimulatedCluster(w, devices, c_srv, VGG5.ops,
+                                iterations=local_iters, overhead_s=ovh)
+
+    def sync(name, edge_transport=None, **kw):
+        fl = FLConfig(rounds=3, **base, **kw)
+        return counted(name, fl, lambda: run_federated(
+            VGG5, clients, test, fl, sim=sim(),
+            transport=Transport(device_bandwidths(devices)),
+            edge_transport=edge_transport, init_params=init, device=dev),
+            lambda h: expected_launches(
+                h, fl, native_op, sum(len(x) for x in h["params"])))
+
+    # 1. widths on the flat server: Eq. 1 compute scaled by w**2
+    h1 = sync("hetero-sfl-op1", client_widths=HETERO_WIDTHS)
+    comm = np.asarray(flat_run["comm_time_model_s"])
+    comp = np.asarray(flat_run["times_model_s"]) - comm
+    if h1["ops"].tolist() != flat_run["ops"] or \
+            not np.array_equal(h1["comm_time"], comm):
+        fail("hetero-sfl-op1: OPs or comm differ from phase 4's sfl-op1")
+    want = comp * np.square(HETERO_WIDTHS) + comm
+    if not np.allclose(h1["times"], want, rtol=1e-12, atol=0):
+        fail(f"hetero-sfl-op1: modelled times {h1['times'].tolist()} != "
+             f"phase 4's compute x w**2 + comm {want.tolist()}")
+    if (h1["edge_time"] != 0).any():
+        fail(f"hetero-sfl-op1: edge_time {h1['edge_time']} without edges")
+    print("hetero-sfl-op1: modelled times == phase 4's compute x w**2 + "
+          "comm (rtol 1e-12)")
+    # one more round of run 1 under the profiler, as phase 4 profiles its
+    # sfl-op1 round: what the masks add to the launches and the busy share
+    fl1 = FLConfig(rounds=1, client_widths=HETERO_WIDTHS, **base)
+    out["profile"] = profile_device(
+        torch, "one hetero-sfl-op1 round", lambda: run_federated(
+            VGG5, clients, test, fl1, sim=sim(),
+            transport=Transport(device_bandwidths(devices)),
+            init_params=init, device=dev),
+        lambda h: float(h["wall_s"][0]) * 1e3)
+
+    # 2. no full-width client: what no mask covers never moves
+    h2 = sync("hetero-narrow-sfl-op1", client_widths=NARROW_WIDTHS)
+    init_dev = program.init(torch.Generator().manual_seed(0), dev)
+    layout = FlatLayout(init_dev)
+    covered = HeteroSpec(program, init_dev, NARROW_WIDTHS,
+                         layout=layout).rows(range(K)).sum(0) > 0
+    flat0, flat1 = layout.flatten(init_dev), layout.flatten(h2["params"])
+    if not torch.equal(flat1[~covered].view(torch.int32),
+                       flat0[~covered].view(torch.int32)):
+        fail("hetero-narrow-sfl-op1: an uncovered coordinate moved")
+    if not bool((flat1[covered] != flat0[covered]).any()):
+        fail("hetero-narrow-sfl-op1: no covered coordinate moved")
+    print(f"hetero-narrow-sfl-op1: {int((~covered).sum())} uncovered "
+          f"coordinates bitwise at their initial values, "
+          f"{int((flat1 != flat0).sum())} moved")
+
+    # 3. one edge is the flat step, bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        flat = sync("flat-sfl-op1")
+        e1 = sync("edges1-sfl-op1", num_edges=1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _same_history(flat, e1, ("ops", "times", "round_time", "comm_time",
+                             "dropped", "accuracy", "edge_time"),
+                  "num_edges=1 vs the flat step")
+    print("edges1-sfl-op1 == flat-sfl-op1 on the card (history and params "
+          "bitwise, cudnn deterministic)")
+
+    # 4. two edges and the hop
+    h4 = sync("edges2-hetero-sfl-op1", client_widths=HETERO_WIDTHS,
+              num_edges=2, edge_transport=edge_link())
+    if not np.allclose(h4["edge_time"], hop, rtol=1e-9, atol=0):
+        fail(f"edges2-hetero-sfl-op1: edge_time {h4['edge_time']} != {hop}")
+    if not np.allclose(h4["round_time"], h1["round_time"] + h4["edge_time"],
+                       rtol=1e-12, atol=0):
+        fail(f"edges2-hetero-sfl-op1: round_time {h4['round_time']} != "
+             f"run 1's {h1['round_time']} + the hop")
+    worst = tiered_drill(torch, dev, clients, local_iters)
+    out["tiered_drill"] = worst
+    print(f"edges2-hetero-sfl-op1: edge_time {hop:.6f} s a round; one "
+          f"round's real deltas through 2 and 3 edges: EF rows bitwise, "
+          f"global within {max(worst.values()):.3g} <= {TIERED_ATOL}")
+
+    # 5. the batched engine, chunks per (OP, width) group
+    h5 = sync("hetero-batched", client_widths=HETERO_WIDTHS,
+              engine="batched")
+    if h5["ops"].tolist() != h1["ops"].tolist() or \
+            not np.array_equal(h5["times"], h1["times"]):
+        fail("hetero-batched: OPs or modelled times differ from run 1's")
+    diff = float(np.max(np.abs(h5["accuracy"] - h1["accuracy"])))
+    if diff > BATCHED_ACC_ATOL:
+        fail(f"hetero-batched: accuracy {h5['accuracy']} vs sequential "
+             f"{h1['accuracy']}")
+    print(f"hetero-batched == hetero-sfl-op1 (ops, times), accuracy within "
+          f"{diff:.4f} <= {BATCHED_ACC_ATOL}")
+
+    # 6. the async runtime through two edges: the hop reported, not clocked
+    fl6 = FLConfig(rounds=6, buffer_size=3, staleness_discount=0.5,
+                   client_widths=HETERO_WIDTHS, num_edges=2, **base)
+
+    def run_async(edge_transport):
+        return run_federated_async(
+            VGG5, clients, test, fl6, sim=sim(),
+            transport=Transport(device_bandwidths(devices)),
+            edge_transport=edge_transport, init_params=init, device=dev)
+
+    def want_async(h):
+        return expected_async_launches(h, fl6, native_op, K)
+    h6 = counted("async-hetero-edges2", fl6, lambda: run_async(edge_link()),
+                 want_async)
+    free = counted("async-hetero-edges2-free", fl6, lambda: run_async(None),
+                   want_async)
+    if not np.array_equal(h6["virtual_time"], free["virtual_time"]):
+        fail(f"async-hetero-edges2: virtual_time {h6['virtual_time']} != "
+             f"the run without the hop {free['virtual_time']}")
+    if not np.allclose(h6["edge_time"], hop, rtol=1e-9, atol=0) or \
+            (free["edge_time"] != 0).any():
+        fail(f"async-hetero-edges2: edge_time {h6['edge_time']} (free "
+             f"{free['edge_time']}), the hop {hop}")
+    print(f"async-hetero-edges2: edge_time {hop:.6f} s an aggregation, "
+          f"virtual_time {h6['virtual_time'].tolist()} == the run without "
+          f"the hop")
+    return out
+
+
+def tiered_drill(torch, dev, clients, local_iters):
+    """Phase 4e, run 4's drill: two rounds of run 1 (the engine, widths,
+    the fused step) by hand on the card; round 1's real deltas, EF rows
+    (from round 0's step) and masks through two and three edges against
+    the flat step.  EF rows bit for bit (an edge computes each client's
+    residual from the same row), the global within ``TIERED_ATOL``.
+    Returns the global's max abs difference per edge count."""
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.data import FleetLoader
+    from repro_torch.fl.flatbuf import FlatLayout, ServerStep, get_root_step
+    from repro_torch.fl.fleet import SequentialEngine
+    from repro_torch.fl.hetero import HeteroSpec
+    from repro_torch.fl.hierarchy import hierarchical_apply
+    from repro_torch.models.split_program import get_split_program
+    K = len(clients)
+    program = get_split_program(VGG5)
+    params = program.init(torch.Generator().manual_seed(0), dev)
+    layout = FlatLayout(params)
+    spec = HeteroSpec(program, params, HETERO_WIDTHS, layout=layout)
+    engine = SequentialEngine(program, local_iters, 0, True, True, dev)
+    loader = FleetLoader.for_clients(clients, 100, seed=0)
+    step = ServerStep(layout, 0.1, True)
+    weights = [3.0, 1.0, 2.0, 1.0, 4.0]
+    g = layout.flatten(params)
+    errors = torch.zeros((K, layout.padded), device=dev)
+    ops = [VGG5.ops[0]] * K
+    for r in range(2):
+        idxs, rows = engine.run_round(params, loader, ops, list(range(K)),
+                                      r, 0.01, hetero=spec)
+        deltas = layout.rows_to_deltas(rows, g)
+        masks = spec.rows(idxs)
+        if r == 0:
+            g, errors = step(g, deltas, weights, errors, masks=masks)
+            params = layout.unflatten(g)
+    if not bool((errors != 0).any()):
+        fail("tiered drill: round 0 left no EF residual")
+    flat_g, flat_e = step(g, deltas, weights, errors, masks=masks)
+    worst = {}
+    for edges in (2, 3):
+        got_g, got_e, used = hierarchical_apply(
+            step, get_root_step(layout), g, deltas, weights, errors, masks,
+            num_edges=edges)
+        if used != edges:
+            fail(f"tiered drill: {used} edges used of {edges}")
+        if not torch.equal(got_e.view(torch.int32),
+                           flat_e.view(torch.int32)):
+            fail(f"tiered drill: {edges} edges' EF rows != the flat step's")
+        worst[edges] = float((got_g - flat_g).abs().max())
+        if worst[edges] > TIERED_ATOL:
+            fail(f"tiered drill: {edges} edges' global {worst[edges]} from "
+                 f"the flat step's > {TIERED_ATOL}")
+    return worst
+
+
 def ppo_training_path(torch, dev, launches, reset_launches):
     """Phase 4b: the PPO agent trained on the card through the quickstart
     driver (``train_rl_agent``, 350 rounds, factored, G=3, the paper
@@ -946,7 +1297,8 @@ def small_cpu_vs_card(torch, dev):
     from repro_torch.core.env import SimulatedCluster
     from repro_torch.core.testbed import paper_testbed
     from repro_torch.data import make_cifar_like, split_clients
-    from repro_torch.fl.comm import Transport, device_bandwidths
+    from repro_torch.fl.comm import (Transport, device_bandwidths,
+                                     indexed_bandwidths)
     from repro_torch.fl.loop import FLConfig, run_federated
     from repro_torch.models.vgg import init
 
@@ -967,9 +1319,11 @@ def small_cpu_vs_card(torch, dev):
                 VGG5, clients, test, FLConfig(**SMALL, **kw), sim=sim,
                 controller=ctl,
                 transport=Transport(device_bandwidths(devices[:3])),
+                edge_transport=Transport(indexed_bandwidths(EDGE_BPS)),
                 init_params=init_np, device=d)
         a, b = hists["cpu"], hists[str(dev)]
-        for key in ("ops", "round_time", "comm_time", "dropped"):
+        for key in ("ops", "times", "round_time", "comm_time", "dropped",
+                    "edge_time"):
             if not np.array_equal(a[key], b[key]):
                 fail(f"small {mode}: {key} differs cpu {a[key]} vs card "
                      f"{b[key]}")
@@ -1874,6 +2228,15 @@ def main() -> None:
                                                 reset_launches)
         record["main_path"].update(
             {name: run for name, run in record["async"].items()
+             if isinstance(run, dict) and "launches" in run})
+
+        phase("4e. heterogeneous widths and the two-tier server on VGG-5, "
+              "full width")
+        record["hetero"] = hetero_hierarchy_path(
+            torch, dev, LAUNCHES, reset_launches,
+            record["main_path"]["sfl-op1"])
+        record["main_path"].update(
+            {name: run for name, run in record["hetero"].items()
              if isinstance(run, dict) and "launches" in run})
 
         phase("5. serving main path: ServeEngine on gemma2-2b, full width")

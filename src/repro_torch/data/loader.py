@@ -9,12 +9,90 @@ batches of an uninterrupted one.  ``FleetLoader.next_batches`` stacks the
 next draw of several clients ``(G, B, ...)`` for the batched engine; each
 client's stream is the one the sequential engine draws, whatever the
 grouping.
+
+``dirichlet_indices`` / ``dirichlet_partition`` split one dataset into K
+label-skewed client shards, Dirichlet(alpha) proportions per class drawn
+from a ``RandomState(seed)`` stream: the reference's index sets, array for
+array, rebalancing included.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def dirichlet_indices(labels: np.ndarray, num_clients: int, alpha: float,
+                      seed: int = 0, min_per_client: int = 1,
+                      ) -> List[np.ndarray]:
+    """Per-client sample indices of a seeded Dirichlet(alpha) label-skew
+    partition.  Each class's samples are shuffled and split across the K
+    clients in proportions ``p ~ Dirichlet(alpha 1_K)`` (a fresh draw a
+    class; counts by floor plus largest remainder).  The index arrays are
+    disjoint and cover ``arange(len(labels))``; a deterministic rebalance
+    moves samples from the largest shard until every client has at least
+    ``min_per_client``.  A pure function of ``(labels, K, alpha, seed)``."""
+    if num_clients < 1:
+        raise ValueError(f"num_clients={num_clients} must be >= 1")
+    if alpha <= 0:
+        raise ValueError(f"alpha={alpha} must be > 0 (Dirichlet "
+                         f"concentration)")
+    labels = np.asarray(labels)
+    if labels.ndim > 1:
+        # (N, T) token targets: each sequence's first target keys the skew
+        labels = labels.reshape(len(labels), -1)[:, 0]
+    n = len(labels)
+    if n < num_clients * min_per_client:
+        raise ValueError(
+            f"{n} samples cannot give {num_clients} clients "
+            f">= {min_per_client} each")
+    rng = np.random.RandomState(seed)
+    shards: List[List[np.ndarray]] = [[] for _ in range(num_clients)]
+    for c in np.unique(labels):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        p = rng.dirichlet(np.full(num_clients, float(alpha)))
+        raw = p * len(idx)
+        counts = np.floor(raw).astype(np.int64)
+        rem = len(idx) - int(counts.sum())
+        if rem:
+            order = np.argsort(-(raw - counts), kind="stable")
+            counts[order[:rem]] += 1
+        start = 0
+        for k, stop in enumerate(np.cumsum(counts)):
+            if stop > start:
+                shards[k].append(idx[start:stop])
+            start = int(stop)
+    parts = [np.sort(np.concatenate(s)) if s
+             else np.empty(0, np.int64) for s in shards]
+    # donate from the largest shard to the smallest below the floor (ties
+    # to the lower client index, as argmax / argmin break them)
+    sizes = np.asarray([len(p) for p in parts])
+    while sizes.min() < min_per_client:
+        src = int(np.argmax(sizes))
+        dst = int(np.argmin(sizes))
+        give = min(min_per_client - sizes[dst], sizes[src] - min_per_client)
+        if give <= 0:
+            raise ValueError("rebalance stuck: not enough samples to give "
+                             f"every client >= {min_per_client}")
+        moved, parts[src] = parts[src][-give:], parts[src][:-give]
+        parts[dst] = np.sort(np.concatenate([parts[dst], moved]))
+        sizes[src] -= give
+        sizes[dst] += give
+    return parts
+
+
+def dirichlet_partition(data: Dict[str, np.ndarray], num_clients: int,
+                        alpha: float, seed: int = 0,
+                        label_key: str = "labels",
+                        min_per_client: int = 1,
+                        ) -> List[Dict[str, np.ndarray]]:
+    """K Dirichlet(alpha) label-skewed client shards of one dict dataset:
+    every array is indexed by ``dirichlet_indices`` over
+    ``data[label_key]``.  A drop-in for the IID ``split_clients``."""
+    parts = dirichlet_indices(data[label_key], num_clients, alpha,
+                              seed=seed, min_per_client=min_per_client)
+    return [{k: v[idx] for k, v in data.items()} for idx in parts]
 
 
 class ClientLoader:

@@ -15,7 +15,12 @@ history is ``run_federated``'s.
 
 The aggregation runs through the sync loop's fused ``ServerStep`` over the
 stacked fresh rows (reports carry flat delta rows), or with
-``server_step="reference"`` through ``reference_server_step``.  Clients
+``server_step="reference"`` through ``reference_server_step``; with
+``client_widths`` both take the fresh reporters' mask rows, and with
+``num_edges > 0`` the fused rows go through the two-tier server
+(``fl/hierarchy.py``).  The edge->root hop (``edge_transport``) is reported
+as the ``edge_time`` column but not clocked: the virtual clock is
+event-driven and ignores it.  Clients
 behind dead links (``Transport`` returns ``inf``) never report; they are
 re-dispatched with the current params at every aggregation
 (``EventQueue.drop_unreachable``), and a fleet whose every in-flight
@@ -42,7 +47,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.controller import FedAdaptController
 from repro_torch.core.env import SimulatedCluster
@@ -52,9 +57,11 @@ from repro_torch.fl.comm import Transport
 from repro_torch.fl.flatbuf import (
     FlatLayout,
     ServerStep,
+    get_root_step,
     reference_server_step,
 )
 from repro_torch.fl.fleet import get_engine, rows_as_list
+from repro_torch.fl.hierarchy import hierarchical_apply
 from repro_torch.fl.loop import (
     FLConfig,
     RoundClock,
@@ -62,6 +69,7 @@ from repro_torch.fl.loop import (
     _delta_trees,
     _error_state,
     _initial_params,
+    _resolve_hetero,
     _resolve_planner,
     _restore_controller,
     _restore_errors,
@@ -116,22 +124,19 @@ def run_federated_async(
     (the clock at each aggregation), ``staleness`` (mean staleness of the
     applied reports), ``dropped`` (``max_staleness`` discards),
     ``agg_weight_sum`` (the applied normalized weight mass: 1.0 when any
-    report applied, else 0.0) and ``edge_time`` (the two-tier server's hop,
-    0.0: that server is not ported).  ``wall_s`` is the host seconds from
-    the previous aggregation's accuracy read to this one's, checkpoint
-    saves left out.
+    report applied, else 0.0) and ``edge_time`` (the two-tier server's
+    slowest edge->root hop through ``edge_transport`` at the aggregation's
+    version, 0.0 without one; reported, not added to the clock).
+    ``wall_s`` is the host seconds from the previous aggregation's accuracy
+    read to this one's, checkpoint saves left out.
 
     ``on_aggregate(version, params, g_flat=...)`` fires after every
     aggregation (``g_flat``: the flat global under the fused server step,
     else ``None``).  ``device``, ``init_params`` and ``resume`` are as in
-    ``run_federated``.  ``edge_transport`` (the two-tier server's hop)
-    raises: it is not ported.
+    ``run_federated``.
     """
     device = resolve_device(device)
     _check_ported(fl)
-    if edge_transport is not None:
-        raise not_ported("edge_transport (two-tier server)",
-                         "heterogeneity, cohorts and hierarchy")
     program = get_split_program(cfg)
     K = len(clients_data)
     if not 0 <= fl.cohort_size <= K:
@@ -166,14 +171,19 @@ def run_federated_async(
     cohort = (CohortSampler(K, C, seed=fl.seed)
               if fl.cohort_size > 0 else None)
     track_errors = fl.delta_density < 1.0
+    hetero = _resolve_hetero(fl, program, params, layout, K)
     delta_errors = _error_state(fl, cohort, K, layout, device)
     virtualized = isinstance(delta_errors, EFStore)
     ctl = controller if controller is not None \
         else getattr(planner, "controller", None)
     srv = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
            if fused else None)
+    root = get_root_step(layout) if fl.num_edges > 0 else None
     g_flat = layout.flatten(params) if fused else None
-    clock = RoundClock(program, fl, K, params, sim=sim, transport=transport)
+    clock = RoundClock(program, fl, K, params, sim=sim, transport=transport,
+                       compute_scale=(hetero.compute_scale
+                                      if hetero is not None else None),
+                       edge_transport=edge_transport)
 
     mgr = CheckpointManager(fl.checkpoint_dir) if fl.checkpoint_dir else None
     version = 0            # server params version == aggregations so far
@@ -242,7 +252,7 @@ def run_federated_async(
         for k in ks:
             current_ops[k] = int(ops[k])
         idxs, rows = engine.run_round(params, loaders, ops, list(ks),
-                                      version, lr)
+                                      version, lr, hetero=hetero)
         t_all, c_all = clock.times(ops, version)
         if fused:
             deltas_flat = layout.rows_to_deltas(rows, g_flat)
@@ -287,6 +297,7 @@ def run_federated_async(
         # discard them
 
         # --- server step: staleness-discounted buffered FedAvg -----------
+        edges_used = 0
         buffer.sort(key=lambda e: e.client)
         stale = {e.client: version - e.version for e in buffer}
         fresh = [e for e in buffer
@@ -309,16 +320,24 @@ def run_federated_async(
                 err_rows = delta_errors.fetch(fresh_ids)
             else:
                 err_rows = delta_errors[ids]
+            mask_rows = (hetero.rows(fresh_ids)
+                         if hetero is not None else None)
             if fused:
-                g_flat, new_err = srv(
-                    g_flat, torch.stack([e.delta for e in fresh]), w_list,
-                    err_rows)
+                stacked = torch.stack([e.delta for e in fresh])
+                if fl.num_edges > 0:
+                    # the two-tier server: per-edge reduce, root apply
+                    g_flat, new_err, edges_used = hierarchical_apply(
+                        srv, root, g_flat, stacked, w_list, err_rows,
+                        mask_rows, num_edges=fl.num_edges)
+                else:
+                    g_flat, new_err = srv(g_flat, stacked, w_list, err_rows,
+                                          masks=mask_rows)
                 params = layout.unflatten(g_flat)
             else:
                 params, new_err = reference_server_step(
                     layout, params, [e.delta for e in fresh], w_list,
                     err_rows, density=fl.delta_density,
-                    quantize=fl.quantize_deltas)
+                    quantize=fl.quantize_deltas, masks=mask_rows)
             if virtualized:
                 delta_errors.store(fresh_ids, new_err)
             elif track_errors:
@@ -328,6 +347,12 @@ def run_federated_async(
         else:
             mean_stale = 0.0
             weight_sum = 0.0
+        # the two-tier server's hop at this aggregation's version, reported
+        # in its own column: the event-driven clock does not advance by it
+        edge_wall = 0.0
+        if edges_used and edge_transport is not None:
+            edge_wall = float(np.max(clock.edge_hop_times(edges_used,
+                                                          version)))
         version += 1
         if on_aggregate is not None:
             on_aggregate(version, params, g_flat=g_flat if fused else None)
@@ -347,7 +372,7 @@ def run_federated_async(
         hist["virtual_time"].append(queue.now)
         hist["staleness"].append(mean_stale)
         hist["agg_weight_sum"].append(weight_sum)
-        hist["edge_time"].append(0.0)
+        hist["edge_time"].append(edge_wall)
         last_agg_clock = queue.now
         # --- re-dispatch at the new version ------------------------------
         # without a cohort the reporters themselves; with one a seeded draw

@@ -1,5 +1,5 @@
 """Simulated transport between clients and the server (paper §V-A/§V-D);
-a copy of ``repro/fl/comm.py`` without the two-tier edge hop.
+a copy of ``repro/fl/comm.py``.
 
 The paper emulates Wi-Fi / 4G by throttling a real link with Linux ``tc``;
 here the transport is a bandwidth schedule plus time accounting, and the
@@ -21,6 +21,15 @@ one ``round_comm_time(delta up, model down)`` weight sync; see
 ``fl/loop.py``.  ``paper_schedule`` reproduces §V-D's
 5-slot throttling: from ``start_round`` each device in turn drops to
 ``low_bps`` for ``slot_len`` rounds (Jetson first, Pi3-2 last).
+
+Two-hop accounting (``fl/hierarchy.py``): under the two-tier server the
+client-side ``transport`` above is the client->edge hop, and an optional
+``edge_transport`` is the edge->root hop: one pre-reduced fp32 row up and
+the model down per *edge* per aggregation, charged by
+``RoundClock.edge_hop_times`` with the edge index as the ``device``
+argument (``indexed_bandwidths`` builds per-edge links).  No
+``edge_transport`` means a free root hop, which keeps single-tier runs
+bit for bit as they were.
 """
 from __future__ import annotations
 
@@ -54,6 +63,14 @@ class Transport:
 
 def constant_bandwidth(bps: float) -> BandwidthFn:
     return lambda r, d: bps
+
+
+def indexed_bandwidths(bps) -> BandwidthFn:
+    """Constant per-index bandwidths from a plain sequence: the edge
+    uplinks of the two-tier server (index = edge id), or any fleet slice
+    without a ``DeviceProfile``."""
+    bps = [float(b) for b in bps]
+    return lambda r, d: bps[d]
 
 
 def device_bandwidths(devices) -> BandwidthFn:

@@ -17,9 +17,21 @@ device): aggregate the clients' weight deltas into the global model.
       sent = dequantize(quantize(comp as rows of one block));
       new_e = carried - sent;  acc += w_i * sent.
   Client weights are normalized in float64, then cast to fp32.
+* With ``masks`` (HeteroFL width rows, ``fl/hetero.py``) each coordinate
+  averages over the clients whose mask covers it: plain averaging is
+  ``w @ (masks * deltas)`` over ``w @ masks``, and the compression loop
+  masks the delta before the carry and the sent row after the wire
+  (``den += w_i * m``).  The apply is the guarded quotient
+  ``where(den > 0, acc, 0) / where(den > 0, den, 1)``, so a coordinate no
+  client covers keeps its value bit for bit.
+* ``ServerStep.reduce`` is the same pipeline without the apply: the edge
+  tier of the two-tier server (``fl/hierarchy.py``), whose ``(E, padded)``
+  rows ``RootStep`` combines and applies at the root.  ``__call__`` is
+  reduce then apply, in the same operations as before the split.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,16 +110,30 @@ class FlatLayout:
                                for sz in self.sizes], axis=0)
 
 
-def _normalized_f64(weights: Sequence[float]) -> np.ndarray:
+def _normalized_f64(weights: Sequence[float],
+                    device: torch.device) -> torch.Tensor:
+    """Weights normalized in float64, then cast to fp32 on ``device``."""
     w = np.asarray(weights, np.float64)
-    return w / w.sum()
+    return torch.as_tensor(w / w.sum(), dtype=torch.float32, device=device)
+
+
+def _apply(g_flat: torch.Tensor, acc: torch.Tensor,
+           den: Optional[torch.Tensor]) -> torch.Tensor:
+    """``g + acc``; under width masks ``g + acc / den`` where ``den > 0``
+    and ``g + 0`` where no client covers the coordinate."""
+    if den is None:
+        return g_flat + acc
+    covered = den > 0
+    return g_flat + (torch.where(covered, acc, 0.0)
+                     / torch.where(covered, den, 1.0))
 
 
 class ServerStep:
     """One server round over the flat buffer: call with the flat global,
-    the stacked deltas ``(K, padded)``, per-client weights and (when
-    ``density < 1``) the matching error-feedback rows; returns the new flat
-    global and the new error rows."""
+    the stacked deltas ``(K, padded)``, per-client weights, (when
+    ``density < 1``) the matching error-feedback rows and (under HeteroFL
+    widths) the clients' 0/1 mask rows; returns the new flat global and the
+    new error rows."""
 
     def __init__(self, layout: FlatLayout, density: float = 1.0,
                  quantize: bool = False):
@@ -119,21 +145,25 @@ class ServerStep:
         self._meta = (torch.from_numpy(layout.block_meta(self.density))
                       if self.track_errors else None)
 
-    def __call__(self, g_flat: torch.Tensor, deltas: torch.Tensor,
-                 weights: Sequence[float],
-                 errors: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        w = torch.as_tensor(_normalized_f64(weights), dtype=torch.float32,
-                            device=g_flat.device)
+    def _reduce_core(self, deltas: torch.Tensor, w: torch.Tensor,
+                     errors: Optional[torch.Tensor],
+                     masks: Optional[torch.Tensor]):
+        """``(acc, den, new_err)``: the weighted (masked) sum of the sent
+        rows, the per-coordinate covered weight (``None`` unmasked) and the
+        new error rows (``None`` without top-k)."""
         if not self.track_errors and not self.quantize:
-            return g_flat + w @ deltas, None
+            if masks is None:
+                return w @ deltas, None, None
+            return w @ (masks * deltas), w @ masks, None
         block = self.layout.block
-        if self.track_errors and self._meta.device != g_flat.device:
-            self._meta = self._meta.to(g_flat.device)
-        acc = torch.zeros_like(g_flat)
+        if self.track_errors and self._meta.device != deltas.device:
+            self._meta = self._meta.to(deltas.device)
+        acc = torch.zeros_like(deltas[0])
+        den = torch.zeros_like(acc) if masks is not None else None
         new_err = torch.empty_like(errors) if self.track_errors else None
         for i in range(deltas.shape[0]):
-            carried = deltas[i] + errors[i] if self.track_errors else deltas[i]
+            d = deltas[i] if masks is None else masks[i] * deltas[i]
+            carried = d + errors[i] if self.track_errors else d
             comp = (topk_compress_flat(carried[None], self._meta, block)[0]
                     if self.track_errors else carried)
             if self.quantize:
@@ -141,10 +171,70 @@ class ServerStep:
                 sent = dequantize_rows(q, s).view(-1)
             else:
                 sent = comp
+            if masks is not None:
+                sent = masks[i] * sent
+                den = den + w[i] * masks[i]
             if self.track_errors:
                 new_err[i] = carried - sent
             acc = acc + w[i] * sent
-        return g_flat + acc, new_err
+        return acc, den, new_err
+
+    def __call__(self, g_flat: torch.Tensor, deltas: torch.Tensor,
+                 weights: Sequence[float],
+                 errors: Optional[torch.Tensor] = None,
+                 masks: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``masks`` (``(K, padded)`` 0/1 rows stacked as ``deltas``)
+        switches on the coverage-count average; ``None`` keeps the
+        homogeneous step."""
+        acc, den, new_err = self._reduce_core(
+            deltas, _normalized_f64(weights, g_flat.device), errors, masks)
+        return _apply(g_flat, acc, den), new_err
+
+    def reduce(self, deltas: torch.Tensor, weights: Sequence[float],
+               errors: Optional[torch.Tensor] = None,
+               masks: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.Tensor]]:
+        """The edge tier: ``__call__``'s pipeline without the apply.
+        Returns ``(acc, den, new_err)``: one pre-reduced row (weights
+        normalized within this edge), the covered weight under ``masks``
+        (else ``None``) and the members' new error rows."""
+        return self._reduce_core(
+            deltas, _normalized_f64(weights, deltas.device), errors, masks)
+
+
+class RootStep:
+    """The root tier of the two-tier server: combine the edges' ``(E,
+    padded)`` pre-reduced rows, each weighted by its edge's share of the
+    survivors' weight mass, and apply to the flat global: ``g + w @ nums``,
+    or under width masks the guarded quotient of ``w @ nums`` over ``w @
+    dens``.  ``calls`` counts applications."""
+
+    def __init__(self, padded: int):
+        self.padded = int(padded)
+        self.calls = 0
+
+    def __call__(self, g_flat: torch.Tensor, nums: torch.Tensor,
+                 weights: Sequence[float],
+                 dens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weights``: the edges' raw weight masses (normalized here in
+        float64, then cast to fp32, as ``ServerStep`` does)."""
+        w = _normalized_f64(weights, g_flat.device)
+        self.calls += 1
+        return _apply(g_flat, w @ nums, None if dens is None else w @ dens)
+
+
+_ROOT_STEPS: "weakref.WeakKeyDictionary[FlatLayout, RootStep]" = \
+    weakref.WeakKeyDictionary()
+
+
+def get_root_step(layout: FlatLayout) -> RootStep:
+    """The layout's one ``RootStep`` (held as long as the layout is), so
+    the loops and their callers share its ``calls``."""
+    if layout not in _ROOT_STEPS:
+        _ROOT_STEPS[layout] = RootStep(layout.padded)
+    return _ROOT_STEPS[layout]
 
 
 # =============================================================================
@@ -167,17 +257,28 @@ def reference_server_step(
     errors: Optional[torch.Tensor],
     density: float = 1.0,
     quantize: bool = False,
+    masks: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, Optional[torch.Tensor]]:
     """Per-leaf, per-client server step with the fused ``ServerStep``'s
     algorithm: error-feedback carry, per-leaf top-k (``compress_tree``, a
     budget from each leaf's true size), optional int8 wire format, weighted
     apply (``fedavg_apply_deltas``).  ``errors`` are flat ``(len(deltas),
     padded)`` rows, as the loop keeps them; returns ``(params, new error
-    rows)``.  (The reference's width-masked branch, ``masks``, comes with
-    HeteroFL widths.)"""
+    rows)``.
+
+    ``masks`` (flat 0/1 width rows, stacked as ``errors``) selects the
+    coverage-count oracle: each client's delta and sent tree are masked,
+    and every coordinate averages ``sum_i w_i m_i s_i`` over ``sum_i w_i
+    m_i`` (accumulated client by client), keeping its value where no
+    client covers it."""
     track = density < 1.0
+    mask_trees = ([layout.unflatten(masks[i]) for i in range(len(deltas))]
+                  if masks is not None else None)
     sents, new_err_rows = [], []
     for i, delta in enumerate(deltas):
+        if mask_trees is not None:
+            delta = tree_map(lambda m, d: m.to(torch.float32)
+                             * d.to(torch.float32), mask_trees[i], delta)
         if track:
             err_tree = layout.unflatten(errors[i])
             carried = tree_map(lambda d, e: d.to(torch.float32)
@@ -187,9 +288,23 @@ def reference_server_step(
         else:
             carried, comp = None, delta
         sent = quantize_delta_flat(layout, comp) if quantize else comp
+        if mask_trees is not None:
+            sent = tree_map(lambda m, x: m.to(torch.float32) * x,
+                            mask_trees[i], sent)
         if track:
             new_err_rows.append(layout.flatten(
-                tree_map(lambda c, s: c - s, carried, sent)))
+                tree_map(lambda c, x: c - x, carried, sent)))
         sents.append(sent)
-    new_params = fedavg_apply_deltas(params, sents, weights)
-    return new_params, (torch.stack(new_err_rows) if track else None)
+    new_err = torch.stack(new_err_rows) if track else None
+    if mask_trees is None:
+        return fedavg_apply_deltas(params, sents, weights), new_err
+    w = np.asarray(weights, np.float64)
+    w = w / w.sum()
+    num = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    den = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    for wi, sent, mask in zip(w, sents, mask_trees):
+        wi = torch.tensor(wi, dtype=torch.float32)
+        num = tree_map(lambda a, x: a + wi * x, num, sent)
+        den = tree_map(lambda a, m: a + wi * m.to(torch.float32), den, mask)
+    return tree_map(lambda p, n, d: _apply(p.to(torch.float32), n, d)
+                    .to(p.dtype), params, num, den), new_err

@@ -14,6 +14,13 @@ Two engines implement it (``FLConfig.engine``):
   summation order.  Under vmap the int8 cut quantizes the chunk's stacked
   activations in one call (``kernels.quant_transfer._FakeQuantInt8.vmap``).
 
+With ``hetero`` (``fl/hetero.HeteroSpec``, HeteroFL widths) a client
+starts from ``mask * params`` and steps ``p - lr * (mask * g)``: the
+gradient is masked first, then scaled, as in the reference.  The batched
+engine then groups by ``(OP, width)``, in the order the clients first
+appear; a chunk shares one mask, which broadcasts over the client axis
+like the params.  ``hetero=None`` is the homogeneous step, bit for bit.
+
 Both return ``(idxs, rows)``: the trained clients and their parameters, a
 list of per-client trees (sequential) or one ``StackedRows`` tree whose
 leaves carry a leading client axis (batched).  ``take_rows`` and
@@ -68,21 +75,26 @@ class SequentialEngine:
 
     def run_round(self, params: Params, loader: FleetLoader,
                   ops: Sequence[int], alive_idx: Sequence[int],
-                  round_idx: int, lr: float
+                  round_idx: int, lr: float, hetero=None
                   ) -> Tuple[List[int], List[Params]]:
         # lr as an fp32 scalar on the device, as the reference passes it
         lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
         out: List[Params] = []
         for k in alive_idx:
             # each client trains its own copy, updated in place
+            start = hetero.apply(params, k) if hetero is not None else params
             p_k = [{n: v.detach().clone().requires_grad_()
-                    for n, v in layer.items()} for layer in params]
+                    for n, v in layer.items()} for layer in start]
             leaves = tree_leaves(p_k)
+            masks = (tree_leaves(hetero.mask_tree(k)) if hetero is not None
+                     else None)
             for it in range(self.local_iters):
                 batch = self._batch(loader, k, round_idx, it)
                 loss = self.program.loss_through_cut(
                     p_k, batch, int(ops[k]), quantize=self.quantize)
                 grads = torch.autograd.grad(loss, leaves)
+                if masks is not None:
+                    grads = [m * g for m, g in zip(masks, grads)]
                 with torch.no_grad():
                     for p, g in zip(leaves, grads):
                         p.sub_(lr_t * g)
@@ -124,11 +136,15 @@ class BatchedEngine:
         self.device = device
         self.chunk = max(1, int(max_group))
 
-    def _group(self, ops: Sequence[int], alive_idx: Sequence[int]
-               ) -> Dict[int, List[int]]:
-        groups: Dict[int, List[int]] = {}
+    def _group(self, ops: Sequence[int], alive_idx: Sequence[int],
+               hetero=None) -> Dict[Tuple[int, float], List[int]]:
+        """Clients that can share a chunk: the same OP and width, keyed in
+        the order they first appear (the survivors' order, and so the
+        server step's summation order)."""
+        groups: Dict[Tuple[int, float], List[int]] = {}
         for k in alive_idx:
-            groups.setdefault(int(ops[k]), []).append(k)
+            width = hetero.width(k) if hetero is not None else 1.0
+            groups.setdefault((int(ops[k]), width), []).append(k)
         return groups
 
     def _stack_round(self, loader: FleetLoader, ks: List[int],
@@ -153,10 +169,13 @@ class BatchedEngine:
                 for key in per_iter[0]}
 
     def _fleet_step(self, params: Params, batches: Dict[str, torch.Tensor],
-                    lr: torch.Tensor, op: int) -> Params:
-        """Every client of the chunk starts from ``params``; each local
-        iteration is one vmap over the clients of the loss's gradient and
-        the SGD step ``p - lr * g``.  Returns the stacked final params."""
+                    lr: torch.Tensor, op: int, mask: Params = None
+                    ) -> Params:
+        """Every client of the chunk starts from ``params`` (``mask *
+        params`` under a width mask); each local iteration is one vmap over
+        the clients of the loss's gradient and the SGD step ``p - lr * g``
+        (``p - lr * (mask * g)``, the unbatched mask broadcasting over the
+        clients).  Returns the stacked final params."""
         program, quantize = self.program, self.quantize
 
         def loss(p, batch):
@@ -164,28 +183,35 @@ class BatchedEngine:
 
         step = torch.func.vmap(torch.func.grad(loss))
         C = batches["labels"].shape[0]
+        if mask is not None:
+            params = tree_map(lambda v, m: m * v, params, mask)
         p = tree_map(lambda v: v.detach().expand(C, *v.shape).clone(),
                      params)
         for it in range(self.local_iters):
             grads = step(p, {key: v[:, it] for key, v in batches.items()})
-            p = tree_map(lambda q, g: q - lr * g, p, grads)
+            if mask is None:
+                p = tree_map(lambda q, g: q - lr * g, p, grads)
+            else:
+                p = tree_map(lambda q, g, m: q - lr * (m * g), p, grads,
+                             mask)
         return p
 
     def run_round(self, params: Params, loader: FleetLoader,
                   ops: Sequence[int], alive_idx: Sequence[int],
-                  round_idx: int, lr: float
+                  round_idx: int, lr: float, hetero=None
                   ) -> Tuple[List[int], StackedRows]:
         lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
         idxs: List[int] = []
         stacked: List[Params] = []
-        for op, all_ks in self._group(ops, alive_idx).items():
+        for (op, _), all_ks in self._group(ops, alive_idx, hetero).items():
+            mask = hetero.mask_tree(all_ks[0]) if hetero is not None else None
             for i in range(0, len(all_ks), self.chunk):
                 ks = all_ks[i:i + self.chunk]
                 # only the tail chunk of a group split into several pads
                 pad_to = self.chunk if len(all_ks) > len(ks) else len(ks)
                 finals = self._fleet_step(
                     params, self._stack_round(loader, ks, round_idx, pad_to),
-                    lr_t, op)
+                    lr_t, op, mask)
                 if pad_to > len(ks):
                     finals = tree_map(lambda a: a[:len(ks)], finals)
                 idxs.extend(ks)

@@ -17,10 +17,16 @@ each round, its error feedback kept host-side in an ``EFStore``; every
 ``checkpoint_every`` rounds the run's state goes to ``checkpoint_dir``
 (``fl/state.py``), and ``resume=True`` restores the latest checkpoint,
 replays the loaders' draws of the rounds before it and returns the rest of
-the history.  The reference's knobs that the port does not run yet
-(HeteroFL widths, the two-tier server, a device mesh) raise
-``NotImplementedError`` naming their ROADMAP item rather than being
-ignored.
+the history.
+
+``client_widths`` gives each client a HeteroFL width (``fl/hetero.py``):
+masked local training, the coverage-count server step, and Eq. 1 compute
+scaled by ``width**2``.  ``num_edges > 0`` aggregates through the two-tier
+server (``fl/hierarchy.py``, fused step only); with an ``edge_transport``
+the slowest edge's hop to the root is the ``edge_time`` column and extends
+the round.  The reference's one knob the port does not run yet, a device
+mesh (``mesh_shape``), raises ``NotImplementedError`` naming its ROADMAP
+item rather than being ignored.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.fl.fedavg import fedavg_delta_stacked, model_bytes
 from repro_torch.fl.flatbuf import (
     FlatLayout,
     ServerStep,
+    get_root_step,
     reference_server_step,
 )
 from repro_torch.fl.fleet import (
@@ -50,6 +57,8 @@ from repro_torch.fl.fleet import (
     rows_as_list,
     take_rows,
 )
+from repro_torch.fl.hetero import resolve_hetero
+from repro_torch.fl.hierarchy import hierarchical_apply
 from repro_torch.fl.planner import FedAdaptPlanner, Planner, StaticPlanner
 from repro_torch.fl.state import base_state_tree, ef_template_len
 from repro_torch.models.split_program import get_split_program
@@ -91,19 +100,16 @@ class FLConfig:
     max_staleness: Optional[int] = None  # drop staler reports (None: none)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0        # rounds (aggregations) between saves
-    # the reference's knobs the port does not run yet: any other value
-    # than these defaults raises
-    client_widths: Optional[Sequence[float]] = None
-    num_edges: int = 0
+    client_widths: Optional[Sequence[float]] = None  # each client's
+                                     # HeteroFL width in (0, 1]; None: full
+    num_edges: int = 0               # >0: the two-tier server's edges
+    # the reference's knob the port does not run yet: any other value
+    # than this default raises
     mesh_shape: Optional[Sequence[int]] = None
 
 
 _UNPORTED = (
     # (field, default, what, ROADMAP item)
-    ("client_widths", None, "client_widths (HeteroFL)",
-     "heterogeneity, cohorts and hierarchy"),
-    ("num_edges", 0, "num_edges (two-tier server)",
-     "heterogeneity, cohorts and hierarchy"),
     ("mesh_shape", None, "mesh_shape", "multi-device"),
 )
 
@@ -117,6 +123,24 @@ def _check_ported(fl: FLConfig) -> None:
     if fl.server_step not in ("fused", "reference"):
         raise ValueError(f"unknown server_step {fl.server_step!r}; "
                          f"known: fused, reference")
+    if fl.num_edges < 0:
+        raise ValueError(f"num_edges={fl.num_edges} must be >= 0")
+    if fl.num_edges > 0 and fl.server_step != "fused":
+        raise ValueError(
+            "hierarchical aggregation (num_edges > 0) runs through the "
+            "fused flat-buffer server step; server_step='reference' is the "
+            "per-client oracle it is tested against, not a tiered path")
+
+
+def _resolve_hetero(fl: FLConfig, program, params, layout: FlatLayout,
+                    K: int):
+    """The run's ``HeteroSpec`` (``None`` without widths); its widths
+    must be one for each of the K clients."""
+    hetero = resolve_hetero(fl, program, params, layout)
+    if hetero is not None and len(hetero) != K:
+        raise ValueError(f"client_widths has {len(hetero)} entries for "
+                         f"K={K} clients")
+    return hetero
 
 
 def _resolve_planner(fl: FLConfig, native_op: int,
@@ -146,18 +170,25 @@ class RoundClock:
     through it instead of Eq. 1's network term: per-iteration cut round
     trips (activations up, optionally int8, gradients back) plus one weight
     sync (``model_bytes * delta_density`` up, a quarter of that as int8,
-    the full model down)."""
+    the full model down).  ``compute_scale`` (HeteroFL ``width**2`` a
+    client) scales the compute and never the communication;
+    ``edge_transport`` charges the two-tier server's edge->root hop."""
 
     def __init__(self, program, fl: FLConfig, K: int, params,
                  sim: Optional[SimulatedCluster] = None,
-                 transport: Optional[Transport] = None):
+                 transport: Optional[Transport] = None,
+                 compute_scale: Optional[np.ndarray] = None,
+                 edge_transport: Optional[Transport] = None):
         self.program = program
         self.fl = fl
         self.K = K
         self.sim = sim
         self.transport = transport
+        self.edge_transport = edge_transport
         self.native_op = program.native_op
         self.model_bytes = float(model_bytes(params))
+        self.compute_scale = (np.asarray(compute_scale, np.float64)
+                              if compute_scale is not None else None)
 
     def comm_times(self, ops: List[int], round_idx: int) -> np.ndarray:
         fl, sim = self.fl, self.sim
@@ -179,15 +210,37 @@ class RoundClock:
             out.append(t)
         return np.asarray(out)
 
+    def edge_hop_times(self, num_edges: int, round_idx: int) -> np.ndarray:
+        """Per-edge edge->root time of one aggregation: the edge's dense
+        fp32 pre-reduced row up and the model down (compression lives on
+        the client->edge hop), through ``edge_transport`` with the edge
+        index as the link; zeros without one (a free root hop)."""
+        if self.edge_transport is None or num_edges <= 0:
+            return np.zeros(max(int(num_edges), 0))
+        return np.asarray([
+            self.edge_transport.round_comm_time(
+                self.model_bytes, self.model_bytes, round_idx, e)
+            for e in range(int(num_edges))])
+
     def times(self, ops: List[int], round_idx: int):
         """(total per-device round times, comm component)."""
+        scale = self.compute_scale
         if self.transport is not None:
             comm = self.comm_times(ops, round_idx)
             comp = (self.sim.round_compute_times(ops, round_idx)
                     if self.sim is not None else np.zeros(self.K))
+            if scale is not None:
+                comp = comp * scale
             return comp + comm, comm
         if self.sim is not None:
+            if scale is not None:
+                # Eq. 1's own network term does not shrink with the width
+                comp = self.sim.round_compute_times(ops, round_idx)
+                total = self.sim.round_times(ops, round_idx)
+                return comp * scale + (total - comp), np.zeros(self.K)
             return self.sim.round_times(ops, round_idx), np.zeros(self.K)
+        if scale is not None:
+            return np.ones(self.K) * scale, np.zeros(self.K)
         return np.ones(self.K), np.zeros(self.K)
 
 
@@ -244,6 +297,7 @@ def run_federated(
     resume: bool = False,
     init_params=None,
     device=None,
+    edge_transport: Optional[Transport] = None,
 ) -> Dict[str, np.ndarray]:
     """Train ``cfg`` (a ``VGGConfig``) federated with per-round offloading.
 
@@ -253,8 +307,10 @@ def run_federated(
     by default they are drawn from ``torch.Generator().manual_seed(seed)``.
     Returns the history: per-round accuracy, modelled round and comm times,
     per-device OPs and drop counts (clients outside the round's cohort
-    count as dropped), the measured wall time of each round (``wall_s``),
-    plus the final ``params``.  With ``resume=True`` and a checkpoint in
+    count as dropped), the two-tier server's edge->root hop (``edge_time``,
+    charged through ``edge_transport`` and added to ``round_time``; 0.0
+    without one), the measured wall time of each round (``wall_s``), plus
+    the final ``params``.  With ``resume=True`` and a checkpoint in
     ``fl.checkpoint_dir``, the run continues from it and the history holds
     the remaining rounds only.
     """
@@ -277,6 +333,7 @@ def run_federated(
     cohort = (CohortSampler(K, fl.cohort_size, seed=fl.seed)
               if fl.cohort_size > 0 else None)
     track_errors = fl.delta_density < 1.0
+    hetero = _resolve_hetero(fl, program, params, layout, K)
     delta_errors = _error_state(fl, cohort, K, layout, device)
     virtualized = isinstance(delta_errors, EFStore)
     ctl = controller if controller is not None \
@@ -305,9 +362,13 @@ def run_federated(
             alive_rounds += m
         for k in np.flatnonzero(alive_rounds):
             loaders.skip_client(int(k), int(alive_rounds[k]) * fl.local_iters)
-    clock = RoundClock(program, fl, K, params, sim=sim, transport=transport)
+    clock = RoundClock(program, fl, K, params, sim=sim, transport=transport,
+                       compute_scale=(hetero.compute_scale
+                                      if hetero is not None else None),
+                       edge_transport=edge_transport)
     step = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
             if fused else None)
+    root = get_root_step(layout) if fl.num_edges > 0 else None
     g_flat = layout.flatten(params) if fused else None
 
     # round-0 baselines (classic FL, no offloading)
@@ -319,7 +380,7 @@ def run_federated(
 
     hist: Dict[str, list] = {"accuracy": [], "round_time": [], "ops": [],
                              "times": [], "comm_time": [], "dropped": [],
-                             "wall_s": []}
+                             "edge_time": [], "wall_s": []}
     test_batch = {k: torch.from_numpy(v).to(device)
                   for k, v in test_data.items()}
 
@@ -337,7 +398,7 @@ def run_federated(
                 delta_errors.prefetch(np.flatnonzero(alive))
         idxs, rows = engine.run_round(params, loaders, ops,
                                       [int(k) for k in np.flatnonzero(alive)],
-                                      r, lr)
+                                      r, lr, hetero=hetero)
         times, comm = clock.times(ops, r)
         keep = np.ones(K, bool)
         if fl.deadline_factor > 0:
@@ -347,8 +408,12 @@ def run_federated(
         kept_pos = [i for i, k in enumerate(idxs) if keep[k]]
         surv_idx = [idxs[i] for i in kept_pos]
         surv_w = [weights[k] for k in surv_idx]
-        if kept_pos and not fused and not track_errors and \
-                not fl.quantize_deltas and isinstance(rows, StackedRows):
+        # mask rows follow the survivors' order, the engine's output order
+        mask_rows = (hetero.rows(surv_idx)
+                     if kept_pos and hetero is not None else None)
+        edges_used = 0
+        if kept_pos and not fused and hetero is None and not track_errors \
+                and not fl.quantize_deltas and isinstance(rows, StackedRows):
             # reference path, plain averaging, batched engine: one stacked
             # tensordot per leaf rather than a per-client loop
             params = fedavg_delta_stacked(
@@ -364,7 +429,14 @@ def run_federated(
             if fused:
                 deltas = layout.rows_to_deltas(take_rows(rows, kept_pos),
                                                g_flat)
-                g_flat, new_err = step(g_flat, deltas, surv_w, err_rows)
+                if fl.num_edges > 0:
+                    # the two-tier server: per-edge reduce, root apply
+                    g_flat, new_err, edges_used = hierarchical_apply(
+                        step, root, g_flat, deltas, surv_w, err_rows,
+                        mask_rows, num_edges=fl.num_edges)
+                else:
+                    g_flat, new_err = step(g_flat, deltas, surv_w, err_rows,
+                                           masks=mask_rows)
                 params = layout.unflatten(g_flat)
             else:
                 # the per-leaf, per-client reference server step
@@ -372,7 +444,7 @@ def run_federated(
                     layout, params, _delta_trees(
                         params, rows_as_list(rows, kept_pos)),
                     surv_w, err_rows, density=fl.delta_density,
-                    quantize=fl.quantize_deltas)
+                    quantize=fl.quantize_deltas, masks=mask_rows)
             if virtualized:
                 delta_errors.store(surv_idx, new_err)
             elif track_errors:
@@ -393,7 +465,13 @@ def run_federated(
         else:
             finite = times[np.isfinite(times)]
             slowest = float(finite.max()) if finite.size else 0.0
+        # the two-tier server's slowest edge->root hop extends the round
+        edge_wall = 0.0
+        if edges_used and edge_transport is not None:
+            edge_wall = float(np.max(clock.edge_hop_times(edges_used, r)))
+            slowest += edge_wall
         hist["round_time"].append(slowest)
+        hist["edge_time"].append(edge_wall)
         hist["ops"].append(list(ops))
         hist["times"].append(times.copy())
         hist["comm_time"].append(comm.copy())

@@ -11,11 +11,17 @@
 device-native execution (classic FL: nothing crosses the network, so nothing
 is quantized).  ``quantize=True`` sends the cut activation through the int8
 fake-quant (``kernels/quant_transfer``) with a straight-through gradient.
+
+``width_mask(params, w)`` is a HeteroFL client's static 0/1 subnetwork
+(``fl/hetero.py``): the first ``ceil(w * C)`` channels of every hidden
+layer, as tensors on the params' device with their dtypes.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import not_ported
@@ -71,6 +77,22 @@ class SplitProgram:
                   quantize: bool = False) -> float:
         raise NotImplementedError
 
+    @staticmethod
+    def _width_keep(n: int, width: float) -> int:
+        """How many of ``n`` channels a ``width``-fraction client keeps."""
+        return max(1, int(math.ceil(float(width) * n)))
+
+    def width_dims(self) -> frozenset:
+        """Axis sizes the generic width mask slices (the reference's LM
+        families)."""
+        raise not_ported("width_dims (generic width masks)", "LM families")
+
+    def width_mask(self, params: Params, width: float) -> Params:
+        """The static 0/1 mask tree of a ``width``-fraction client, nested
+        across widths (a narrower mask is a subset of a wider one).  The
+        generic version over ``width_dims`` is the LM families'."""
+        raise not_ported("width_mask (generic width masks)", "LM families")
+
 
 class VGGSplitProgram(SplitProgram):
     family = "vgg"
@@ -101,6 +123,50 @@ class VGGSplitProgram(SplitProgram):
             return float(batch * self.cfg.input_hw ** 2 * self.cfg.input_ch
                          * per)
         return vgg_model.activation_bytes(self.cfg, op - 1, per) * batch
+
+    def width_mask(self, params, width: float) -> Params:
+        """Channel-aware HeteroFL mask: every conv and hidden FC keeps its
+        first ``ceil(width * C)`` output channels, and its input rows
+        follow the previous layer's kept channels.  The first FC's rows
+        come from the NHWC flatten (``models/vgg.py``: H, W, C order), so
+        a row at position ``pos`` holds channel ``pos % C``.  The logits
+        layer keeps every class column."""
+        if not 0.0 < width <= 1.0:
+            raise ValueError(f"width={width} outside (0, 1]")
+        cfg = self.cfg
+        masks: List[Dict[str, np.ndarray]] = []
+        prev_c = prev_keep = cfg.input_ch          # the full input image
+        prev_is_fc = False
+        last = len(cfg.layers) - 1
+        for i, (spec, p) in enumerate(zip(cfg.layers, params)):
+            if spec == "MP":
+                masks.append({})
+                continue
+            if spec.startswith("C"):
+                cout = p["w"].shape[-1]
+                keep = self._width_keep(cout, width)
+                w = np.ones(tuple(p["w"].shape), np.float32)
+                w[:, :, prev_keep:, :] = 0.0
+                w[:, :, :, keep:] = 0.0
+                vec = (np.arange(cout) < keep).astype(np.float32)
+                masks.append({"w": w, "b": vec, "bn_scale": vec,
+                              "bn_bias": vec})
+                prev_c, prev_keep, prev_is_fc = cout, keep, False
+            else:                                    # FC
+                in_feat, units = p["w"].shape
+                keep = units if i == last else self._width_keep(units, width)
+                w = np.ones((in_feat, units), np.float32)
+                if prev_is_fc:
+                    w[prev_keep:, :] = 0.0
+                else:
+                    w[np.arange(in_feat) % prev_c >= prev_keep, :] = 0.0
+                w[:, keep:] = 0.0
+                vec = (np.arange(units) < keep).astype(np.float32)
+                masks.append({"w": w, "b": vec})
+                prev_c, prev_keep, prev_is_fc = units, keep, True
+        return [{k: torch.tensor(m[k], dtype=layer[k].dtype,
+                                 device=layer[k].device)
+                 for k in m} for m, layer in zip(masks, params)]
 
 
 def get_split_program(cfg) -> SplitProgram:

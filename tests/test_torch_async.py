@@ -364,19 +364,12 @@ def test_sync_only_and_out_of_range_knobs_rejected(bad):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("client_widths", (1.0, 0.5), "heterogeneity, cohorts and hierarchy"),
-    ("num_edges", 1, "heterogeneity, cohorts and hierarchy"),
-    ("mesh_shape", (1, 1), "multi-device"),
-    ("edge_transport", Transport(lambda r, d: 1e6),
-     "heterogeneity, cohorts and hierarchy")])
+    ("mesh_shape", (1, 1), "multi-device")])
 def test_unported_knobs_raise_naming_their_item(knob, value, item):
     clients, test = _data(K=2, n=30)
-    if knob == "edge_transport":
-        fl, kw = _tiny(rounds=1), {knob: value}
-    else:
-        fl, kw = _tiny(rounds=1, **{knob: value}), {}
     with pytest.raises(NotImplementedError, match=item):
-        run_federated_async(VGG5, clients, test, fl, device="cpu", **kw)
+        run_federated_async(VGG5, clients, test,
+                            _tiny(rounds=1, **{knob: value}), device="cpu")
 
 
 def test_checkpoint_requires_an_exact_fp32_layout(monkeypatch, tmp_path):

@@ -92,6 +92,18 @@ ENTRY_POINTS = {
         "    delta_density=0.1, quantize_deltas=True, engine='batched',\n"
         "    server_step='reference'), device='cpu')\n"
         "assert len(h['accuracy']) == 1\n"),
+    "run_federated(client_widths=..., num_edges=2)": (
+        "from repro_torch.configs.vgg import VGG5\n"
+        "from repro_torch.data import make_cifar_like, split_clients\n"
+        "from repro_torch.fl.comm import Transport, indexed_bandwidths\n"
+        "from repro_torch.fl.loop import FLConfig, run_federated\n"
+        "c = split_clients(make_cifar_like(30, seed=1), 3)\n"
+        "h = run_federated(VGG5, c, c[0], FLConfig(rounds=1, local_iters=1,\n"
+        "    batch_size=10, mode='sfl', static_op=2, delta_density=0.1,\n"
+        "    quantize_deltas=True, client_widths=(0.25, 1.0, 0.5),\n"
+        "    num_edges=2), edge_transport=Transport(indexed_bandwidths(\n"
+        "    [1e7, 2e7])), device='cpu')\n"
+        "assert h['edge_time'][0] > 0\n"),
 }
 
 
@@ -129,5 +141,6 @@ def test_the_new_training_modules_are_in_the_import_check():
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                  "repro_torch.fl.state", "repro_torch.fl.cohort",
                  "repro_torch.fl.async_loop", "repro_torch.runtime.chaos",
-                 "repro_torch.runtime.elastic", *DRIVERS):
+                 "repro_torch.runtime.elastic", "repro_torch.fl.hetero",
+                 "repro_torch.fl.hierarchy", *DRIVERS):
         assert name in _module_names()

@@ -169,8 +169,7 @@ def test_param_constructors_default_to_the_card(make):
         make()
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("client_widths", (1.0, 0.5)), ("num_edges", 1), ("mesh_shape", (1, 1))])
+@pytest.mark.parametrize("knob,value", [("mesh_shape", (1, 1))])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, value):
     clients = split_clients(make_cifar_like(20, seed=1), 2)
     fl = FLConfig(rounds=1, local_iters=1, batch_size=10, **{knob: value})
