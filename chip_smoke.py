@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path); flash attention (3xTF32 on
    the tensor cores) over the reference's sweep (``FLASH_CASES`` of
    tests/test_kernels.py) plus small head dims, gemma2-2b's head shape
-   (D = 256, softcap 50, global and windowed; and in bf16), a head dim of
+   (D = 256, softcap 50, global and windowed; and in bf16), mixtral-8x22b's
+   (48 query heads over 8 KV heads of D = 128, window 256 at S = 512; fp32
+   and bf16), a head dim of
    13 and inputs 4 bytes off a 16-byte boundary (its 4-byte copies),
    within 1e-5 (fp32) and 2e-2 (bf16); the SSD scan (chunk-parallel,
    3xTF32 on the tensor cores) over the reference's ``SSD_CASES`` plus an
@@ -120,14 +122,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode step over 4 rows run under ``torch.profiler`` (the SSD scan's
    passes listed by kernel name).  (The engine, ``ServeEngine``, refuses the
    SSM family, as the reference's does.)
+5c. the MoE and VLM families.  mixtral-8x22b at full width (d_model 6144,
+   48 query heads over 8 KV heads of 128, 8 experts of d_ff 16384, top-2,
+   window 4096 on every layer, vocab 32768; fp32 weights drawn on the card
+   from a seed) with two cuts: 6 of its 56 layers, and capacity factor 4.0
+   (``MIXTRAL_CF``: C = T, so the padded engine prefill and the unpadded
+   oracle drop nothing).  Flash attention against its plain version on the
+   first and the last layer of a real 4096-token prefill (1e-5); layer 0's
+   real MoE input through the capacity path and through the exact decode
+   path on all T rows (within 2e-5 x max|y|); ``serve`` of 6 seeded
+   requests (prompts of 600, 2100 and 4060 tokens, 8-64 generated) through
+   ``ServeEngine`` with 4 slots, prompts padded to 4096 and a 4096-slot
+   rolling cache that one request wraps, each request's tokens equal to
+   ``reference_decode``'s up to the first top-2 margin below 1e-3; the
+   wrapping request decoded through its cache against a full-forward
+   prefill of the same tokens (2e-4).  Flash attention must have launched
+   6 times per prefill (14 prefills), the other kernels never.  Printed:
+   prefill seconds (also once at the config's capacity factor 1.25), one
+   layer's attention and MoE blocks apart, decode ms per step by active
+   slots and at 1 row (the oracle), tokens/s, peak memory; one prefill and
+   one decode step under ``torch.profiler``.  Then internvl2-2b at full
+   width and depth (24 layers, 1.89 B fp32 params): ``api.prefill`` over 2
+   rows of 256 seeded patch embeddings and 744 tokens, 16 ``api.decode``
+   steps after the patches, the last step's logits against a full forward
+   and each row alone against the batch (2e-4), flash attention 24 times
+   per prefill (4 prefills), the other kernels never.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
    tolerances) plus one with widths (0.5, 1.0, 0.25), two edges, top-k 0.5
    and int8 deltas (the edge hop too exact), gemma2-2b's smoke config
    through ``serve`` (tokens equal,
-   logits within 1e-4) and mamba2-780m's smoke config through prefill and
-   decode (tokens equal, logits within 1e-4).
+   logits within 1e-4) and the smoke configs of mamba2-780m, mixtral-8x22b,
+   arctic-480b (at their capacity factor 1.25: the card must drop the
+   (token, choice) pairs the CPU drops) and internvl2-2b (seeded patches)
+   through prefill and decode (tokens equal, logits within 1e-4).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
    beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
@@ -136,7 +165,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    has one (``torch.mul`` for dequantize,
    ``torch.topk`` for top-k, compiled ``flex_attention`` for flash
    attention with gemma2's softcap and ``scaled_dot_product_attention``
-   without it: yardsticks the port never calls; no PyTorch call computes
+   without it and on mixtral's layer 0 (D = 128, GQA 6): yardsticks the
+   port never calls; no PyTorch call computes
    the SSD scan), then print the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
@@ -231,6 +261,10 @@ FLASH_CASES = [
     (1, 600, 600, 8, 4, 256, True, 256, 50.0, "float32"),
     (1, 300, 300, 8, 4, 256, True, 0, 50.0, "bfloat16"),
     (1, 50, 50, 2, 1, 13, True, 0, 0.0, "float32"),
+    # mixtral-8x22b's head shape (48 query heads over 8 KV heads of 128)
+    # with a window shorter than the sequence; and in bf16
+    (1, 512, 512, 48, 8, 128, True, 256, 0.0, "float32"),
+    (1, 512, 512, 48, 8, 128, True, 256, 0.0, "bfloat16"),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
@@ -289,6 +323,33 @@ MAMBA_DRILLS = (4096, 1000)     # real-layer drills: 1000 has a ragged chunk
 # prefill against token-by-token decode: the reference's own bound
 # (tests/test_models.py test_decode_matches_full_forward)
 STEPWISE_TOL = 2e-4
+
+# phase 5c, mixtral-8x22b at full width with two cuts.  Depth: 6 of 56
+# layers (every layer is "L", so the pattern's period is 1); 6 layers hold
+# 57.5 GiB of fp32 params.  Capacity factor 4.0 instead of 1.25: with
+# E/k = 4 it makes C = T, so the capacity path drops no token.  The engine
+# prefills a prompt padded to max_prompt and the oracle prefills it
+# unpadded: at 1.25 the two get different capacities, so different drops
+# and different tokens (the reference's serving test raises it to 8.0 for
+# the same reason).  Widths are the config's.
+MIXTRAL_LAYERS, MIXTRAL_CF = 6, 4.0
+MIXTRAL_SLOTS, MIXTRAL_PROMPT, MIXTRAL_SEQ = 4, 4096, 4160
+# seed 5 is the first whose 6 requests take all three prompt lengths and
+# run one request past position 4096, so its slot's rolling buffer wraps
+MIXTRAL_TRAFFIC = dict(rate=0.5, n_requests=6, vocab_size=32768,
+                       prompt_lens=(600, 2100, 4060), gen_lens=(8, 16, 32, 64),
+                       seed=5)
+# the capacity path at cf 4.0 against the exact path on the same T rows of
+# a real layer: drop-free, they compute one function, and only the fp32
+# reduction order over d_model and d_ff (the batched vs per-expert
+# products) differs: 6e-6 of the largest output on the H100 (PERF.md).
+# The check also runs the capacity path with TF32 products (10-bit
+# mantissas) and fails unless that breaks the bound, so the bound tells
+# the configuration's fp32 from a lower precision.
+MOE_REL_TOL = 2e-5
+# phase 5c, internvl2-2b at full width and depth: 2 rows of 256 patch
+# embeddings (the frontend stub, seeded) and 744 tokens, 16 decode steps
+VLM_ROWS, VLM_TEXT, VLM_GEN = 2, 744, 16
 
 
 def fail(msg: str) -> None:
@@ -1342,6 +1403,20 @@ def small_cpu_vs_card(torch, dev):
     return out
 
 
+def count_params(params) -> int:
+    """Elements in a nested dict of tensors."""
+    return sum(count_params(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())
+
+
+def free_card(torch):
+    """Drop the last phase's tensors from the card and zero the peak."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def flash_drill(torch, tf, q, k, v, causal, window, cap, tol, what):
     """One flash-attention launch against the plain version on the same
     inputs; returns the max abs error."""
@@ -1390,23 +1465,31 @@ def check_flash(torch, tf, dev):
     return worst
 
 
-def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers):
+def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers,
+                              moe_inputs=None):
     """q, k, v, window and softcap of each flash-attention call in the
-    first ``layers`` layers of a real prefill of ``tokens``."""
+    first ``layers`` layers of a real prefill of ``tokens``; with a list
+    ``moe_inputs``, each MoE block's input is appended to it too."""
     import dataclasses
     calls = []
-    kernel = L.flash_attention
+    kernel, block = L.flash_attention, L.moe_block
 
     def capture(q, k, v, causal=True, window=0, softcap=0.0):
         calls.append((q, k, v, causal, window, softcap))
         return kernel(q, k, v, causal=causal, window=window, softcap=softcap)
 
+    def capture_moe(cfg_, p, x):
+        moe_inputs.append(x)
+        return block(cfg_, p, x)
+
     L.flash_attention = capture
+    if moe_inputs is not None:
+        L.moe_block = capture_moe
     try:
         T.forward(dataclasses.replace(cfg, num_layers=layers), params,
                   tokens)
     finally:
-        L.flash_attention = kernel
+        L.flash_attention, L.moe_block = kernel, block
     torch.cuda.synchronize()
     return calls
 
@@ -1427,13 +1510,7 @@ def gemma2_main_path(torch, tf, dev, launches, reset_launches):
     params = T.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
-    leaves = []
-
-    def walk(t):
-        for v in t.values():
-            walk(v) if isinstance(v, dict) else leaves.append(v)
-    walk(params)
-    n_params = sum(t.numel() for t in leaves)
+    n_params = count_params(params)
     norms = cfg.num_layers * 4 * cfg.d_model + cfg.d_model
     if n_params != cfg.param_count() + norms:
         fail(f"gemma2-2b: {n_params} params, the config counts "
@@ -1673,28 +1750,18 @@ def mamba2_main_path(torch, ts, dev, launches, reset_launches):
     real-layer SSD drills, sequential serving of 4 prompts, a batch of 4
     rows against the oracle, the stepwise oracle, and the launch counts
     the path needs."""
-    import gc
-
     import numpy as np
     from repro_torch.configs.mamba2_780m import CONFIG as cfg
     from repro_torch.models import api
     from repro_torch.models import ssm as S_model
     from repro_torch.serving import reference_decode
     out = {"config": cfg.name}
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    free_card(torch)
     t0 = time.perf_counter()
     params = api.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
-    leaves = []
-
-    def walk(t):
-        for v in t.values():
-            walk(v) if isinstance(v, dict) else leaves.append(v)
-    walk(params)
-    n_params = sum(t.numel() for t in leaves)
+    n_params = count_params(params)
     if n_params != 857_379_072:
         fail(f"mamba2-780m: {n_params} params, its init shapes give "
              f"857,379,072")
@@ -1870,47 +1937,465 @@ def mamba2_main_path(torch, ts, dev, launches, reset_launches):
     return out, real
 
 
-def small_ssm_cpu_vs_card(torch, dev):
-    """Phase 6, mamba2: the smoke config on the CPU (plain scan) and on the
-    card (the kernel), same weights: for each prompt the prefill and 6
-    decode steps, tokens equal and logits within 1e-4."""
+def mixtral_main_path(torch, tf, dev, launches, reset_launches):
+    """Phase 5c, MoE: ``ServeEngine`` on mixtral-8x22b at full width (6
+    layers, capacity factor 4.0; see ``MIXTRAL_LAYERS``): the real-layer
+    flash drills, the capacity path against the exact path on a real
+    layer, the served traffic against the sequential oracle through a
+    wrapped rolling cache, decode through that cache against a full
+    forward, the launch counts the path needs, and the timings."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.mixtral_8x22b import CONFIG
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (ServeCosts, ServeEngine,
+                                     TrafficGenerator, latency_stats,
+                                     reference_decode, serve)
+    cfg = dataclasses.replace(
+        CONFIG, num_layers=MIXTRAL_LAYERS,
+        moe=dataclasses.replace(CONFIG.moe, capacity_factor=MIXTRAL_CF))
+    out = {"config": cfg.name, "layers": MIXTRAL_LAYERS,
+           "of_layers": CONFIG.num_layers, "capacity_factor": MIXTRAL_CF}
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = count_params(params)
+    norms = cfg.num_layers * 2 * cfg.d_model + cfg.d_model
+    if n_params != cfg.param_count() + norms:
+        fail(f"mixtral-8x22b: {n_params} params, the config counts "
+             f"{cfg.param_count()} + {norms} norm weights")
+    out["params"] = n_params
+    out["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"mixtral-8x22b ({MIXTRAL_LAYERS} of {CONFIG.num_layers} layers, "
+          f"capacity factor {MIXTRAL_CF}): {n_params:,} fp32 params drawn on "
+          f"the card in {out['init_s']:.2f} s; peak memory "
+          f"{out['init_peak_gib']:.2f} GiB", flush=True)
+    requests = TrafficGenerator(**MIXTRAL_TRAFFIC).generate()
+    CL = T.cache_len(cfg, MIXTRAL_SEQ)
+    wrapped = {r.rid: r for r in requests if len(r.prompt) + r.gen - 2 >= CL}
+    if CL != cfg.window or not wrapped:
+        fail(f"mixtral traffic: cache {CL}, no request decodes past it")
+
+    # real layers: flash on the first and the last layer's q, k, v, and
+    # layer 0's MoE input through both branches
+    longest = max(requests, key=lambda r: len(r.prompt))
+    padded = np.zeros(MIXTRAL_PROMPT, np.int64)
+    padded[:len(longest.prompt)] = longest.prompt
+    tokens = torch.from_numpy(padded[None]).to(dev)
+    moe_in = []
+    calls = capture_prefill_attention(torch, L, T, cfg, params, tokens,
+                                      cfg.num_layers, moe_inputs=moe_in)
+    worst = 0.0
+    for i in (0, cfg.num_layers - 1):
+        q, k, v, causal, window, cap = calls[i]
+        worst = max(worst, flash_drill(
+            torch, tf, q, k, v, causal, window, cap, REAL_LAYER_TOL,
+            f"mixtral-8x22b layer {i}, S={q.shape[1]} H={q.shape[2]} "
+            f"KV={k.shape[2]} D={q.shape[3]} window={window}"))
+    out["real_layer_max_abs_err"] = worst
+    real = calls[0][:3] + (calls[0][4], calls[0][5])
+    h0 = moe_in[0]
+    del calls, moe_in
+    p0 = T.layer_params(params, 0)
+    xf = h0.reshape(-1, cfg.d_model)
+    topw, topi = L.moe_route(cfg, p0["moe"], xf)
+    C, _, keep = L.moe_dispatch(cfg, topi)
+    if C < xf.shape[0] or not bool(keep.all()):
+        fail(f"mixtral MoE: capacity {C} for {xf.shape[0]} tokens drops")
+    cap_y = L._moe_capacity(cfg, p0["moe"], xf, topw, topi)
+    exact_y = L._moe_decode_exact(cfg, p0["moe"], xf, topw, topi)
+    moe_err = float((cap_y - exact_y).abs().max())
+    moe_bound = MOE_REL_TOL * float(exact_y.abs().max())
+    if not np.isfinite(moe_err) or moe_err > moe_bound:
+        fail(f"mixtral MoE layer 0: capacity path vs exact path max abs "
+             f"err {moe_err} > {moe_bound}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_err = float((L._moe_capacity(cfg, p0["moe"], xf, topw, topi)
+                          - exact_y).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not tf32_err > moe_bound:
+        fail(f"mixtral MoE layer 0: with TF32 products the capacity path is "
+             f"within {tf32_err} <= {moe_bound} of the exact path: the bound "
+             f"cannot tell TF32 from fp32")
+    load = torch.bincount(topi.reshape(-1),
+                          minlength=cfg.moe.num_experts).tolist()
+    out.update({"moe_max_abs_err": moe_err, "moe_bound": moe_bound,
+                "moe_tf32_max_abs_err": tf32_err,
+                "expert_load_layer0": load})
+    print(f"mixtral MoE layer 0 (T={xf.shape[0]}, C={C}, expert load "
+          f"{load}): capacity path vs exact path max abs err "
+          f"{moe_err:.3g} <= {MOE_REL_TOL} x max|y| = {moe_bound:.3g}; "
+          f"with TF32 products {tf32_err:.3g} "
+          f"({tf32_err / moe_bound:.1f}x the bound)", flush=True)
+    del cap_y, exact_y
+
+    # the main path, counts zeroed just before: engine, oracle, and decode
+    # through the wrapped cache against a full forward
+    engine = ServeEngine(cfg, params, slots=MIXTRAL_SLOTS,
+                         max_prompt=MIXTRAL_PROMPT, max_seq=MIXTRAL_SEQ)
+    prefill_s, decode_s = [], []
+    submit, step = engine.submit, engine.step
+
+    def timed_submit(*a, **kw):
+        t = time.perf_counter()
+        r = submit(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t)
+        return r
+
+    def timed_step():
+        active = engine.num_active
+        t = time.perf_counter()
+        r = step()
+        torch.cuda.synchronize()
+        decode_s.append((active, time.perf_counter() - t))
+        return r
+    engine.submit, engine.step = timed_submit, timed_step
+    oracle_decode_s = []
+    decode = api.decode
+
+    def timed_decode(*a, **kw):
+        t = time.perf_counter()
+        r = decode(*a, **kw)
+        torch.cuda.synchronize()
+        oracle_decode_s.append(time.perf_counter() - t)
+        return r
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve(engine, requests, ServeCosts(prefill=1.0, decode=0.1))
+    serve_wall = time.perf_counter() - t0
+    if engine.last_logits is None or engine.last_logits.shape != (
+            MIXTRAL_SLOTS, cfg.vocab_size) or not np.isfinite(
+            engine.last_logits).all():
+        fail("mixtral serve: last logits missing, misshapen or not finite")
+    t0 = time.perf_counter()
+    compared, oracle = 0, {}
+    api.decode = timed_decode
+    try:
+        for r in res["requests"]:
+            if r.tokens is None or len(r.tokens) != r.gen:
+                fail(f"mixtral serve: request {r.rid} gave {r.tokens}, "
+                     f"needs {r.gen} tokens")
+            ref, margins = reference_decode(cfg, params, r.prompt, r.gen,
+                                            return_margins=True)
+            oracle[r.rid] = ref
+            n = 0
+            for i in range(r.gen):
+                if margins[i] < MARGIN:
+                    break
+                if r.tokens[i] != ref[i]:
+                    fail(f"mixtral serve: request {r.rid} token {i} is "
+                         f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
+                         f"{margins[i]:.4g})")
+                n += 1
+            compared += n
+            print(f"request {r.rid}: prompt {len(r.prompt)}, gen {r.gen}"
+                  f"{' (wraps the cache)' if r.rid in wrapped else ''}, {n} "
+                  f"tokens equal the oracle's (min margin "
+                  f"{min(margins):.3g})", flush=True)
+    finally:
+        api.decode = decode
+    oracle_wall = time.perf_counter() - t0
+    # decode through the wrapped cache against a full forward: the
+    # request's prompt and oracle tokens, the last decode step's logits
+    # (position L + gen - 2 >= CL) against a prefill over L + gen - 1
+    r = max(wrapped.values(), key=lambda r: len(r.prompt) + r.gen)
+    Lp = len(r.prompt)
+    seq = np.concatenate([r.prompt, oracle[r.rid][:-1]]).astype(np.int64)
+    tokens = torch.from_numpy(seq[None]).to(dev)
+    logits, cache = api.prefill(cfg, params, {"tokens": tokens[:, :Lp]},
+                                target_seq=Lp + r.gen)
+    for i in range(1, r.gen):
+        logits, cache = api.decode(cfg, params, cache,
+                                   tokens[:, Lp + i - 1:Lp + i], Lp + i - 1)
+    del cache
+    full, _ = api.prefill(cfg, params, {"tokens": tokens},
+                          target_seq=Lp + r.gen)
+    wrap_err = float((logits - full).abs().max())
+    if not wrap_err < STEPWISE_TOL:
+        fail(f"mixtral: decode through the wrapped cache (position "
+             f"{Lp + r.gen - 2}, cache {CL}) vs full forward: {wrap_err} >= "
+             f"{STEPWISE_TOL}")
+    print(f"mixtral: decode through the wrapped cache to position "
+          f"{Lp + r.gen - 2} (cache {CL}) vs a full forward over "
+          f"{len(seq)} tokens: max abs logit diff {wrap_err:.3g} < "
+          f"{STEPWISE_TOL}", flush=True)
+    counts = dict(launches)
+    prefills = 2 * len(requests) + 2
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers * prefills
+    print(f"serve-mixtral-8x22b: launches {counts} (expected {want}: "
+          f"{cfg.num_layers} layers x {prefills} prefills)")
+    if counts != want:
+        fail(f"serve-mixtral-8x22b: launches {counts}, the path needs "
+             f"{want}")
+    total = sum(r.gen for r in requests)
+    if compared < total // 2:
+        fail(f"mixtral serve: only {compared} of {total} tokens compared")
+
+    # timings outside the counted run: one prefill at the config's own
+    # capacity factor, and one layer's MoE and attention blocks apart
+    own = dataclasses.replace(cfg, moe=CONFIG.moe)
+    tokens = torch.from_numpy(padded[None]).to(dev)
+    t0 = time.perf_counter()
+    T.forward(own, params, tokens, return_cache=True, cache_seq=MIXTRAL_SEQ)
+    torch.cuda.synchronize()
+    own_prefill_s = time.perf_counter() - t0
+    x0 = T.embed_inputs(cfg, params, tokens)
+    h_attn = L.rms_norm(x0, p0["ln1"])
+    positions = torch.arange(MIXTRAL_PROMPT, device=dev)
+    layer_ms = {
+        "attention_block": time_ms(lambda: L.attention_block(
+            cfg, p0["attn"], h_attn, positions, window=cfg.window),
+            graph=False, reps=3, inner=2),
+        "flash_attention": time_ms(lambda: tf.flash_attention(
+            *real[:3], True, real[3], real[4]), graph=False, reps=3, inner=2),
+        f"moe_block_cf{MIXTRAL_CF}": time_ms(
+            lambda: L.moe_block(cfg, p0["moe"], h0), graph=False, reps=3,
+            inner=1),
+        f"moe_block_cf{CONFIG.moe.capacity_factor}": time_ms(
+            lambda: L.moe_block(own, p0["moe"], h0), graph=False, reps=3,
+            inner=1)}
+    del x0, h_attn
+    by_active = {}
+    for active, t in decode_s:
+        by_active.setdefault(active, []).append(t)
+    busy = sum(prefill_s) + sum(t for _, t in decode_s)
+    out.update({
+        "requests": [{"rid": r.rid, "prompt": len(r.prompt), "gen": r.gen,
+                      "tokens": r.tokens} for r in res["requests"]],
+        "tokens_compared": compared, "tokens_total": total,
+        "wrap_logit_max_abs_diff": wrap_err, "launches": counts,
+        "prefill_s": prefill_s, f"prefill_s_cf{CONFIG.moe.capacity_factor}":
+        own_prefill_s, "decode_step_s_by_active": by_active,
+        "decode_step_s_1row_oracle": oracle_decode_s, "layer_ms": layer_ms,
+        "serve_wall_s": serve_wall, "oracle_wall_s": oracle_wall,
+        "tokens_per_s": total / busy, "virtual_clock_stats":
+        latency_stats(res),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    med = {a: statistics.median(v) * 1e3 for a, v in sorted(by_active.items())}
+    print(f"serve-mixtral-8x22b: {compared} of {total} tokens compared, all "
+          f"equal; prefill at {MIXTRAL_PROMPT} (cf {MIXTRAL_CF}): median "
+          f"{statistics.median(prefill_s):.3f} s ({len(prefill_s)}), at cf "
+          f"{CONFIG.moe.capacity_factor}: {own_prefill_s:.3f} s; decode "
+          f"step ({MIXTRAL_SLOTS} slots) median ms by active slots "
+          f"{ {a: round(m, 1) for a, m in med.items()} }, oracle (1 row) "
+          f"median {statistics.median(oracle_decode_s) * 1e3:.1f} ms; "
+          f"{out['tokens_per_s']:.1f} tokens/s over engine time {busy:.2f} s"
+          f" (wall {serve_wall:.2f} s); oracle {oracle_wall:.2f} s; peak "
+          f"memory {out['peak_memory_gib']:.2f} GiB", flush=True)
+    print(f"mixtral layer 0 at {MIXTRAL_PROMPT} tokens (ms, eager): "
+          f"{ {k: round(v, 2) for k, v in layer_ms.items()} }", flush=True)
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {MIXTRAL_PROMPT} tokens, cf {MIXTRAL_CF}",
+        lambda: T.forward(cfg, params, tokens, return_cache=True,
+                          cache_seq=MIXTRAL_SEQ))
+    step_tok = torch.zeros((MIXTRAL_SLOTS, 1), dtype=torch.long, device=dev)
+    step_pos = torch.full((MIXTRAL_SLOTS,), MIXTRAL_PROMPT, device=dev)
+    out["profile_decode"] = profile_device(
+        torch, f"one decode step, {MIXTRAL_SLOTS} slots",
+        lambda: T.decode_step(cfg, params, engine.cache, step_tok, step_pos))
+    return out, real
+
+
+def internvl2_main_path(torch, dev, launches, reset_launches):
+    """Phase 5c, VLM: internvl2-2b at full width and depth through
+    ``api.prefill`` / ``api.decode``: 2 rows of 256 seeded patch embeddings
+    and 744 tokens, 16 greedy decode steps after the patches, the last
+    step's logits against a full forward, each row alone against the
+    batch, and the launch counts the path needs."""
+    import numpy as np
+    from repro_torch.configs.internvl2_2b import CONFIG as cfg
+    from repro_torch.models import api
+    out = {"config": cfg.name}
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = count_params(params)
+    d = cfg.d_model
+    norms = cfg.num_layers * 2 * d + d
+    if n_params != cfg.param_count() + norms + d * d:
+        fail(f"internvl2-2b: {n_params} params, the config counts "
+             f"{cfg.param_count()} + {norms} norm weights + {d * d} of "
+             f"patch_proj")
+    out["params"] = n_params
+    print(f"internvl2-2b: {n_params:,} fp32 params drawn on the card in "
+          f"{out['init_s']:.2f} s", flush=True)
+    rng = np.random.RandomState(0)
+    text = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        (VLM_ROWS, VLM_TEXT))).to(dev)
+    patches = torch.from_numpy((0.1 * rng.randn(
+        VLM_ROWS, cfg.num_patches, d)).astype(np.float32)).to(dev)
+    P = cfg.num_patches
+    target = P + VLM_TEXT + VLM_GEN
+    timing = {"prefill": [], "decode": []}
+
+    def timed(kind, fn, *a, **kw):
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        timing[kind].append(time.perf_counter() - t)
+        return r
+
+    def run(rows, fed=None):
+        """Prefill ``rows`` and decode VLM_GEN steps, greedy, or fed the
+        tokens ``fed``; returns every step's logits and the tokens."""
+        batch = {"tokens": text[rows], "patches": patches[rows]}
+        logits, cache = timed("prefill", api.prefill, cfg, params, batch,
+                              target_seq=target)
+        seen, toks = [logits], []
+        for i in range(VLM_GEN):
+            tok = torch.argmax(logits, -1)[:, None] if fed is None \
+                else fed[:, i:i + 1]
+            toks.append(tok)
+            logits, cache = timed("decode", api.decode, cfg, params, cache,
+                                  tok, P + VLM_TEXT + i)
+            seen.append(logits)
+        return seen, torch.cat(toks, dim=1)
+
+    free_card(torch)
+    reset_launches()
+    rows = list(range(VLM_ROWS))
+    seen, gen = run(rows)
+    full, _ = timed("prefill", api.prefill, cfg, params, {
+        "tokens": torch.cat([text, gen], dim=1), "patches": patches},
+        target_seq=target)
+    if not bool(torch.isfinite(seen[-1]).all()) or seen[-1].shape != (
+            VLM_ROWS, cfg.vocab_size):
+        fail("internvl2-2b: last logits not finite or misshapen")
+    stepwise = float((seen[-1] - full).abs().max())
+    if not stepwise < STEPWISE_TOL:
+        fail(f"internvl2-2b: decode at position {target - 1} vs full "
+             f"forward: {stepwise} >= {STEPWISE_TOL}")
+    alone = 0.0
+    for r in rows:
+        mine, _ = run([r], fed=gen[r:r + 1])
+        alone = max(alone, max(float((a - b[r:r + 1]).abs().max())
+                               for a, b in zip(mine, seen)))
+    if not alone < STEPWISE_TOL:
+        fail(f"internvl2-2b: a row alone vs the batch: {alone} >= "
+             f"{STEPWISE_TOL}")
+    counts = dict(launches)
+    prefills = 2 + VLM_ROWS
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers * prefills
+    print(f"serve-internvl2-2b: launches {counts} (expected {want}: "
+          f"{cfg.num_layers} layers x {prefills} prefills)")
+    if counts != want:
+        fail(f"serve-internvl2-2b: launches {counts}, the path needs {want}")
+    batch_decode = timing["decode"][:VLM_GEN]
+    out.update({
+        "tokens": gen.tolist(), "stepwise_max_abs_diff": stepwise,
+        "row_alone_max_abs_diff": alone, "launches": counts,
+        "prefill_s": timing["prefill"], "decode_step_s": timing["decode"],
+        "tokens_per_s_batch": VLM_ROWS * VLM_GEN / (
+            timing["prefill"][0] + sum(batch_decode)),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"serve-internvl2-2b: decode at positions {P + VLM_TEXT}-"
+          f"{target - 1} vs full forward max abs logit diff {stepwise:.3g},"
+          f" rows alone vs batch {alone:.3g} (< {STEPWISE_TOL}); prefill "
+          f"{VLM_ROWS} x ({P} patches + {VLM_TEXT} tokens) "
+          f"{timing['prefill'][0]:.3f} s, 1 row "
+          f"{statistics.median(timing['prefill'][2:]):.3f} s; decode step "
+          f"median {statistics.median(batch_decode) * 1e3:.1f} ms at "
+          f"{VLM_ROWS} rows, "
+          f"{statistics.median(timing['decode'][VLM_GEN:]) * 1e3:.1f} at 1; "
+          f"{out['tokens_per_s_batch']:.1f} tokens/s; peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+    batch = {"tokens": text, "patches": patches}
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {VLM_ROWS} x {P + VLM_TEXT} positions",
+        lambda: api.prefill(cfg, params, batch, target_seq=target))
+    return out
+
+
+def small_lm_cpu_vs_card(torch, dev, arch):
+    """Phase 6, language models: ``arch``'s smoke config on the CPU (the
+    plain kernels) and on the card (the kernels), same weights: for each
+    prompt the prefill and 6 decode steps, tokens equal and logits within
+    1e-4.  The VLM gets seeded patch embeddings; an MoE config keeps its
+    capacity factor, so tokens are dropped, and the card must drop the
+    (token, choice) pairs the CPU drops."""
     from repro_torch import convert
-    from repro_torch.configs.mamba2_780m import smoke_config
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import api
-    cfg = smoke_config()
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config(arch)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     host = api.init(cfg, seed=0, device="cpu")
     card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host),
                                         dev)
     gen = torch.Generator().manual_seed(5)
-    diff, steps, before = 0.0, 0, LAUNCHES["ssd_scan"]
-    for L in (3, 16, 37, 50):
-        prompt = torch.randint(0, cfg.vocab_size, (2, L), generator=gen)
-        runs = {}
-        for name, params, d in (("cpu", host, "cpu"), ("card", card, dev)):
-            logits, cache = api.prefill(cfg, params,
-                                        {"tokens": prompt.to(d)})
-            seen = [logits.cpu()]
-            for i in range(6):
-                token = torch.argmax(seen[-1], -1)[:, None]
-                logits, cache = api.decode(cfg, params, cache, token.to(d),
-                                           L + i)
-                seen.append(logits.cpu())
-            runs[name] = seen
-        for a, b in zip(runs["cpu"], runs["card"]):
-            if not torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)):
-                fail(f"small mamba2 prompt {L}: tokens differ cpu vs card")
-            diff = max(diff, float((a - b).abs().max()))
-            steps += 1
-    n = LAUNCHES["ssd_scan"] - before
+    diff, steps, before = 0.0, 0, LAUNCHES[kernel]
+    keeps = {"cpu": [], "card": []}
+    dispatch = L.moe_dispatch
+
+    def recorded(name):
+        def run(cfg_, topi):
+            C, slot, keep = dispatch(cfg_, topi)
+            keeps[name].append(keep.cpu())
+            return C, slot, keep
+        return run
+    try:
+        for S in (3, 16, 37, 50):
+            prompt = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+            batch = {"tokens": prompt}
+            if cfg.family == "vlm":
+                batch["patches"] = 0.1 * torch.randn(
+                    (2, cfg.num_patches, cfg.d_model), generator=gen)
+            P = cfg.num_patches if cfg.family == "vlm" else 0
+            runs = {}
+            for name, params, d in (("cpu", host, "cpu"),
+                                    ("card", card, dev)):
+                L.moe_dispatch = recorded(name)
+                logits, cache = api.prefill(
+                    cfg, params, {k: v.to(d) for k, v in batch.items()},
+                    target_seq=P + S + 6)
+                seen = [logits.cpu()]
+                for i in range(6):
+                    token = torch.argmax(seen[-1], -1)[:, None]
+                    logits, cache = api.decode(cfg, params, cache,
+                                               token.to(d), P + S + i)
+                    seen.append(logits.cpu())
+                runs[name] = seen
+            for a, b in zip(runs["cpu"], runs["card"]):
+                if not torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)):
+                    fail(f"small {arch} prompt {S}: tokens differ cpu vs "
+                         f"card")
+                diff = max(diff, float((a - b).abs().max()))
+                steps += 1
+    finally:
+        L.moe_dispatch = dispatch
+    n = LAUNCHES[kernel] - before
     if diff > SMALL_SERVE_ATOL or n != 4 * cfg.num_layers:
-        fail(f"small mamba2: logits differ by {diff} (> {SMALL_SERVE_ATOL}?)"
-             f" or {n} card launches (needs {4 * cfg.num_layers})")
-    print(f"small mamba2 smoke: cpu == card tokens over {steps} steps, max "
-          f"logit diff {diff:.3g} <= {SMALL_SERVE_ATOL}; {n} kernel launches "
-          f"on the card", flush=True)
+        fail(f"small {arch}: logits differ by {diff} (> "
+             f"{SMALL_SERVE_ATOL}?) or {n} card {kernel} launches (needs "
+             f"{4 * cfg.num_layers})")
+    dropped = sum(int((~k).sum()) for k in keeps["cpu"])
+    if cfg.moe is not None:
+        same = len(keeps["cpu"]) == len(keeps["card"]) and all(
+            torch.equal(a, b) for a, b in zip(keeps["cpu"], keeps["card"]))
+        if not same or not dropped:
+            fail(f"small {arch}: {dropped} assignments dropped on the CPU; "
+                 f"the card's drops equal them: {same}")
+    print(f"small {arch} smoke: cpu == card tokens over {steps} steps, max "
+          f"logit diff {diff:.3g} <= {SMALL_SERVE_ATOL}; {n} {kernel} "
+          f"launches on the card"
+          + (f"; the same {dropped} assignments dropped on both"
+             if cfg.moe is not None else ""), flush=True)
     return {"steps": steps, "max_logit_diff": diff,
-            "atol": SMALL_SERVE_ATOL, "card_launches": n}
+            "atol": SMALL_SERVE_ATOL, "card_launches": n,
+            "dropped": dropped}
 
 
 def ssd_cost(B, S, H, P, N, Q):
@@ -1963,8 +2448,10 @@ def time_flash(torch, tf, real):
     global (window 0) and local (window 4096), beside compiled
     ``flex_attention`` with the softcap as its ``score_mod``
     (``flex_softcap_attention``); plus the global shape without the
-    softcap, where ``scaled_dot_product_attention`` computes the same
-    function (k and v repeated to 8 heads outside the timed call).  Each
+    softcap, and mixtral-8x22b's layer 0 (S=4096, H=48, KV=8, D=128,
+    window 4096, which does not bind at S=4096), where
+    ``scaled_dot_product_attention`` (causal) computes the same function
+    (k and v repeated to H heads outside the timed call).  Each
     yardstick's max abs difference from the kernel is kept as
     ``library_err``.  The function is 4 * D * H operations per visible (q, k) pair;
     each input and output byte counts once over the memory rate.  Two
@@ -1975,10 +2462,14 @@ def time_flash(torch, tf, real):
     CUDA-core rate (67 TFLOP/s)."""
     F = torch.nn.functional
     rows = []
-    for kind, cap in (("global", 50.0), ("local", 50.0), ("global", 0.0)):
+    for kind, cap in (("global", 50.0), ("local", 50.0), ("global", 0.0),
+                      ("mixtral", 0.0)):
         q, k, v, window, _ = real[kind]
         B, S, H, D = q.shape
         KV = k.shape[2]
+        if cap == 0.0 and 0 < window < S:
+            fail(f"flash timing {kind}: window {window} binds at S={S}; "
+                 f"causal SDPA computes another function")
         pairs = int(tf.visible_mask(S, k.shape[1], True, window,
                                     q.device).sum())
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
@@ -2009,7 +2500,9 @@ def time_flash(torch, tf, real):
             lambda: tf.flash_attention(q, k, v, True, window, cap),
             lambda: tf.attention_plain(q, k, v, True, window, cap), library,
             nbytes, 3 * ops, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
-        row.update({"window": window, "softcap": cap, "pairs": pairs,
+        row.update({"model": "mixtral-8x22b" if kind == "mixtral"
+                    else "gemma2-2b", "window": window, "softcap": cap,
+                    "pairs": pairs,
                     "gflop": ops / 1e9, "library_err": library_err,
                     "bound_fp32_ms": bound_ms(nbytes, ops)[0]})
         rows.append(row)
@@ -2116,8 +2609,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
     rows += serving_rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        extra = (f" window {r['window']} softcap {r['softcap']}"
-                 if "window" in r else "")
+        extra = (f" {r['model']} window {r['window']} softcap "
+                 f"{r['softcap']}" if "window" in r else "")
         fp32 = (f", 3xTF32 tensor cores; fp32 CUDA-core bound_fp32_ms "
                 f"{r['bound_fp32_ms']:.5f}" if "bound_fp32_ms" in r else "")
         print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
@@ -2252,6 +2745,17 @@ def main() -> None:
         record["main_path"]["serve-mamba2-780m"] = ssm_serving
         worst["ssd_scan"] = max(worst["ssd_scan"],
                                 ssm_serving["real_layer_max_abs_err"])
+
+        phase("5c. serving main path: mixtral-8x22b (MoE, 6 layers at full "
+              "width) and internvl2-2b (VLM, full width and depth)")
+        moe_serving, real["mixtral"] = mixtral_main_path(
+            torch, tf, dev, LAUNCHES, reset_launches)
+        record["main_path"]["serve-mixtral-8x22b"] = moe_serving
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       moe_serving["real_layer_max_abs_err"])
+        record["main_path"]["serve-internvl2-2b"] = internvl2_main_path(
+            torch, dev, LAUNCHES, reset_launches)
+        free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -2259,7 +2763,10 @@ def main() -> None:
         phase("6. small configurations: CPU vs card")
         record["small"] = small_cpu_vs_card(torch, dev)
         record["small_serve"] = small_serve_cpu_vs_card(torch, dev)
-        record["small_ssm"] = small_ssm_cpu_vs_card(torch, dev)
+        record["small_ssm"] = small_lm_cpu_vs_card(torch, dev, "mamba2-780m")
+        record["small_moe_vlm"] = {
+            arch: small_lm_cpu_vs_card(torch, dev, arch)
+            for arch in ("mixtral-8x22b", "arctic-480b", "internvl2-2b")}
 
         phase("7. kernel times")
         kernels, rows = time_kernels(

@@ -1,7 +1,8 @@
 """Config dataclasses of the language models (a copy of the reference's
-``configs/base.py``: ``ModelConfig`` and its sub-configs with the same
-fields, properties and analytic parameter count; the input-shape table
-``SHAPES`` is not carried over)."""
+``configs/base.py``): ``ModelConfig`` and its sub-configs with the same
+fields, properties and analytic parameter count, and the four input shapes
+(``ShapeConfig``, ``SHAPES``) with ``cell_is_runnable``, which
+``registry.py`` crosses with the ten architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -131,3 +132,31 @@ class ModelConfig:
         n_mlp_mats = 3 if self.mlp_act in ("swiglu", "geglu") else 2
         inactive = (self.moe.num_experts - self.moe.top_k) * n_mlp_mats * d * f
         return self.param_count() - self.num_layers * inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# The four assigned input shapes (identical across the LM family pool).
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """40-cell matrix membership: (runnable, reason-if-skipped)."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, "long_500k needs sub-quadratic attention (DESIGN.md §5)"
+    return True, ""

@@ -6,10 +6,14 @@ both keep the same layout: per-layer dicts, HWIO conv weights, ``(in, out)``
 FC and agent weights for VGG and PPO; for the language models, nested
 dicts with the per-layer leaves stacked on a leading layer axis: the
 transformer's ``{"embed", "layers": {"ln1", "attn": {"wq", ...}, "ffn":
-{...}, ...}, "final_norm"}`` and mamba2's ``{"embed", "layers": {"ln",
+{...}, ...}, "final_norm"}`` (an MoE layer holds ``"moe": {"router",
+"w_gate", "w_up", "w_down"}`` with the experts' ``(layers, E, d, f)``
+weights, and arctic's ``"dense"`` FFN, where a dense one holds ``"ffn"``;
+the VLM adds ``"patch_proj"``) and mamba2's ``{"embed", "layers": {"ln",
 "in_proj", "conv_w", ...}, "final_norm", "unembed"}``.  The same two
 functions carry the decode caches (``{"k", "v"}`` and ``{"conv",
-"state"}``).  ``tests/test_torch_transformer.py`` and
+"state"}``).  ``tests/test_torch_transformer.py``,
+``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py`` and
 ``tests/test_torch_ssm.py`` check the round trip (reference -> port ->
 numpy) bit for bit.
 """

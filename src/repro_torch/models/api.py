@@ -4,10 +4,11 @@
     logits, cache = prefill(cfg, params, {"tokens": tokens}, target_seq)
     logits, cache = decode(cfg, params, cache, token, pos)
 
-Two families are ported: ``dense`` (module ``transformer``) and ``ssm``
-(mamba2, module ``ssm``); ``moe``, ``vlm``, ``hybrid`` and ``encdec`` raise
-``NotImplementedError`` naming their ROADMAP item, as does ``loss`` (LM
-training).
+``batch`` holds ``tokens`` (and ``patches`` for the VLM, the frontend
+stub).  Four families are ported: ``dense``, ``moe`` and ``vlm`` (module
+``transformer``) and ``ssm`` (mamba2, module ``ssm``); ``hybrid`` and
+``encdec`` raise ``NotImplementedError`` naming their ROADMAP item, as does
+``loss`` (LM training).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm, transformer
 
-_FAMILIES: Dict[str, ModuleType] = {"dense": transformer, "ssm": ssm}
+_FAMILIES: Dict[str, ModuleType] = {"dense": transformer, "moe": transformer,
+                                    "vlm": transformer, "ssm": ssm}
 _KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 

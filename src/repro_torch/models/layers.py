@@ -1,6 +1,6 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
 norms, rotary embeddings, grouped-query attention with a rolling KV cache,
-and the feed-forward block.
+the feed-forward block and the token-choice mixture of experts.
 
 Conventions kept from the reference: params are nested dicts of tensors;
 activations are ``(batch, seq, d_model)``; q is ``(batch, seq, heads,
@@ -17,8 +17,12 @@ differs from JAX's, the reference's choice is written out:
 The prefill branch of ``attention_block`` goes through the flash-attention
 kernel (``kernels.flash_attention``); decode (one query row against the
 rolling cache, per-row positions) stays plain PyTorch, as the reference
-computes it outside any Pallas kernel.  The MoE block is not ported
-(``transformer`` raises for MoE configs).
+computes it outside any Pallas kernel.  So does the MoE block: the
+reference's dispatch is one-hot, cumsum, scatter and a batched einsum, and
+its decode path a ``lax.ragged_dot``, none of them a Pallas kernel; here
+they are ``torch.bmm`` and one ``torch.matmul`` per expert group.  The
+reference's expert-parallel ``_moe_block_sharded`` needs sharding rules,
+which the port does not have: ``moe_block`` is the single-device path.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ NEG_INF = -1e30
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.float32, device=gen.device)
     out.normal_(0.0, 1.0, generator=gen)
-    return (out * std).to(dtype)
+    return out.mul_(std).to(dtype)
 
 
 def _dense_init(gen, d_in: int, d_out: int, dtype) -> torch.Tensor:
@@ -233,3 +237,133 @@ def ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
+
+
+# =============================================================================
+# mixture of experts (token-choice top-k, capacity-bounded)
+# =============================================================================
+def init_moe(gen, cfg: ModelConfig, dtype) -> Params:
+    """The router ``(d, E)``, the experts' ``w_gate`` / ``w_up`` ``(E, d,
+    f)`` and ``w_down`` ``(E, f, d)``, and arctic's dense residual FFN."""
+    assert cfg.moe is not None
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    p: Params = {
+        "router": _dense_init(gen, d, E, dtype),
+        "w_gate": _normal(gen, (E, d, f), 1.0 / math.sqrt(d), dtype),
+        "w_up": _normal(gen, (E, d, f), 1.0 / math.sqrt(d), dtype),
+        "w_down": _normal(gen, (E, f, d), 1.0 / math.sqrt(f), dtype),
+    }
+    if cfg.moe.dense_residual:
+        p["dense"] = init_ffn(gen, d, f, cfg.mlp_act, dtype)
+    return p
+
+
+def moe_route(cfg: ModelConfig, p: Params, xf: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of ``xf`` (T, d): the renormalised fp32 weights and
+    the experts, each (T, k), best first.  ``lax.top_k`` lets the lower
+    expert win a tie; a stable descending sort keeps that order, where
+    ``torch.topk``'s order among ties is unspecified."""
+    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    topw, topi = top.values[:, :k], top.indices[:, :k]
+    return topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def moe_dispatch(cfg: ModelConfig, topi: torch.Tensor
+                 ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Capacity ``C`` and each of the ``T*k`` assignments' row of the
+    ``(E*C + 1, d)`` dispatch buffer, and whether it was kept.  Positions
+    within an expert follow the flat order (token-major, a token's first
+    choice before its second); an assignment past ``C`` goes to the
+    scratch row ``E*C`` and is dropped."""
+    T, k = topi.shape
+    E = cfg.moe.num_experts
+    # the reference's Python float expression, so C is its integer
+    C = max(1, int(cfg.moe.capacity_factor * T * k / E))
+    flat_e = topi.reshape(-1)
+    assign = F.one_hot(flat_e, E)                             # (T*k, E)
+    pos_all = assign.cumsum(0) - assign
+    pos = pos_all.gather(1, flat_e[:, None])[:, 0]
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos,
+                       torch.full_like(flat_e, E * C))
+    return C, slot, keep
+
+
+def _expert_act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_act == "swiglu":
+        return F.silu(h)
+    return F.gelu(h, approximate="tanh")
+
+
+def _moe_capacity(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+                  topw: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The prefill path: tokens scattered into ``(E, C, d)``, the experts
+    as three batched products, and the kept results combined with the
+    top-k weights."""
+    T, d = xf.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    C, slot, keep = moe_dispatch(cfg, topi)
+    token_idx = torch.arange(T * k, device=xf.device) // k
+    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[slot] = xf[token_idx]
+    h = buf[:E * C].view(E, C, d)
+    mid = _expert_act(cfg, torch.bmm(h, p["w_gate"])) * torch.bmm(
+        h, p["w_up"])
+    y = torch.bmm(mid, p["w_down"]).reshape(E * C, d)
+    w_flat = topw.reshape(-1).to(xf.dtype)
+    gathered = y[slot.clamp(max=E * C - 1)]
+    contrib = torch.where(keep[:, None], w_flat[:, None] * gathered,
+                          torch.zeros((), dtype=xf.dtype, device=xf.device))
+    # k = 2 terms onto zeros sum alike in any order (every config has
+    # top_k 2); more would need a fixed order to match the reference
+    return torch.zeros((T, d), dtype=xf.dtype, device=xf.device
+                       ).index_add_(0, token_idx, contrib)
+
+
+def _moe_decode_exact(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+                      topw: torch.Tensor, topi: torch.Tensor
+                      ) -> torch.Tensor:
+    """Drop-free MoE (the reference's decode path): the ``T*k``
+    assignments sorted by expert (stably, as ``jnp.argsort``), and each
+    non-empty expert's contiguous rows through one ``torch.matmul`` per
+    weight, the reference's ``lax.ragged_dot``.  Reads the group sizes on
+    the host."""
+    T, d = xf.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    token_idx = order // k
+    rows = xf[token_idx]                        # (T*k, d) sorted by expert
+    sizes = torch.bincount(flat_e, minlength=E).tolist()
+    ys, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            r = rows[start:start + n]
+            mid = _expert_act(cfg, r @ p["w_gate"][e]) * (r @ p["w_up"][e])
+            ys.append(mid @ p["w_down"][e])
+        start += n
+    w_sorted = topw.reshape(-1)[order].to(xf.dtype)
+    return torch.zeros((T, d), dtype=xf.dtype, device=xf.device
+                       ).index_add_(0, token_idx, w_sorted[:, None]
+                                    * torch.cat(ys))
+
+
+def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Token-choice top-k MoE over ``x`` (B, S, d): capacity-bounded
+    dispatch for ``S > 1``, the exact drop-free path for a decode step
+    (``S == 1``); plus arctic's dense residual FFN in both."""
+    assert cfg.moe is not None
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    topw, topi = moe_route(cfg, p, xf)
+    if S == 1:
+        out = _moe_decode_exact(cfg, p, xf, topw, topi)
+    else:
+        out = _moe_capacity(cfg, p, xf, topw, topi)
+    out = out.reshape(B, S, d)
+    if cfg.moe.dense_residual:
+        out = out + ffn(p["dense"], x, cfg.mlp_act)
+    return out

@@ -76,8 +76,7 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype)}
-    p["layers"] = T._stack([init_layer(cfg, gen, dtype)
-                            for _ in range(cfg.num_layers)])
+    p["layers"] = T.stacked_layers(cfg, gen, dtype, init_layer)
     p["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, device)
     p["unembed"] = L._dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
     return p

@@ -1,6 +1,8 @@
-"""Decoder-only transformer LM, dense family (counterpart of
-``repro/models/transformer.py``): init, the full-sequence forward, prefill
-and one decode step over a rolling KV cache.
+"""Decoder-only transformer LM, the dense, MoE and VLM families
+(counterpart of ``repro/models/transformer.py``, which serves mixtral-8x22b,
+arctic-480b, qwen3-0.6b, llama3-8b, minicpm-2b, gemma2-2b and internvl2-2b):
+init, the full-sequence forward, prefill and one decode step over a
+rolling KV cache.
 
 The reference's param layout is kept leaf for leaf: per-layer params are
 stacked on a leading layer axis (``params["layers"]["attn"]["wq"]`` is
@@ -9,7 +11,11 @@ params onto the other's.  Where the reference scans over that axis, the
 port loops over the layer index.  Local/global attention (gemma2) is the
 per-layer window from ``window_schedule``; the KV cache is one buffer per
 layer of length ``cache_len`` (a rolling buffer when every layer is
-windowed).  The MoE and VLM variants and ``loss_fn`` are not ported.
+windowed).  An MoE layer holds ``"moe"`` (``layers.moe_block``) where a
+dense one holds ``"ffn"``.  The VLM variant projects precomputed patch
+embeddings (the frontend stub) through ``patch_proj`` and puts them before
+the token embeddings; positions and the cache count the patches.
+``loss_fn`` (LM training) is not ported.
 """
 from __future__ import annotations
 
@@ -23,10 +29,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 Params = Dict[str, object]
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise not_ported(f"the {cfg.family} transformer family", "LM families")
 
 
@@ -43,15 +50,40 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     if cfg.post_block_norm:
         p["ln1_post"] = L.init_rms_norm(cfg.d_model, dtype, gen.device)
         p["ln2_post"] = L.init_rms_norm(cfg.d_model, dtype, gen.device)
-    p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                              dtype)
     return p
 
 
-def _stack(layers: List[Params]) -> Params:
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lp[k] for lp in layers]) for k in first}
-    return torch.stack(layers)
+def stacked_layers(cfg: ModelConfig, gen: torch.Generator, dtype,
+                   init_one=init_layer) -> Params:
+    """``init_one`` for each layer in turn, copied into stacked buffers as
+    it is drawn, so the peak is the stack plus one layer (a full-width
+    mixtral layer is 10 GB in fp32; stacking a list would double the
+    whole)."""
+
+    def alloc(t):
+        return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.new_empty((cfg.num_layers,) + tuple(t.shape))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    stacked = None
+    for i in range(cfg.num_layers):
+        lp = init_one(cfg, gen, dtype)
+        if stacked is None:
+            stacked = alloc(lp)
+        put(stacked, lp, i)
+        del lp
+    return stacked
 
 
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -68,14 +100,12 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     gen = torch.Generator(device=device).manual_seed(seed)
     p: Params = {"embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype)}
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append(init_layer(cfg, gen, dtype))
-    p["layers"] = _stack(layers)
-    del layers
+    p["layers"] = stacked_layers(cfg, gen, dtype)
     p["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         p["unembed"] = L._dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    if cfg.family == "vlm":
+        p["patch_proj"] = L._dense_init(gen, cfg.d_model, cfg.d_model, dtype)
     return p
 
 
@@ -120,20 +150,37 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.post_block_norm:
         attn_out = L.rms_norm(attn_out, p["ln1_post"])
     x = x + attn_out
-    h = L.rms_norm(x, p["ln2"])
-    ff = L.ffn(p["ffn"], h, cfg.mlp_act)
-    if cfg.post_block_norm:
-        ff = L.rms_norm(ff, p["ln2_post"])
+    ff = _feed_forward(cfg, p, L.rms_norm(x, p["ln2"]))
     return x + ff, kv
 
 
+def _feed_forward(cfg: ModelConfig, p: Params, h: torch.Tensor
+                  ) -> torch.Tensor:
+    """The layer's FFN or MoE block on the normed ``h``, post-normed for
+    gemma2."""
+    if cfg.moe is not None:
+        ff = L.moe_block(cfg, p["moe"], h)
+    else:
+        ff = L.ffn(p["ffn"], h, cfg.mlp_act)
+    if cfg.post_block_norm:
+        ff = L.rms_norm(ff, p["ln2_post"])
+    return ff
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 patches=None) -> torch.Tensor:
-    if cfg.family == "vlm" or patches is not None:
-        raise not_ported("the VLM patch frontend", "LM families")
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, d); for the VLM, ``patches`` (B, P, d)
+    projected by ``patch_proj`` and put before them (B, P + S, d).  Other
+    families ignore ``patches``, as the reference does."""
     x = params["embed"][tokens]
     if cfg.post_block_norm:          # gemma-style embedding scale
         x = x * math.sqrt(cfg.d_model)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError("the vlm family needs precomputed patch "
+                             "embeddings (batch['patches'])")
+        px = patches.to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([px, x], dim=1)
     return x
 
 
@@ -141,7 +188,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             patches=None, return_cache: bool = False,
             cache_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Full-sequence forward of ``tokens`` (B, S).  Returns the final-norm
+    """Full-sequence forward of ``tokens`` (B, S_text), after the VLM's
+    ``patches``: S = P + S_text positions.  Returns the final-norm
     hidden states and, with ``return_cache``, the stacked KV cache
     ``{"k", "v": (layers, B, CL, KV, D)}`` with ``CL = cache_len(cfg,
     cache_seq or S)``: the last ``min(S, CL)`` positions, position ``p`` at
@@ -219,10 +267,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         if cfg.post_block_norm:
             attn_out = L.rms_norm(attn_out, p["ln1_post"])
         x = x + attn_out
-        h = L.rms_norm(x, p["ln2"])
-        ff = L.ffn(p["ffn"], h, cfg.mlp_act)
-        if cfg.post_block_norm:
-            ff = L.rms_norm(ff, p["ln2_post"])
-        x = x + ff
+        x = x + _feed_forward(cfg, p, L.rms_norm(x, p["ln2"]))
     x = L.rms_norm(x, params["final_norm"])
     return lm_logits(cfg, params, x[:, -1]), cache

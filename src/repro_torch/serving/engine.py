@@ -15,12 +15,17 @@
   kernel (on the card); decode is plain PyTorch.  The cache lies where the
   params lie and has their dtype.
 
-Greedy (argmax) sampling, ``dense`` family only: like the reference,
-the engine refuses the ``ssm`` family (its recurrent cache has no per-slot
-decode adapter), which ``reference_decode`` serves.  The reference's
-``compile_counts`` has no counterpart: it counts jit executables, and the
-port runs eagerly with nothing compiled per shape.  ``maybe_swap`` (hot
-param swap from a ``ParamStore``) is not ported yet.
+Greedy (argmax) sampling over the stacked-transformer families ``dense``
+and ``moe``: like the reference, the engine refuses the ``ssm`` family (its
+recurrent cache has no per-slot decode adapter), which ``reference_decode``
+serves, and the ``vlm`` family (its prefill needs patches).  An MoE
+prefill drops tokens past each expert's capacity, which counts the pad
+lanes of the right-padded prompt: the engine matches the unpadded oracle
+only where no token is dropped (the reference's tests raise the capacity
+factor for that).  The reference's ``compile_counts`` has no
+counterpart: it counts jit executables, and the port runs eagerly with
+nothing compiled per shape.  ``maybe_swap`` (hot param swap from a
+``ParamStore``) is not ported yet.
 ``reference_decode`` is the sequential single-request oracle.
 """
 from __future__ import annotations
@@ -70,9 +75,6 @@ class ServeEngine:
                 f"ServeEngine serves the stacked-transformer families "
                 f"{_SERVABLE_FAMILIES}; {cfg.family!r} needs a per-slot "
                 f"decode adapter")
-        if cfg.moe is not None:
-            raise not_ported("MoE serving (_moe_decode_exact)",
-                             "LM families")
         if max_prompt > max_seq:
             raise ValueError(f"max_prompt={max_prompt} > max_seq={max_seq}")
         self.cfg = cfg

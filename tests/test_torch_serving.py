@@ -13,9 +13,15 @@ equivalences:
 * ``TrafficGenerator`` and ``EventQueue`` are exact copies;
 * ``launch.serve.main`` on lm16m gives the reference driver's tokens.
 
-The MoE twin (mixtral) waits for MoE serving; the hot-swap tests wait for
-``ParamStore``.
+mixtral-8x22b (MoE) serves at capacity factor 8.0, as in the reference's
+tests/test_serving.py: the engine prefills prompts padded to
+``max_prompt`` and the oracle prefills them unpadded, so at the configs'
+1.25 the two would drop different tokens.  Its smoke window is 32, so
+prompts stay within 30 tokens and requests that run past 32 positions
+wrap the rolling cache.  The hot-swap tests wait for ``ParamStore``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +34,7 @@ from repro.runtime.scheduler import EventQueue as JEventQueue
 from repro.serving import ServeEngine as JServeEngine
 from repro.serving import TrafficGenerator as JTraffic
 from repro_torch import convert
-from repro_torch.configs import gemma2_2b, qwen3_0_6b
+from repro_torch.configs import gemma2_2b, mixtral_8x22b, qwen3_0_6b
 from repro_torch.launch import serve as t_launch
 from repro_torch.runtime.scheduler import EventQueue
 from repro_torch.serving import (
@@ -41,18 +47,30 @@ from repro_torch.serving import (
 )
 
 _CONFIGS = {"qwen3-0.6b": qwen3_0_6b.smoke_config,
-            "gemma2-2b": gemma2_2b.smoke_config}
+            "gemma2-2b": gemma2_2b.smoke_config,
+            "mixtral-8x22b": mixtral_8x22b.smoke_config}
+# prompt lengths and max_prompt a test's engine takes per arch (mixtral's
+# rolling cache is its window, 32 slots)
+_PROMPTS = {"qwen3-0.6b": (3, 12, 40), "gemma2-2b": (3, 12, 40),
+            "mixtral-8x22b": (3, 12, 30)}
 _SETUPS = {}
+
+
+def _no_drops(cfg):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
 
 
 def _setup(arch="qwen3-0.6b", seed=0):
     """(port cfg, port params, reference cfg, reference params)."""
     if (arch, seed) not in _SETUPS:
-        jcfg = R.get_smoke_config(arch)
+        jcfg = _no_drops(R.get_smoke_config(arch))
         jp = japi.init(jcfg, jax.random.PRNGKey(seed), jnp.float32)
         tp = convert.lm_params_from_numpy(
             jax.tree_util.tree_map(np.asarray, jp), device="cpu")
-        _SETUPS[arch, seed] = (_CONFIGS[arch](), tp, jcfg, jp)
+        _SETUPS[arch, seed] = (_no_drops(_CONFIGS[arch]()), tp, jcfg, jp)
     return _SETUPS[arch, seed]
 
 
@@ -82,13 +100,20 @@ def _run_staggered(engine, reqs, on_step=None):
 # =============================================================================
 # continuous batching == sequential single-request decoding
 # =============================================================================
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b",
+                                  "mixtral-8x22b"])
 def test_continuous_batching_matches_sequential(arch):
     """Prompts up to 40 tokens: gemma2's local layers (smoke window 32)
-    mask in the prefill and in the decode."""
+    mask in the prefill and in the decode; mixtral's 30-token prompts with
+    8 generated wrap its 32-slot rolling cache."""
     cfg, params, _, _ = _setup(arch)
-    engine = ServeEngine(cfg, params, slots=3, max_prompt=40, max_seq=52)
-    reqs = _requests(cfg, lens=(3, 12, 40))
+    lens = _PROMPTS[arch]
+    engine = ServeEngine(cfg, params, slots=3, max_prompt=lens[-1],
+                         max_seq=52)
+    reqs = _requests(cfg, lens=lens)
+    if cfg.moe is not None:
+        assert engine.CL == 32 and any(
+            len(p) + g > engine.CL + 1 for _, p, g in reqs)
     out = _run_staggered(engine, reqs)
     assert len(out) == len(reqs)
     for rid, prompt, gen in reqs:
@@ -97,20 +122,22 @@ def test_continuous_batching_matches_sequential(arch):
         assert len(out[rid]) == gen
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b",
+                                  "mixtral-8x22b"])
 def test_engine_matches_reference_engine(arch):
     """The same params and requests through both packages' engines: the
     same tokens, and the same logits at every decode step within 2e-5."""
     cfg, params, jcfg, jp = _setup(arch)
-    reqs = _requests(cfg, n=6, seed=2, lens=(3, 12, 40), gens=(2, 5))
+    lens = _PROMPTS[arch]
+    reqs = _requests(cfg, n=6, seed=2, lens=lens, gens=(2, 5, 8))
     logits = []
     out = _run_staggered(
-        ServeEngine(cfg, params, slots=3, max_prompt=40, max_seq=52), reqs,
-        lambda e: logits.append(e.last_logits))
+        ServeEngine(cfg, params, slots=3, max_prompt=lens[-1], max_seq=52),
+        reqs, lambda e: logits.append(e.last_logits))
     j_logits = []
     j_out = _run_staggered(
-        JServeEngine(jcfg, jp, slots=3, max_prompt=40, max_seq=52), reqs,
-        lambda e: j_logits.append(e.last_logits))
+        JServeEngine(jcfg, jp, slots=3, max_prompt=lens[-1], max_seq=52),
+        reqs, lambda e: j_logits.append(e.last_logits))
     assert out == j_out
     assert len(logits) == len(j_logits)
     for a, b in zip(logits, j_logits):
@@ -167,7 +194,6 @@ def test_engine_validation():
         engine.submit(1, np.zeros(4, np.int32), 4)
     with pytest.raises(ValueError, match="max_prompt"):
         ServeEngine(cfg, params, slots=1, max_prompt=32, max_seq=16)
-    import dataclasses
     ssm = dataclasses.replace(cfg, family="ssm")
     with pytest.raises(NotImplementedError, match="families"):
         ServeEngine(ssm, None)

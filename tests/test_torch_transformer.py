@@ -26,7 +26,8 @@ from repro.configs import registry as R
 from repro.models import api as japi
 from repro.models import transformer as JT
 from repro_torch import convert
-from repro_torch.configs import gemma2_2b, lm_small, qwen3_0_6b
+from repro_torch.configs import (gemma2_2b, llama3_8b, lm_small, minicpm_2b,
+                                 qwen3_0_6b)
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer as TT
 
@@ -38,6 +39,10 @@ _CONFIGS = {
     "gemma2-2b": gemma2_2b.smoke_config(),
     "gemma2-2b-all-local": dataclasses.replace(gemma2_2b.smoke_config(),
                                                layer_pattern=("L",)),
+    # the dense configs that came with the registry: GQA with a large rope
+    # base, and tied embeddings with full multi-head attention
+    "llama3-8b": llama3_8b.smoke_config(),
+    "minicpm-2b": minicpm_2b.smoke_config(),
 }
 
 
@@ -157,15 +162,18 @@ def test_configs_equal_reference(name, cfg):
 
 
 def test_unported_families_raise():
-    moe = R.get_smoke_config("mixtral-8x22b")
-    from repro_torch.configs.base import ModelConfig, MoEConfig
-    tmoe = ModelConfig(**{**dataclasses.asdict(moe),
-                          "moe": MoEConfig(**dataclasses.asdict(moe.moe))})
-    with pytest.raises(NotImplementedError, match="LM families"):
-        tapi.init(tmoe, device="cpu")
-    hybrid = dataclasses.replace(qwen3_0_6b.smoke_config(), family="hybrid")
-    with pytest.raises(NotImplementedError, match="LM families"):
-        tapi.get_model(hybrid)
+    """hybrid (recurrentgemma-9b) and encdec (whisper-base) still raise
+    "LM families" through ``api.init`` and ``api.get_model``, and so does
+    the transformer for them; the loss raises "LM training"."""
+    from repro_torch.configs import recurrentgemma_9b, whisper_base
+    for cfg in (recurrentgemma_9b.smoke_config(),
+                whisper_base.smoke_config()):
+        with pytest.raises(NotImplementedError, match="LM families"):
+            tapi.init(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="LM families"):
+            tapi.get_model(cfg)
+        with pytest.raises(NotImplementedError, match="LM families"):
+            TT.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="LM training"):
         tapi.loss(qwen3_0_6b.smoke_config(), None, None)
 
