@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tests/test_kernels.py) plus small head dims, gemma2-2b's head shape
    (D = 256, softcap 50, global and windowed; and in bf16), mixtral-8x22b's
    (48 query heads over 8 KV heads of D = 128, window 256 at S = 512; fp32
-   and bf16), a head dim of
+   and bf16), whisper-base's (D = 64 without causality over 1500 keys, and
+   a 12-row prompt over them), recurrentgemma-9b's (16 query heads over
+   one KV head of 256, window 256 at S = 600), a head dim of
    13 and inputs 4 bytes off a 16-byte boundary (its 4-byte copies),
    within 1e-5 (fp32) and 2e-2 (bf16); the SSD scan (chunk-parallel,
    3xTF32 on the tensor cores) over the reference's ``SSD_CASES`` plus an
@@ -147,6 +149,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    steps after the patches, the last step's logits against a full forward
    and each row alone against the batch (2e-4), flash attention 24 times
    per prefill (4 prefills), the other kernels never.
+5d. the hybrid and encoder-decoder families.  recurrentgemma-9b at full
+   width and depth (38 layers: 26 RG-LRU and 12 local attention of 16
+   query heads over one KV head of 256, window 2048; vocab 256000;
+   9,396,195,328 fp32 params drawn on the card from a seed): flash against
+   its plain version on the first and the last local layer of a real
+   4096-token prefill (1e-5); with the launch counts zeroed,
+   ``reference_decode`` of prompts of 300, 2100 and 4096 tokens (the two
+   longer wrap the rolling cache at prefill; 32 generated each);
+   ``api.prefill`` over 3 rows of 4096 and 31 ``api.decode`` steps, each
+   row's tokens equal to its oracle's up to the first top-2 margin below
+   1e-3, the rows' last step against a full forward (2e-4); the 300-token
+   prompt fed through ``api.decode`` one token at a time from zero caches
+   against the prefill's logits and every cache leaf (2e-4).  Flash must
+   have launched 12 times per prefill (8 prefills), the other kernels
+   never.  Printed: prefill seconds, decode ms per step (1 and 3 rows),
+   tokens/s, one R and one L layer's parts at 4096 tokens, peak memory;
+   one prefill and one decode step under ``torch.profiler``.  Then
+   whisper-base at full width and depth (6 encoder and 6 decoder layers,
+   8 heads of 64, vocab 51865): 4 rows of 1500 seeded frame embeddings
+   and 96-token prompts through ``api.prefill``, 32 greedy ``api.decode``
+   steps, the last against a full forward and each row alone against the
+   batch (2e-4); flash drills on encoder layers 0 and 5 (1500 x 1500, no
+   causality), decoder layer 0's self-attention and the cross-attention
+   of decoder layers 0 and 5 (the prompt over the 1500 frames) within
+   1e-5; flash 18 times per prefill (6 encoder, 6 self, 6 cross; 6
+   prefills), the other kernels never.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -155,8 +183,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through ``serve`` (tokens equal,
    logits within 1e-4) and the smoke configs of mamba2-780m, mixtral-8x22b,
    arctic-480b (at their capacity factor 1.25: the card must drop the
-   (token, choice) pairs the CPU drops) and internvl2-2b (seeded patches)
-   through prefill and decode (tokens equal, logits within 1e-4).
+   (token, choice) pairs the CPU drops), internvl2-2b (seeded patches),
+   recurrentgemma-9b and whisper-base (seeded frames) through prefill and
+   decode (tokens equal, logits within 1e-4).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
    beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
@@ -164,9 +193,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version and a library call computing the same function where PyTorch
    has one (``torch.mul`` for dequantize,
    ``torch.topk`` for top-k, compiled ``flex_attention`` for flash
-   attention with gemma2's softcap and ``scaled_dot_product_attention``
-   without it and on mixtral's layer 0 (D = 128, GQA 6): yardsticks the
-   port never calls; no PyTorch call computes
+   attention with gemma2's softcap and on recurrentgemma-9b's local layer
+   (window 2048, which binds; MQA at D = 256), and
+   ``scaled_dot_product_attention`` on gemma2's global layer without the
+   softcap, mixtral's layer 0 (D = 128, GQA 6) and whisper-base's encoder
+   layer (D = 64, no causality): yardsticks the port never calls; no
+   PyTorch call computes
    the SSD scan), then print the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
@@ -265,6 +297,13 @@ FLASH_CASES = [
     # with a window shorter than the sequence; and in bf16
     (1, 512, 512, 48, 8, 128, True, 256, 0.0, "float32"),
     (1, 512, 512, 48, 8, 128, True, 256, 0.0, "bfloat16"),
+    # whisper-base's encoder (no causality over 1500 keys, not a multiple
+    # of the 32-key tile, D = 64) and cross-attention (a short prompt over
+    # the 1500 frames); recurrentgemma-9b's local layer (16 query heads over
+    # one KV head of 256, a window shorter than the sequence)
+    (1, 1500, 1500, 8, 8, 64, False, 0, 0.0, "float32"),
+    (2, 12, 1500, 8, 8, 64, False, 0, 0.0, "float32"),
+    (1, 600, 600, 16, 1, 256, True, 256, 0.0, "float32"),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
@@ -350,6 +389,21 @@ MOE_REL_TOL = 2e-5
 # phase 5c, internvl2-2b at full width and depth: 2 rows of 256 patch
 # embeddings (the frontend stub, seeded) and 744 tokens, 16 decode steps
 VLM_ROWS, VLM_TEXT, VLM_GEN = 2, 744, 16
+# phase 5d, recurrentgemma-9b at full width and depth (38 layers: 26
+# RG-LRU and 12 local attention with 16 query heads over one KV head of
+# 256, window 2048; vocab 256000; 35.0 GiB of fp32 params, no cut):
+# reference_decode of prompts on both sides of the window (2100 and 4096
+# wrap the rolling cache at prefill), a batch of rows of 4096, and the
+# shortest prompt fed one token at a time from position 0 (the stepwise
+# oracle: 300 decode steps)
+HYBRID_PROMPTS = (300, 2100, 4096)
+HYBRID_GEN = 32
+HYBRID_ROWS, HYBRID_ROW_PROMPT = 3, 4096
+# phase 5d, whisper-base at full width and depth (6 encoder and 6 decoder
+# layers, d_model 512, 8 heads of 64, 1500 frames, vocab 51865): 4 rows of
+# 1500 seeded frame embeddings N(0, 0.1^2) and 96-token prompts, 32 greedy
+# decode steps
+WHISPER_ROWS, WHISPER_TEXT, WHISPER_GEN = 4, 96, 32
 
 
 def fail(msg: str) -> None:
@@ -1404,9 +1458,9 @@ def small_cpu_vs_card(torch, dev):
 
 
 def count_params(params) -> int:
-    """Elements in a nested dict of tensors."""
-    return sum(count_params(v) if isinstance(v, dict) else v.numel()
-               for v in params.values())
+    """Elements in a tree of tensors (nested dicts, lists and tuples)."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def free_card(torch):
@@ -1465,33 +1519,44 @@ def check_flash(torch, tf, dev):
     return worst
 
 
-def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers,
-                              moe_inputs=None):
-    """q, k, v, window and softcap of each flash-attention call in the
-    first ``layers`` layers of a real prefill of ``tokens``; with a list
-    ``moe_inputs``, each MoE block's input is appended to it too."""
-    import dataclasses
-    calls = []
-    kernel, block = L.flash_attention, L.moe_block
+def capture_flash_calls(torch, L, run):
+    """q, k, v, causal, window and softcap of each flash-attention call
+    that ``run()`` makes through ``models.layers`` (each still launches
+    the kernel)."""
+    calls, kernel = [], L.flash_attention
 
     def capture(q, k, v, causal=True, window=0, softcap=0.0):
         calls.append((q, k, v, causal, window, softcap))
         return kernel(q, k, v, causal=causal, window=window, softcap=softcap)
 
+    L.flash_attention = capture
+    try:
+        run()
+    finally:
+        L.flash_attention = kernel
+    torch.cuda.synchronize()
+    return calls
+
+
+def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers,
+                              moe_inputs=None):
+    """The flash-attention calls (``capture_flash_calls``) of the first
+    ``layers`` layers of a real prefill of ``tokens``; with a list
+    ``moe_inputs``, each MoE block's input is appended to it too."""
+    import dataclasses
+    block = L.moe_block
+
     def capture_moe(cfg_, p, x):
         moe_inputs.append(x)
         return block(cfg_, p, x)
 
-    L.flash_attention = capture
     if moe_inputs is not None:
         L.moe_block = capture_moe
     try:
-        T.forward(dataclasses.replace(cfg, num_layers=layers), params,
-                  tokens)
+        return capture_flash_calls(torch, L, lambda: T.forward(
+            dataclasses.replace(cfg, num_layers=layers), params, tokens))
     finally:
-        L.flash_attention, L.moe_block = kernel, block
-    torch.cuda.synchronize()
-    return calls
+        L.moe_block = block
 
 
 def gemma2_main_path(torch, tf, dev, launches, reset_launches):
@@ -2318,13 +2383,429 @@ def internvl2_main_path(torch, dev, launches, reset_launches):
     return out
 
 
+def prefill_launches(cfg) -> int:
+    """Launches of the family's kernel per prefill: the SSD scan once a
+    layer for the SSM family; flash attention once per attention layer
+    (the hybrid's local layers only), and for encdec once per encoder
+    layer and twice per decoder layer (self- and cross-attention)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    if cfg.family == "hybrid":
+        return sum(cfg.layer_kind(i) == "L" for i in range(cfg.num_layers))
+    return cfg.num_layers
+
+
+def hybrid_main_path(torch, tf, dev, launches, reset_launches):
+    """Phase 5d, hybrid: recurrentgemma-9b at full width and depth through
+    the port's entry points (``reference_decode``, ``api.prefill``,
+    ``api.decode``): the real-layer flash drills (MQA at D = 256, window
+    2048), sequential serving of prompts on both sides of the window, a
+    batch of rows against the oracle, decode against a full forward, the
+    token-by-token oracle from position 0, the launch counts the path
+    needs, and the timings."""
+    import numpy as np
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as cfg
+    from repro_torch.models import api
+    from repro_torch.models import hybrid as H
+    from repro_torch.models import layers as L
+    from repro_torch.serving import reference_decode
+    from repro_torch.tree import tree_leaves
+    out = {"config": cfg.name}
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    n_params = count_params(params)
+    r_layers = sum(cfg.layer_kind(i) == "R" for i in range(cfg.num_layers))
+    l_layers = cfg.num_layers - r_layers
+    # param_count charges an R layer w * (conv_width + 3) for its conv
+    # weight and bias and its Λ, which hold w * (conv_width + 2)
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    want_n = cfg.param_count() + norms - r_layers * cfg.rglru.lru_width
+    if n_params != want_n:
+        fail(f"recurrentgemma-9b: {n_params} params, its init shapes give "
+             f"{want_n}")
+    out.update({"params": n_params, "r_layers": r_layers,
+                "l_layers": l_layers})
+    print(f"recurrentgemma-9b: {n_params:,} fp32 params "
+          f"({n_params * 4 / 2**30:.2f} GiB; {cfg.num_layers} layers, "
+          f"{r_layers} RG-LRU and {l_layers} local attention) drawn on the "
+          f"card in {out['init_s']:.2f} s; peak memory "
+          f"{out['init_peak_gib']:.2f} GiB", flush=True)
+    rng = np.random.RandomState(0)
+    prompts = {n: rng.randint(0, cfg.vocab_size, n) for n in HYBRID_PROMPTS}
+    rows = [prompts[HYBRID_ROW_PROMPT]] + [
+        rng.randint(0, cfg.vocab_size, HYBRID_ROW_PROMPT)
+        for _ in range(HYBRID_ROWS - 1)]
+
+    # real-layer drills: the first and the last local-attention layer of a
+    # 4096-token prefill (16 query heads over one KV head of 256, window
+    # 2048); call i is layer 3 i + 2
+    tokens = torch.from_numpy(prompts[HYBRID_ROW_PROMPT][None]).to(dev)
+    calls = capture_flash_calls(torch, L, lambda: H.forward(cfg, params,
+                                                            tokens))
+    if len(calls) != l_layers:
+        fail(f"recurrentgemma-9b: {len(calls)} flash calls in a forward, "
+             f"{l_layers} local layers")
+    worst = 0.0
+    for i in (0, len(calls) - 1):
+        q, k, v, causal, window, cap = calls[i]
+        worst = max(worst, flash_drill(
+            torch, tf, q, k, v, causal, window, cap, REAL_LAYER_TOL,
+            f"recurrentgemma-9b layer {3 * i + 2}, S={q.shape[1]} "
+            f"H={q.shape[2]} KV={k.shape[2]} D={q.shape[3]} "
+            f"window={window}"))
+    out["real_layer_max_abs_err"] = worst
+    real = calls[0][:3] + (calls[0][4], calls[0][5])
+    del calls
+
+    # the main path, counts zeroed just before: every prefill and decode
+    # step goes through the entry points, timed to a sync
+    timing = {"prefill": [], "decode": []}
+    prefill, decode = api.prefill, api.decode
+
+    def timed(fn, kind):
+        def run(cfg_, params_, *a, **kw):
+            t = time.perf_counter()
+            r = fn(cfg_, params_, *a, **kw)
+            torch.cuda.synchronize()
+            shape = (a[0]["tokens"] if kind == "prefill" else a[1]).shape
+            timing[kind].append((tuple(shape), time.perf_counter() - t))
+            return r
+        return run
+    api.prefill, api.decode = timed(prefill, "prefill"), timed(decode,
+                                                               "decode")
+    try:
+        reset_launches()
+        # 1. sequential serving: one request at a time, on both sides of
+        # the window (2100 and 4096 wrap the rolling cache at prefill)
+        seq = {}
+        t0 = time.perf_counter()
+        for n, prompt in prompts.items():
+            seq[n] = reference_decode(cfg, params, prompt, HYBRID_GEN,
+                                      return_margins=True)
+            print(f"sequential: prompt {n}, {HYBRID_GEN} tokens, min top-2 "
+                  f"margin {min(seq[n][1]):.3g}", flush=True)
+        seq_wall = time.perf_counter() - t0
+        n_seq = len(timing["prefill"]), len(timing["decode"])
+        # 2. the batched path: one prefill over the rows, then decodes;
+        # each row's tokens against its own oracle under the margin rule
+        t0 = time.perf_counter()
+        batch = torch.from_numpy(np.stack(rows)).to(dev)
+        logits, cache = api.prefill(cfg, params, {"tokens": batch},
+                                    target_seq=HYBRID_ROW_PROMPT + HYBRID_GEN)
+        got = []
+        for i in range(HYBRID_GEN):
+            if i:
+                logits, cache = api.decode(cfg, params, cache, token,
+                                           HYBRID_ROW_PROMPT + i - 1)
+            token = torch.argmax(logits, -1)[:, None]
+            got.append(token[:, 0])
+        batch_wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (
+                HYBRID_ROWS, cfg.vocab_size):
+            fail(f"recurrentgemma-9b batch: last logits "
+                 f"{tuple(logits.shape)} not finite or misshapen")
+        del cache
+        got = torch.stack(got, dim=1)                  # (rows, gen)
+        # decode through the wrapped caches against a full forward: the
+        # rows' last decode logits (position 4126) against a prefill of
+        # their prompts and first gen - 1 tokens (the random model repeats
+        # its last prompt token at a top-2 margin of ~17, so the logits
+        # carry this check, not the tokens)
+        full, _ = api.prefill(cfg, params, {"tokens": torch.cat(
+            [batch, got[:, :-1]], dim=1)})
+        wrap_err = float((logits - full).abs().max())
+        if not wrap_err < STEPWISE_TOL:
+            fail(f"recurrentgemma-9b: decode at position "
+                 f"{HYBRID_ROW_PROMPT + HYBRID_GEN - 2} vs full forward: "
+                 f"{wrap_err} >= {STEPWISE_TOL}")
+        del full
+        got = got.cpu().numpy()
+        compared = 0
+        for r, prompt in enumerate(rows):
+            ref, margins = seq[HYBRID_ROW_PROMPT] if r == 0 else \
+                reference_decode(cfg, params, prompt, HYBRID_GEN,
+                                 return_margins=True)
+            n = 0
+            for i in range(HYBRID_GEN):
+                if margins[i] < MARGIN:
+                    break
+                if got[r, i] != ref[i]:
+                    fail(f"recurrentgemma-9b batch: row {r} token {i} is "
+                         f"{got[r, i]}, the oracle's {ref[i]} (margin "
+                         f"{margins[i]:.4g})")
+                n += 1
+            compared += n
+            print(f"batch row {r}: {n} of {HYBRID_GEN} tokens equal the "
+                  f"oracle's (min margin {min(margins):.3g})", flush=True)
+        if compared < HYBRID_ROWS * HYBRID_GEN // 2:
+            fail(f"recurrentgemma-9b batch: only {compared} of "
+                 f"{HYBRID_ROWS * HYBRID_GEN} tokens compared")
+        # 3. the stepwise oracle: a prompt one token at a time from zero
+        # caches (rglru_step against the log-depth scan, the rolled conv
+        # window, decode's KV writes against the prefill's placement)
+        n = HYBRID_PROMPTS[0]
+        tokens = torch.from_numpy(prompts[n][None]).to(dev)
+        want, want_cache = api.prefill(cfg, params, {"tokens": tokens})
+        step_cache = api.init_cache(cfg, 1, n, torch.float32, dev)
+        for i in range(n):
+            step, step_cache = api.decode(cfg, params, step_cache,
+                                          tokens[:, i:i + 1], i)
+        stepwise = {"logits": float((step - want).abs().max()),
+                    "caches": max(float((a - b).abs().max()) for a, b in zip(
+                        tree_leaves(step_cache), tree_leaves(want_cache)))}
+        if not max(stepwise.values()) < STEPWISE_TOL:
+            fail(f"recurrentgemma-9b stepwise oracle: {stepwise} >= "
+                 f"{STEPWISE_TOL}")
+        print(f"stepwise oracle ({n} decode steps from zero caches): max abs "
+              f"diff {stepwise} < {STEPWISE_TOL}", flush=True)
+        del step_cache, want_cache
+        counts = dict(launches)
+    finally:
+        api.prefill, api.decode = prefill, decode
+    prefills = len(timing["prefill"])
+    want_prefills = len(HYBRID_PROMPTS) + 1 + 1 + (HYBRID_ROWS - 1) + 1
+    if prefills != want_prefills:
+        fail(f"recurrentgemma-9b: {prefills} prefills, the path makes "
+             f"{want_prefills}")
+    want_counts = {k: 0 for k in counts}
+    want_counts["flash_attention"] = prefill_launches(cfg) * prefills
+    print(f"serve-recurrentgemma-9b: launches {counts} (expected "
+          f"{want_counts}: {prefill_launches(cfg)} local layers x "
+          f"{prefills} prefills)")
+    if counts != want_counts:
+        fail(f"serve-recurrentgemma-9b: launches {counts}, the path needs "
+             f"{want_counts}")
+
+    # records: prefill seconds by shape, decode ms per step by rows
+    pre = {}
+    for shape, t in timing["prefill"]:
+        pre.setdefault(f"{shape[0]}x{shape[1]}", []).append(t)
+    seq_pre = [t for _, t in timing["prefill"][:n_seq[0]]]
+    seq_dec = [t for _, t in timing["decode"][:n_seq[1]]]
+    rows_dec = [t for shape, t in timing["decode"]
+                if shape[0] == HYBRID_ROWS]
+    batch_busy = pre[f"{HYBRID_ROWS}x{HYBRID_ROW_PROMPT}"][0] + sum(rows_dec)
+    seq_busy = sum(seq_pre) + sum(seq_dec)
+    out.update({
+        "sequential": {str(n): seq[n][0] for n in HYBRID_PROMPTS},
+        "min_margin": {str(n): min(seq[n][1]) for n in HYBRID_PROMPTS},
+        "batch_tokens": got.tolist(), "tokens_compared": compared,
+        "wrap_logit_max_abs_diff": wrap_err,
+        "stepwise_max_abs_diff": stepwise, "launches": counts,
+        "prefill_s": pre,
+        "decode_step_ms_1row": [t * 1e3 for t in seq_dec],
+        "decode_step_ms_rows": [t * 1e3 for t in rows_dec],
+        "tokens_per_s_sequential": len(HYBRID_PROMPTS) * HYBRID_GEN
+        / seq_busy,
+        "tokens_per_s_batch": HYBRID_ROWS * HYBRID_GEN / batch_busy,
+        "sequential_wall_s": seq_wall, "batch_wall_s": batch_wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"serve-recurrentgemma-9b: {compared} of "
+          f"{HYBRID_ROWS * HYBRID_GEN} batch tokens compared, all equal; "
+          f"decode at position {HYBRID_ROW_PROMPT + HYBRID_GEN - 2} vs full "
+          f"forward {wrap_err:.3g}; prefill (s) "
+          f"{ {k: [round(t, 4) for t in v] for k, v in pre.items()} }; "
+          f"decode step median {statistics.median(seq_dec) * 1e3:.1f} ms at "
+          f"1 row, {statistics.median(rows_dec) * 1e3:.1f} ms at "
+          f"{HYBRID_ROWS} rows; {out['tokens_per_s_sequential']:.1f} "
+          f"tokens/s sequential, {out['tokens_per_s_batch']:.1f} over "
+          f"{HYBRID_ROWS} rows; peak memory {out['peak_memory_gib']:.2f} "
+          f"GiB", flush=True)
+
+    # one R and one L layer apart at 4096 tokens (eager, as the main path
+    # runs them): the RG-LRU scan, the recurrent and attention mixes, the
+    # kernel, a GeGLU FFN
+    tokens = torch.from_numpy(prompts[HYBRID_ROW_PROMPT][None]).to(dev)
+    slots = params["layers"]["slots"]
+    h = L.rms_norm(H._embed(cfg, params, tokens), slots[0]["ln1"][0])
+    r0 = {k: v[0] for k, v in slots[0]["rglru"].items()}
+    a0 = {k: v[0] for k, v in slots[2]["attn"].items()}
+    f0 = {k: v[0] for k, v in slots[0]["ffn"].items()}
+    u = L.causal_conv(h @ r0["w_in2"], r0["conv_w"], r0["conv_b"])
+    a, b = H._rglru_coeffs(r0, u)
+    positions = torch.arange(HYBRID_ROW_PROMPT, device=dev)
+    kw = dict(graph=False, reps=3, inner=2)
+    layer_ms = {
+        "associative_scan": time_ms(lambda: H.associative_scan(a, b), **kw),
+        "rglru_scan": time_ms(lambda: H.rglru_scan(r0, u), **kw),
+        "recurrent_mix": time_ms(lambda: H.recurrent_mix(cfg, r0, h), **kw),
+        "attention_block": time_ms(lambda: L.attention_block(
+            cfg, a0, h, positions, window=cfg.window), **kw),
+        "flash_attention": time_ms(lambda: tf.flash_attention(
+            *real[:3], True, real[3], real[4]), **kw),
+        "ffn": time_ms(lambda: L.ffn(f0, h, cfg.mlp_act), **kw)}
+    del h, u, a, b
+    out["layer_ms"] = layer_ms
+    print(f"recurrentgemma-9b layers at {HYBRID_ROW_PROMPT} tokens (ms, "
+          f"eager): { {k: round(v, 2) for k, v in layer_ms.items()} }; "
+          f"{r_layers} RG-LRU scans a prefill "
+          f"{r_layers * layer_ms['rglru_scan']:.1f} ms (the associative "
+          f"scan alone {r_layers * layer_ms['associative_scan']:.1f})",
+          flush=True)
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {HYBRID_ROW_PROMPT} tokens",
+        lambda: prefill(cfg, params, {"tokens": tokens}))
+    cache = api.init_cache(cfg, 1, HYBRID_ROW_PROMPT, torch.float32, dev)
+    out["profile_decode"] = profile_device(
+        torch, "one decode step, 1 row",
+        lambda: decode(cfg, params, cache, tokens[:, :1], 0))
+    return out, real
+
+
+def whisper_main_path(torch, tf, dev, launches, reset_launches):
+    """Phase 5d, encdec: whisper-base at full width and depth through
+    ``api.prefill`` / ``api.decode``: the real-layer flash drills (the
+    bidirectional encoder, the cross-attention over 1500 frames, the
+    decoder's causal self-attention, all D = 64), greedy decoding of a
+    batch, its last step against a full forward, each row alone against
+    the batch, and the launch counts the path needs."""
+    import numpy as np
+    from repro_torch.configs.whisper_base import CONFIG as cfg
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    out = {"config": cfg.name}
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = count_params(params)
+    norms = (2 * cfg.encoder_layers + 3 * cfg.num_layers + 2) * cfg.d_model
+    if n_params != cfg.param_count() + norms:
+        fail(f"whisper-base: {n_params} params, the config counts "
+             f"{cfg.param_count()} + {norms} norm weights")
+    out["params"] = n_params
+    print(f"whisper-base: {n_params:,} fp32 params ({cfg.encoder_layers} "
+          f"encoder + {cfg.num_layers} decoder layers) drawn on the card in "
+          f"{out['init_s']:.2f} s", flush=True)
+    rng = np.random.RandomState(0)
+    text = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (WHISPER_ROWS, WHISPER_TEXT))).to(dev)
+    frames = torch.from_numpy((0.1 * rng.randn(
+        WHISPER_ROWS, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        ).to(dev)
+    target = WHISPER_TEXT + WHISPER_GEN
+
+    # real-layer drills: the first encoder layer (1500 x 1500, no
+    # causality), the first decoder layer's self-attention (causal) and
+    # cross-attention (the prompt over the 1500 frames), the last encoder
+    # layer and the last cross-attention
+    E = cfg.encoder_layers
+    calls = capture_flash_calls(torch, L, lambda: api.prefill(
+        cfg, params, {"tokens": text, "frames": frames}, target_seq=target))
+    if len(calls) != prefill_launches(cfg):
+        fail(f"whisper-base: {len(calls)} flash calls in a prefill, "
+             f"{prefill_launches(cfg)} expected")
+    worst = 0.0
+    for i, what in ((0, "encoder layer 0"), (E - 1, f"encoder layer {E - 1}"),
+                    (E, "decoder layer 0 self-attention"),
+                    (E + 1, "decoder layer 0 cross-attention"),
+                    (len(calls) - 1,
+                     f"decoder layer {cfg.num_layers - 1} cross-attention")):
+        q, k, v, causal, window, cap = calls[i]
+        worst = max(worst, flash_drill(
+            torch, tf, q, k, v, causal, window, cap, REAL_LAYER_TOL,
+            f"whisper-base {what}, B={q.shape[0]} Sq={q.shape[1]} "
+            f"Sk={k.shape[1]} H={q.shape[2]} D={q.shape[3]} "
+            f"causal={causal}"))
+    out["real_layer_max_abs_err"] = worst
+    real = tuple(t[:1].contiguous() for t in calls[0][:3]) + (0, 0.0)
+    del calls
+
+    timing = {"prefill": [], "decode": []}
+
+    def timed(kind, fn, *a, **kw):
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        timing[kind].append(time.perf_counter() - t)
+        return r
+
+    def run(rows, fed=None):
+        """Prefill ``rows`` and decode WHISPER_GEN steps, greedy, or fed
+        the tokens ``fed``; returns every step's logits and the tokens."""
+        batch = {"tokens": text[rows], "frames": frames[rows]}
+        logits, cache = timed("prefill", api.prefill, cfg, params, batch,
+                              target_seq=target)
+        seen, toks = [logits], []
+        for i in range(WHISPER_GEN):
+            tok = torch.argmax(logits, -1)[:, None] if fed is None \
+                else fed[:, i:i + 1]
+            toks.append(tok)
+            logits, cache = timed("decode", api.decode, cfg, params, cache,
+                                  tok, WHISPER_TEXT + i)
+            seen.append(logits)
+        return seen, torch.cat(toks, dim=1)
+
+    reset_launches()
+    rows = list(range(WHISPER_ROWS))
+    seen, gen = run(rows)
+    full, _ = timed("prefill", api.prefill, cfg, params, {
+        "tokens": torch.cat([text, gen], dim=1), "frames": frames},
+        target_seq=target)
+    if not bool(torch.isfinite(seen[-1]).all()) or seen[-1].shape != (
+            WHISPER_ROWS, cfg.vocab_size):
+        fail("whisper-base: last logits not finite or misshapen")
+    stepwise = float((seen[-1] - full).abs().max())
+    if not stepwise < STEPWISE_TOL:
+        fail(f"whisper-base: decode at position {target - 1} vs full "
+             f"forward: {stepwise} >= {STEPWISE_TOL}")
+    alone = 0.0
+    for r in rows:
+        mine, _ = run([r], fed=gen[r:r + 1])
+        alone = max(alone, max(float((a - b[r:r + 1]).abs().max())
+                               for a, b in zip(mine, seen)))
+    if not alone < STEPWISE_TOL:
+        fail(f"whisper-base: a row alone vs the batch: {alone} >= "
+             f"{STEPWISE_TOL}")
+    counts = dict(launches)
+    prefills = 2 + WHISPER_ROWS
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = prefill_launches(cfg) * prefills
+    print(f"serve-whisper-base: launches {counts} (expected {want}: "
+          f"{prefill_launches(cfg)} ({E} encoder, {cfg.num_layers} self, "
+          f"{cfg.num_layers} cross) x {prefills} prefills)")
+    if counts != want:
+        fail(f"serve-whisper-base: launches {counts}, the path needs {want}")
+    batch_decode = timing["decode"][:WHISPER_GEN]
+    out.update({
+        "tokens": gen.tolist(), "stepwise_max_abs_diff": stepwise,
+        "row_alone_max_abs_diff": alone, "launches": counts,
+        "prefill_s": timing["prefill"], "decode_step_s": timing["decode"],
+        "tokens_per_s_batch": WHISPER_ROWS * WHISPER_GEN / (
+            timing["prefill"][0] + sum(batch_decode)),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"serve-whisper-base: decode at positions {WHISPER_TEXT}-"
+          f"{target - 1} vs full forward max abs logit diff {stepwise:.3g},"
+          f" rows alone vs batch {alone:.3g} (< {STEPWISE_TOL}); prefill "
+          f"{WHISPER_ROWS} x ({cfg.encoder_seq} frames + {WHISPER_TEXT} "
+          f"tokens) {timing['prefill'][0]:.3f} s, 1 row "
+          f"{statistics.median(timing['prefill'][2:]):.3f} s; decode step "
+          f"median {statistics.median(batch_decode) * 1e3:.1f} ms at "
+          f"{WHISPER_ROWS} rows, "
+          f"{statistics.median(timing['decode'][WHISPER_GEN:]) * 1e3:.1f} "
+          f"at 1; {out['tokens_per_s_batch']:.1f} tokens/s; peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+    batch = {"tokens": text, "frames": frames}
+    out["profile_prefill"] = profile_device(
+        torch, f"one prefill, {WHISPER_ROWS} x ({cfg.encoder_seq} frames + "
+        f"{WHISPER_TEXT} tokens)",
+        lambda: api.prefill(cfg, params, batch, target_seq=target))
+    return out, real
+
+
 def small_lm_cpu_vs_card(torch, dev, arch):
     """Phase 6, language models: ``arch``'s smoke config on the CPU (the
     plain kernels) and on the card (the kernels), same weights: for each
     prompt the prefill and 6 decode steps, tokens equal and logits within
-    1e-4.  The VLM gets seeded patch embeddings; an MoE config keeps its
-    capacity factor, so tokens are dropped, and the card must drop the
-    (token, choice) pairs the CPU drops."""
+    1e-4.  The VLM gets seeded patch embeddings and encdec seeded frame
+    embeddings; an MoE config keeps its capacity factor, so tokens are
+    dropped, and the card must drop the (token, choice) pairs the CPU
+    drops."""
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import LAUNCHES
@@ -2353,6 +2834,9 @@ def small_lm_cpu_vs_card(torch, dev, arch):
             if cfg.family == "vlm":
                 batch["patches"] = 0.1 * torch.randn(
                     (2, cfg.num_patches, cfg.d_model), generator=gen)
+            if cfg.family == "encdec":
+                batch["frames"] = 0.1 * torch.randn(
+                    (2, cfg.encoder_seq, cfg.d_model), generator=gen)
             P = cfg.num_patches if cfg.family == "vlm" else 0
             runs = {}
             for name, params, d in (("cpu", host, "cpu"),
@@ -2377,10 +2861,10 @@ def small_lm_cpu_vs_card(torch, dev, arch):
     finally:
         L.moe_dispatch = dispatch
     n = LAUNCHES[kernel] - before
-    if diff > SMALL_SERVE_ATOL or n != 4 * cfg.num_layers:
+    if diff > SMALL_SERVE_ATOL or n != 4 * prefill_launches(cfg):
         fail(f"small {arch}: logits differ by {diff} (> "
              f"{SMALL_SERVE_ATOL}?) or {n} card {kernel} launches (needs "
-             f"{4 * cfg.num_layers})")
+             f"{4 * prefill_launches(cfg)})")
     dropped = sum(int((~k).sum()) for k in keeps["cpu"])
     if cfg.moe is not None:
         same = len(keeps["cpu"]) == len(keeps["card"]) and all(
@@ -2442,82 +2926,86 @@ def time_ssd(torch, ts, real):
     return [row]
 
 
+# phase 7's flash rows: the real layer's q, k, v (``real[kind]``), its
+# model, the softcap and causality timed on them
+FLASH_TIMED = [("global", "gemma2-2b", 50.0, True),
+               ("local", "gemma2-2b", 50.0, True),
+               ("global", "gemma2-2b", 0.0, True),
+               ("mixtral", "mixtral-8x22b", 0.0, True),
+               ("recurrentgemma", "recurrentgemma-9b", 0.0, True),
+               ("whisper", "whisper-base", 0.0, False)]
+
+
 def time_flash(torch, tf, real):
-    """Phase 7, flash attention at gemma2-2b's two prefill shapes, on the
-    real layers' q, k, v: S=4608, H=8, KV=4, D=256, causal, softcap 50,
-    global (window 0) and local (window 4096), beside compiled
-    ``flex_attention`` with the softcap as its ``score_mod``
-    (``flex_softcap_attention``); plus the global shape without the
-    softcap, and mixtral-8x22b's layer 0 (S=4096, H=48, KV=8, D=128,
-    window 4096, which does not bind at S=4096), where
-    ``scaled_dot_product_attention`` (causal) computes the same function
-    (k and v repeated to H heads outside the timed call).  Each
-    yardstick's max abs difference from the kernel is kept as
-    ``library_err``.  The function is 4 * D * H operations per visible (q, k) pair;
-    each input and output byte counts once over the memory rate.  Two
-    bounds, each named: ``bound_ms``, the 3xTF32 tensor-core bound (three
-    TF32 products per operation pair at 495 TFLOP/s: the least time the
-    card takes at this accuracy, since one TF32 product breaks the 1e-5
-    tolerance), and ``bound_fp32_ms``, the same operations at the fp32
-    CUDA-core rate (67 TFLOP/s)."""
+    """Phase 7, flash attention on real layers' q, k, v (``FLASH_TIMED``):
+    gemma2-2b's two prefill shapes (S=4608, H=8, KV=4, D=256, causal,
+    softcap 50, global and local window 4096) and the global one without
+    the softcap; mixtral-8x22b's layer 0 (S=4096, H=48, KV=8, D=128, window
+    4096, which does not bind at S=4096); recurrentgemma-9b's first local
+    layer (S=4096, 16 query heads over one KV head of 256, window 2048,
+    which binds); whisper-base's first encoder layer (S=1500, H=KV=8,
+    D=64, no causality).  The yardstick is one PyTorch call computing the
+    same function: compiled ``flex_attention`` (``flex_attention_call``)
+    where a softcap or a binding window needs it, else
+    ``scaled_dot_product_attention`` (causal or not; k and v repeated to H
+    heads outside the timed call).  Each yardstick's max abs difference
+    from the kernel is kept as ``library_err``.  The function is 4 * D * H
+    operations per visible (q, k) pair; each input and output byte counts
+    once over the memory rate.  Two bounds, each named: ``bound_ms``, the
+    3xTF32 tensor-core bound (three TF32 products per operation pair at 495
+    TFLOP/s: the least time the card takes at this accuracy, since one TF32
+    product breaks the 1e-5 tolerance), and ``bound_fp32_ms``, the same
+    operations at the fp32 CUDA-core rate (67 TFLOP/s)."""
     F = torch.nn.functional
     rows = []
-    for kind, cap in (("global", 50.0), ("local", 50.0), ("global", 0.0),
-                      ("mixtral", 0.0)):
+    for kind, model, cap, causal in FLASH_TIMED:
         q, k, v, window, _ = real[kind]
         B, S, H, D = q.shape
-        KV = k.shape[2]
-        if cap == 0.0 and 0 < window < S:
-            fail(f"flash timing {kind}: window {window} binds at S={S}; "
-                 f"causal SDPA computes another function")
-        pairs = int(tf.visible_mask(S, k.shape[1], True, window,
-                                    q.device).sum())
+        Sk, KV = k.shape[1], k.shape[2]
+        pairs = int(tf.visible_mask(S, Sk, causal, window, q.device).sum())
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        library, library_err = None, None
-        if cap > 0.0:
-            library = flex_softcap_attention(torch, q, k, v, window, cap)
-            mine = tf.flash_attention(q, k, v, True, window, cap)
-            library_err = float((library().transpose(1, 2) - mine)
-                                .abs().max())
-            print(f"flash vs flex_attention (window {window}, softcap "
-                  f"{cap}): max abs diff {library_err:.3g}")
+        mine = tf.flash_attention(q, k, v, causal, window, cap)
+        if cap > 0.0 or 0 < window < Sk:
+            if not causal:
+                fail(f"flash timing {kind}: flex_attention_call is causal")
+            library = flex_attention_call(torch, q, k, v, window, cap)
+            what = "flex_attention"
         else:
             qh = q.transpose(1, 2)
             kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
             vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
-            sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-            mine = tf.flash_attention(q, k, v, True, window, cap)
-            library_err = float((sdpa.transpose(1, 2) - mine).abs().max())
-            print(f"flash vs scaled_dot_product_attention (softcap 0): max "
-                  f"abs diff {library_err:.3g}")
 
             def library():
                 return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      is_causal=True)
+                                                      is_causal=causal)
+            what = "scaled_dot_product_attention"
+        library_err = float((library().transpose(1, 2) - mine).abs().max())
+        print(f"flash vs {what} ({model}, window {window}, softcap {cap}, "
+              f"causal {causal}): max abs diff {library_err:.3g}")
         ops = 4 * D * H * pairs
         row = _timing_row(
             "flash_attention", [B, S, H, KV, D],
-            lambda: tf.flash_attention(q, k, v, True, window, cap),
-            lambda: tf.attention_plain(q, k, v, True, window, cap), library,
-            nbytes, 3 * ops, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
-        row.update({"model": "mixtral-8x22b" if kind == "mixtral"
-                    else "gemma2-2b", "window": window, "softcap": cap,
-                    "pairs": pairs,
-                    "gflop": ops / 1e9, "library_err": library_err,
+            lambda: tf.flash_attention(q, k, v, causal, window, cap),
+            lambda: tf.attention_plain(q, k, v, causal, window, cap),
+            library, nbytes, 3 * ops, reps=7, inner=5,
+            ops_per_s=TF32_OPS_PER_S)
+        row.update({"model": model, "window": window, "softcap": cap,
+                    "causal": causal, "pairs": pairs, "gflop": ops / 1e9,
+                    "library": what, "library_err": library_err,
                     "bound_fp32_ms": bound_ms(nbytes, ops)[0]})
         rows.append(row)
     return rows
 
 
-def flex_softcap_attention(torch, q, k, v, window, cap):
-    """One PyTorch call computing the flash kernel's function with gemma2's
-    softcap: ``flex_attention`` (compiled by inductor, as its documentation
-    asks) with ``score_mod`` = cap * tanh(s / cap) on the scaled scores, the
-    causal and window mask as a block mask (blocks no row sees are
-    skipped), GQA by ``enable_gqa`` and the kernel's scale 1 / sqrt(D), on
-    (B, H, S, D) views of q, k, v.  With TF32 off its products are full
-    fp32.  The block mask is built outside the timed call.  Returns the
-    call; its output is (B, H, S, D)."""
+def flex_attention_call(torch, q, k, v, window, cap):
+    """One PyTorch call computing the flash kernel's causal function:
+    ``flex_attention`` (compiled by inductor, as its documentation asks)
+    with the causal and window mask as a block mask (blocks no row sees are
+    skipped), gemma2's softcap ``cap * tanh(s / cap)`` on the scaled scores
+    as its ``score_mod`` where ``cap > 0``, GQA by ``enable_gqa`` and the
+    kernel's scale 1 / sqrt(D), on (B, H, S, D) views of q, k, v.  With
+    TF32 off its products are full fp32.  The block mask is built outside
+    the timed call.  Returns the call; its output is (B, H, S, D)."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     S, Sk, D = q.shape[1], k.shape[1], q.shape[3]
@@ -2534,7 +3022,8 @@ def flex_softcap_attention(torch, q, k, v, window, cap):
     flex = torch.compile(flex_attention, dynamic=False)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     scale = 1.0 / math.sqrt(D)
-    return lambda: flex(qh, kh, vh, score_mod=softcap, block_mask=mask,
+    score_mod = softcap if cap > 0 else None
+    return lambda: flex(qh, kh, vh, score_mod=score_mod, block_mask=mask,
                         scale=scale, enable_gqa=True)
 
 
@@ -2755,6 +3244,19 @@ def main() -> None:
                                        moe_serving["real_layer_max_abs_err"])
         record["main_path"]["serve-internvl2-2b"] = internvl2_main_path(
             torch, dev, LAUNCHES, reset_launches)
+
+        phase("5d. serving main path: recurrentgemma-9b (hybrid, full width "
+              "and depth) and whisper-base (encoder-decoder, full width and "
+              "depth)")
+        hybrid_serving, real["recurrentgemma"] = hybrid_main_path(
+            torch, tf, dev, LAUNCHES, reset_launches)
+        record["main_path"]["serve-recurrentgemma-9b"] = hybrid_serving
+        whisper_serving, real["whisper"] = whisper_main_path(
+            torch, tf, dev, LAUNCHES, reset_launches)
+        record["main_path"]["serve-whisper-base"] = whisper_serving
+        worst["flash_attention"] = max(
+            worst["flash_attention"], hybrid_serving["real_layer_max_abs_err"],
+            whisper_serving["real_layer_max_abs_err"])
         free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
@@ -2767,6 +3269,9 @@ def main() -> None:
         record["small_moe_vlm"] = {
             arch: small_lm_cpu_vs_card(torch, dev, arch)
             for arch in ("mixtral-8x22b", "arctic-480b", "internvl2-2b")}
+        record["small_hybrid_encdec"] = {
+            arch: small_lm_cpu_vs_card(torch, dev, arch)
+            for arch in ("recurrentgemma-9b", "whisper-base")}
 
         phase("7. kernel times")
         kernels, rows = time_kernels(

@@ -12,10 +12,15 @@ weights, and arctic's ``"dense"`` FFN, where a dense one holds ``"ffn"``;
 the VLM adds ``"patch_proj"``) and mamba2's ``{"embed", "layers": {"ln",
 "in_proj", "conv_w", ...}, "final_norm", "unembed"}``.  The same two
 functions carry the decode caches (``{"k", "v"}`` and ``{"conv",
-"state"}``).  ``tests/test_torch_transformer.py``,
-``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py`` and
-``tests/test_torch_ssm.py`` check the round trip (reference -> port ->
-numpy) bit for bit.
+"state"}``).  The hybrid (recurrentgemma) holds lists: ``{"layers":
+{"slots": [one stacked dict per pattern slot]}, "rem": [one dict per
+remainder layer]}``, and its caches a tuple ``"slots"`` and a list
+``"rem"``; encdec (whisper) adds ``"enc_layers"``, ``"enc_norm"`` and a
+``"cross"`` block per decoder layer, and its caches ``"xk"``/``"xv"``.
+``tests/test_torch_transformer.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_vlm.py``, ``tests/test_torch_ssm.py``,
+``tests/test_torch_hybrid.py`` and ``tests/test_torch_encdec.py`` check
+the round trip (reference -> port -> numpy) bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,20 +65,16 @@ def agent_params_from_numpy(params: Dict[str, Dict[str, np.ndarray]],
             for net, p in params.items()}
 
 
-def lm_params_from_numpy(params: Dict, device=None) -> Dict:
-    """Reference language-model params or caches (nested dicts of arrays,
-    layers stacked) -> port tensors on ``device`` (``None``: the card,
-    raising if none is visible)."""
+def lm_params_from_numpy(params, device=None):
+    """Reference language-model params or caches (nested dicts, lists and
+    tuples of arrays, layers stacked) -> port tensors on ``device``
+    (``None``: the card, raising if none is visible), each container kept
+    as its own type."""
     device = resolve_device(device)
-
-    def conv(t):
-        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) \
-            else _tensor(t, device)
-    return conv(params)
+    return tree_map(lambda a: _tensor(a, device), params)
 
 
-def lm_params_to_numpy(params: Dict) -> Dict:
-    """Port language-model params or caches -> nested dicts of numpy arrays
-    (the reference's layout)."""
-    return {k: lm_params_to_numpy(v) if isinstance(v, dict)
-            else v.detach().cpu().numpy() for k, v in params.items()}
+def lm_params_to_numpy(params):
+    """Port language-model params or caches -> the same nesting of numpy
+    arrays (the reference's layout)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

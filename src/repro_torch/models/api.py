@@ -1,14 +1,15 @@
 """Model API by family (counterpart of ``repro/models/api.py``).
 
     params = init(cfg, seed, dtype, device)
-    logits, cache = prefill(cfg, params, {"tokens": tokens}, target_seq)
+    logits, cache = prefill(cfg, params, batch, target_seq)
     logits, cache = decode(cfg, params, cache, token, pos)
 
-``batch`` holds ``tokens`` (and ``patches`` for the VLM, the frontend
-stub).  Four families are ported: ``dense``, ``moe`` and ``vlm`` (module
-``transformer``) and ``ssm`` (mamba2, module ``ssm``); ``hybrid`` and
-``encdec`` raise ``NotImplementedError`` naming their ROADMAP item, as does
-``loss`` (LM training).
+``batch`` holds ``tokens``, plus the frontend stubs: ``patches`` for the
+VLM and ``frames`` for encdec.  All six LM families are ported: ``dense``,
+``moe`` and ``vlm`` (module ``transformer``), ``ssm`` (mamba2, module
+``ssm``), ``hybrid`` (recurrentgemma, module ``hybrid``) and ``encdec``
+(whisper, module ``encdec``).  ``loss`` (LM training) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,19 +20,18 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 _FAMILIES: Dict[str, ModuleType] = {"dense": transformer, "moe": transformer,
-                                    "vlm": transformer, "ssm": ssm}
-_KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+                                    "vlm": transformer, "ssm": ssm,
+                                    "hybrid": hybrid, "encdec": encdec}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:
-    if cfg.family in _FAMILIES:
+    try:
         return _FAMILIES[cfg.family]
-    if cfg.family in _KNOWN:
-        raise not_ported(f"the {cfg.family} model family", "LM families")
-    raise KeyError(f"unknown family {cfg.family!r}")
+    except KeyError:
+        raise KeyError(f"unknown family {cfg.family!r}") from None
 
 
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None):
@@ -43,8 +43,10 @@ def loss(cfg: ModelConfig, params, batch):
 
 
 def prefill(cfg: ModelConfig, params, batch, target_seq=None):
-    return get_model(cfg).prefill(cfg, params, batch["tokens"],
-                                  batch.get("patches"), target_seq=target_seq)
+    extra = batch.get("frames") if cfg.family == "encdec" \
+        else batch.get("patches")
+    return get_model(cfg).prefill(cfg, params, batch["tokens"], extra,
+                                  target_seq=target_seq)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype,

@@ -15,9 +15,11 @@ differs from JAX's, the reference's choice is written out:
   probabilities are cast to q's dtype before the product with v.
 
 The prefill branch of ``attention_block`` goes through the flash-attention
-kernel (``kernels.flash_attention``); decode (one query row against the
-rolling cache, per-row positions) stays plain PyTorch, as the reference
-computes it outside any Pallas kernel.  So does the MoE block: the
+kernel (``kernels.flash_attention``), and so do the encdec family's
+bidirectional encoder and cross-attention (``qkv_projection``, then the
+kernel without causality); decode (one query row against the rolling
+cache, per-row positions) stays plain PyTorch, as the reference computes
+it outside any Pallas kernel.  So does the MoE block: the
 reference's dispatch is one-hot, cumsum, scatter and a batched einsum, and
 its decode path a ``lax.ragged_dot``, none of them a Pallas kernel; here
 they are ``torch.bmm`` and one ``torch.matmul`` per expert group.  The
@@ -101,6 +103,11 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softplus is logaddexp(x, 0)
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                           causal: bool, window: int) -> torch.Tensor:
     """Boolean (Sq, Sk) mask; ``window > 0`` keeps k in (q - window, q],
@@ -145,6 +152,23 @@ def init_attention(gen, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
+def qkv_projection(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q ``(B, S, H, D)`` and k, v ``(B, S, KV, D)`` of ``x`` (B, S, d),
+    q and k normed (qwen3) and rotated at ``positions``, (S,) or (B, S)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    pos_b = positions if positions.dim() == 2 else positions[None, :]
+    return (apply_rope(q, pos_b, cfg.rope_theta),
+            apply_rope(k, pos_b, cfg.rope_theta), v)
+
+
 def attention_block(
     cfg: ModelConfig,
     p: Params,
@@ -169,15 +193,7 @@ def attention_block(
     ``decode_pos`` gives each batch row its own position and slot.
     """
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    pos_b = positions if positions.dim() == 2 else positions[None, :]
-    q = apply_rope(q, pos_b, cfg.rope_theta)
-    k = apply_rope(k, pos_b, cfg.rope_theta)
+    q, k, v = qkv_projection(cfg, p, x, positions)
 
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=True, window=int(window),
@@ -215,6 +231,19 @@ def attention_block(
         new_cache = {"k": ck, "v": cv}
     y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
     return y, new_cache
+
+
+# =============================================================================
+# short causal convolution
+# =============================================================================
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """Depthwise causal conv over ``x`` (B, S, C) with kernel ``w`` (W, C)
+    and bias ``b`` (C,): mamba2's and the RG-LRU's short conv."""
+    W, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + S] * w[i][None, None, :] for i in range(W))
+    return out + b[None, None, :]
 
 
 # =============================================================================

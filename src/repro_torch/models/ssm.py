@@ -110,26 +110,12 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # =============================================================================
 # block
 # =============================================================================
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.softplus is logaddexp(x, 0)
-    return torch.logaddexp(x, x.new_zeros(()))
-
-
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     d_inner, nheads, conv_dim, _, N = dims(cfg)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:d_inner + conv_dim]
     dt = proj[..., d_inner + conv_dim:]
     return z, xbc, dt
-
-
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Depthwise causal conv over (B, S, C) with kernel (W, C)."""
-    W, S = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
-    out = sum(pad[:, i:i + S] * w[i][None, None, :] for i in range(W))
-    return out + b[None, None, :]
 
 
 def block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -146,11 +132,11 @@ def block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     h = L.rms_norm(x, p["ln"])
     proj = h @ p["in_proj"]
     z, xbc_raw, dt = _split_proj(cfg, proj)
-    dt = _softplus(dt.float() + p["dt_bias"])
+    dt = L.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     if conv_state is None:
-        xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+        xbc = F.silu(L.causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
         new_conv = xbc_raw[:, S - (cfg.ssm.conv_width - 1):, :]
     else:
         window = torch.cat([conv_state, xbc_raw], dim=1)      # (B, W, C)

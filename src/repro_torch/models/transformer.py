@@ -59,15 +59,15 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
 
 
 def stacked_layers(cfg: ModelConfig, gen: torch.Generator, dtype,
-                   init_one=init_layer) -> Params:
-    """``init_one`` for each layer in turn, copied into stacked buffers as
-    it is drawn, so the peak is the stack plus one layer (a full-width
-    mixtral layer is 10 GB in fp32; stacking a list would double the
-    whole)."""
+                   init_one=init_layer, n: Optional[int] = None) -> Params:
+    """``init_one`` for each of ``n`` layers (``cfg.num_layers`` unless
+    given) in turn, copied into stacked buffers as it is drawn, so the peak
+    is the stack plus one layer (a full-width mixtral layer is 10 GB in
+    fp32; stacking a list would double the whole)."""
 
     def alloc(t):
         return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t.new_empty((cfg.num_layers,) + tuple(t.shape))
+            else t.new_empty((n,) + tuple(t.shape))
 
     def put(dst, src, i):
         for k, v in src.items():
@@ -76,8 +76,9 @@ def stacked_layers(cfg: ModelConfig, gen: torch.Generator, dtype,
             else:
                 dst[k][i].copy_(v)
 
+    n = cfg.num_layers if n is None else n
     stacked = None
-    for i in range(cfg.num_layers):
+    for i in range(n):
         lp = init_one(cfg, gen, dtype)
         if stacked is None:
             stacked = alloc(lp)
@@ -198,20 +199,27 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = embed_inputs(cfg, params, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    CL = cache_len(cfg, cache_seq or S) if return_cache else 0
     cache = None
     if return_cache:
-        shape = (cfg.num_layers, B, CL, cfg.num_kv_heads, cfg.head_dim)
-        cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
-        take = min(S, CL)
-        idx = torch.arange(S - take, S, device=x.device) % CL
+        cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device)
     for i, window in enumerate(window_schedule(cfg)):
         x, kv = _block(cfg, layer_params(params, i), x, positions, window)
         if return_cache:
-            cache["k"][i][:, idx] = kv["k"][:, S - take:]
-            cache["v"][i][:, idx] = kv["v"][:, S - take:]
+            write_prefill_kv(cache["k"][i], cache["v"][i], kv)
     return L.rms_norm(x, params["final_norm"]), cache
+
+
+def write_prefill_kv(ck: torch.Tensor, cv: torch.Tensor, kv: Params
+                     ) -> None:
+    """A prefill's rotated ``kv["k"]``, ``kv["v"]`` (B, S, KV, D) into one
+    layer's cache buffers ``ck``, ``cv`` (B, CL, KV, D): the last
+    ``min(S, CL)`` positions, position ``p`` at slot ``p % CL`` (a rolling
+    buffer when S > CL); other slots keep what they hold."""
+    S, CL = kv["k"].shape[1], ck.shape[1]
+    take = min(S, CL)
+    idx = torch.arange(S - take, S, device=ck.device) % CL
+    ck[:, idx] = kv["k"][:, S - take:]
+    cv[:, idx] = kv["v"][:, S - take:]
 
 
 def lm_logits(cfg: ModelConfig, params: Params, h: torch.Tensor

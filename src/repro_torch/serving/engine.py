@@ -16,9 +16,10 @@
   params lie and has their dtype.
 
 Greedy (argmax) sampling over the stacked-transformer families ``dense``
-and ``moe``: like the reference, the engine refuses the ``ssm`` family (its
-recurrent cache has no per-slot decode adapter), which ``reference_decode``
-serves, and the ``vlm`` family (its prefill needs patches).  An MoE
+and ``moe``: like the reference, the engine refuses the ``ssm`` and
+``hybrid`` families (their recurrent caches have no per-slot decode
+adapter), which ``reference_decode`` serves, and the ``vlm`` and
+``encdec`` families (their prefills need patches or frames).  An MoE
 prefill drops tokens past each expert's capacity, which counts the pad
 lanes of the right-padded prompt: the engine matches the unpadded oracle
 only where no token is dropped (the reference's tests raise the capacity
@@ -195,8 +196,10 @@ class ServeEngine:
 def reference_decode(cfg: ModelConfig, params: Params, prompt: np.ndarray,
                      gen: int, *, return_margins: bool = False):
     """Greedy decode of ONE request, unpadded and unbatched: prefill, then
-    scalar-position decode steps, for any ported family (the only way the
-    ``ssm`` family is served).  The continuous-batching engine must match
+    scalar-position decode steps, for every family but encdec (the only
+    way the ``ssm`` and ``hybrid`` families are served).  Like the
+    reference's, it passes no frames, so an encdec config raises the
+    prefill's ``ValueError``.  The continuous-batching engine must match
     it token for token.  With ``return_margins`` also returns, for each
     token, the gap between the top two logits it was chosen from (a token
     chosen under a near-tie may flip under another summation order)."""

@@ -85,6 +85,33 @@ def test_plain_matches_model_prefill_attention(S, H, KV, D, window, cap):
                                rtol=1e-5)
 
 
+# the shapes the hybrid and encdec families send the kernel: whisper-base's
+# encoder (bidirectional over its 1500 frames at D = 64; 1500 is not a
+# multiple of the kernel's 32-key tile) and its cross-attention (a short
+# prompt over the 1500 frames), and recurrentgemma-9b's local layer (16
+# query heads over one KV head of 256, a window shorter than the sequence)
+FAMILY_CASES = [
+    (1, 1500, 1500, 8, 8, 64, False, 0, 0.0, jnp.float32),
+    (2, 12, 1500, 8, 8, 64, False, 0, 0.0, jnp.float32),
+    (1, 300, 300, 16, 1, 256, True, 128, 0.0, jnp.float32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype",
+                         FAMILY_CASES)
+def test_family_shapes_match_reference(B, Sq, Sk, H, KV, D, causal, window,
+                                       cap, dtype):
+    """The plain path at the hybrid and encdec shapes against the
+    reference's oracle, within 1e-5."""
+    q, k, v = _qkv(B, Sq, Sk, H, KV, D, seed=Sk + H + D)
+    want = attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                         causal=causal, window=window, softcap=cap)
+    got = tf.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             causal=causal, window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_rows_that_see_no_key_are_zero():
     """Sq > Sk under a causal window: the last rows see no key and come out
     0 (``ref.attention_ref``'s rule, which the kernel keeps)."""
@@ -155,11 +182,12 @@ def _attention_tf32(q, k, v, causal, window, cap, split=True):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
-# the kernel's sweep: the reference's cases and gemma2-2b's head shape
-# (D = 256, GQA 8 over 4) with its softcap, global and with a window
+# the kernel's sweep: the reference's cases, gemma2-2b's head shape (D =
+# 256, GQA 8 over 4) with its softcap, global and with a window, and the
+# hybrid and encdec shapes
 TF32_CASES = FLASH_CASES + [
     (1, 600, 600, 8, 4, 256, True, 0, 50.0, jnp.float32),
-    (1, 600, 600, 8, 4, 256, True, 256, 50.0, jnp.float32)]
+    (1, 600, 600, 8, 4, 256, True, 256, 50.0, jnp.float32)] + FAMILY_CASES
 
 
 def _tf32_error(B, Sq, Sk, H, KV, D, causal, window, cap, dtype, split):
@@ -217,7 +245,7 @@ def cuda_device():
                              (1, 300, 300, 8, 4, 256, True, 0, 50.0,
                               jnp.bfloat16),
                              (1, 50, 50, 2, 1, 13, True, 0, 0.0,
-                              jnp.float32)])
+                              jnp.float32)] + FAMILY_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV, D,
                                       causal, window, cap, dtype):
     tdt = _TORCH_DTYPE[dtype]

@@ -107,6 +107,43 @@ ENTRY_POINTS = {
 }
 
 
+# the hybrid and encdec families' serving entry points, each run in a fresh
+# interpreter in which importing JAX fails
+LM_ENTRY_POINTS = {
+    "hybrid api.prefill+decode (recurrentgemma-9b smoke)": (
+        "import torch\n"
+        "from repro_torch.configs import recurrentgemma_9b\n"
+        "from repro_torch.models import api\n"
+        "cfg = recurrentgemma_9b.smoke_config()\n"
+        "p = api.init(cfg, device='cpu')\n"
+        "t = torch.zeros((1, 40), dtype=torch.long)\n"
+        "logits, c = api.prefill(cfg, p, {'tokens': t}, target_seq=42)\n"
+        "logits, c = api.decode(cfg, p, c, t[:, :1], 40)\n"
+        "assert logits.shape == (1, 256) and torch.isfinite(logits).all()\n"),
+    "encdec api.prefill+decode (whisper-base smoke)": (
+        "import torch\n"
+        "from repro_torch.configs import whisper_base\n"
+        "from repro_torch.models import api\n"
+        "cfg = whisper_base.smoke_config()\n"
+        "p = api.init(cfg, device='cpu')\n"
+        "t = torch.zeros((1, 5), dtype=torch.long)\n"
+        "f = torch.zeros((1, cfg.encoder_seq, cfg.d_model))\n"
+        "logits, c = api.prefill(cfg, p, {'tokens': t, 'frames': f},\n"
+        "                        target_seq=8)\n"
+        "logits, c = api.decode(cfg, p, c, t[:, :1], 5)\n"
+        "assert logits.shape == (1, 256) and torch.isfinite(logits).all()\n"),
+}
+
+
+@pytest.mark.parametrize("name", list(LM_ENTRY_POINTS))
+def test_lm_entry_points_run_without_jax(name):
+    out = subprocess.run([sys.executable, "-c",
+                          NO_JAX + LM_ENTRY_POINTS[name]],
+                         capture_output=True, text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 # the fault-tolerance and async drivers, run as a user runs them
 DRIVERS = ["repro_torch.launch.async_federated",
            "repro_torch.launch.fault_tolerance_drill"]
@@ -142,5 +179,6 @@ def test_the_new_training_modules_are_in_the_import_check():
                  "repro_torch.fl.state", "repro_torch.fl.cohort",
                  "repro_torch.fl.async_loop", "repro_torch.runtime.chaos",
                  "repro_torch.runtime.elastic", "repro_torch.fl.hetero",
-                 "repro_torch.fl.hierarchy", *DRIVERS):
+                 "repro_torch.fl.hierarchy", "repro_torch.models.hybrid",
+                 "repro_torch.models.encdec", *DRIVERS):
         assert name in _module_names()

@@ -162,18 +162,21 @@ def test_configs_equal_reference(name, cfg):
 
 
 def test_unported_families_raise():
-    """hybrid (recurrentgemma-9b) and encdec (whisper-base) still raise
-    "LM families" through ``api.init`` and ``api.get_model``, and so does
-    the transformer for them; the loss raises "LM training"."""
+    """hybrid (recurrentgemma-9b) and encdec (whisper-base) are served by
+    their own modules now, which ``api.get_model`` returns; the
+    transformer still refuses them ("LM families"), and the loss of every
+    family raises "LM training"."""
     from repro_torch.configs import recurrentgemma_9b, whisper_base
-    for cfg in (recurrentgemma_9b.smoke_config(),
-                whisper_base.smoke_config()):
-        with pytest.raises(NotImplementedError, match="LM families"):
-            tapi.init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="LM families"):
-            tapi.get_model(cfg)
+    from repro_torch.models import encdec, hybrid
+    for cfg, module in ((recurrentgemma_9b.smoke_config(), hybrid),
+                        (whisper_base.smoke_config(), encdec)):
+        assert tapi.get_model(cfg) is module
         with pytest.raises(NotImplementedError, match="LM families"):
             TT.init(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="LM families"):
+            TT.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="LM training"):
+            tapi.loss(cfg, None, None)
     with pytest.raises(NotImplementedError, match="LM training"):
         tapi.loss(qwen3_0_6b.smoke_config(), None, None)
 
