@@ -37,7 +37,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    S < chunk, a chunk of 40, P over two slices, an odd P over 64), on y
    and the final state
    within 5e-4, the reference's own tolerances, and within 1e-5 of the
-   largest plain value.
+   largest plain value.  The flash backward (two fp32 kernels: dq, then
+   dk/dv) and the forward's row log-sum-exp against their plain versions
+   (``attention_bwd_plain``, the plain logsumexp) over the sweep's fp32
+   cases (its head dim 13 and its rows that see no key, which must get dq
+   exactly 0 and lse +inf) and qwen3-0.6b's (16 over 8 heads of 128, S =
+   2048), gemma2-2b's (D = 256, softcap 50, global and window 4096 at S =
+   1024), mixtral's (48 over 8 of 128, window 256), recurrentgemma-9b's
+   (MQA of 256, window 2048 at S = 2100) shapes and inputs 4 bytes off a
+   16-byte boundary: dq, dk, dv each within 1e-5 x max(1, max|want|).
 4. the federated main path: ``run_federated`` on VGG-5 at full width
    (582,346 params, random weights from a seed), K=5 clients on the
    paper's 5-device testbed, 1000 samples each, batch 100, 10 local
@@ -175,6 +183,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of decoder layers 0 and 5 (the prompt over the 1500 frames) within
    1e-5; flash 18 times per prefill (6 encoder, 6 self, 6 cross; 6
    prefills), the other kernels never.
+5e. LM training: qwen3-0.6b at full width and depth (28 layers, d_model
+   1024, 16 query heads over 8 KV heads of 128 with qk-norm, tied vocab
+   151936; fp32 weights drawn on the card from a seed, after the earlier
+   phases' models are freed).  The flash backward against its plain
+   version on the q, k, v and dO of layers 0 and 27 of a real 4096-token
+   step (1e-5 x max(1, max|want|)); one local step (``loss_through_cut``
+   at OP 14 with the int8 cut, 1024 tokens, then ``torch.autograd.grad``)
+   on the card against the host CPU from the same params and batch: the
+   loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+   largest CPU entry and nonzero on the card, the step's launches exact;
+   ``loss_through_cut`` at OPs 0, 14 and 28 equal to ``api.loss`` within
+   1e-5 relative; the LM driver (``repro_torch.launch.train``, fedadapt,
+   3 clients, 2 rounds of 2 local steps of 4096 tokens, the int8 cut,
+   AdamW with cosine) whose OPs and modelled round times must equal a CPU
+   replay of its control plane (``replay_control``), its losses finite and
+   its launches exactly what its OPs need (flash forward twice per layer
+   and step: the forward and its remat recompute; each backward kernel
+   once per layer and step; the int8 pair once per step below the native
+   OP; top-k and the SSD scan never).  Printed: seconds per local step,
+   tokens/s, peak memory, one step's loss and gradient under
+   ``torch.profiler``.  Last, mamba2-780m's smoke config on the card must
+   refuse a gradient (``NotImplementedError`` naming the SSD scan's
+   backward kernel) and give a finite loss without one.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -185,7 +216,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    arctic-480b (at their capacity factor 1.25: the card must drop the
    (token, choice) pairs the CPU drops), internvl2-2b (seeded patches),
    recurrentgemma-9b and whisper-base (seeded frames) through prefill and
-   decode (tokens equal, logits within 1e-4).
+   decode (tokens equal, logits within 1e-4); the training loss and its
+   gradient of the gemma2, qwen3, mixtral (capacity factor 1.25),
+   internvl2, recurrentgemma and whisper smoke configs (the loss within
+   1e-5 relative, every leaf within 1e-4 of its max); the lm16m driver
+   for 2 rounds from the same initial params and agent noise (OPs and
+   times exact, each round's loss within 1e-5 relative).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
    beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
@@ -199,7 +235,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    softcap, mixtral's layer 0 (D = 128, GQA 6) and whisper-base's encoder
    layer (D = 64, no causality): yardsticks the port never calls; no
    PyTorch call computes
-   the SSD scan), then print the kernels' JSON line and the result line.
+   the SSD scan); the flash backward's two kernels and the whole backward
+   at qwen3-0.6b's layer 0 (S = 4096, a real step's dO) and gemma2-2b's
+   global layer (softcap 50), beside the same two bounds, the plain
+   backward and the backward of SDPA (k and v repeated) or of compiled
+   ``flex_attention`` (the softcap); then print the kernels' JSON line and
+   the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -306,6 +347,25 @@ FLASH_CASES = [
     (1, 600, 600, 16, 1, 256, True, 256, 0.0, "float32"),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# phase 3's flash-attention backward drills: the sweep's fp32 cases (a
+# gradient is fp32 only; the sweep holds the head dim 13 and, at
+# (1, 200, 72, ...) with window 16, rows 87-199 that see no key) and the
+# models' layer shapes: qwen3-0.6b (16 query heads over 8 KV heads of
+# 128), gemma2-2b (D = 256, softcap 50, global and window 4096), mixtral
+# (48 over 8 of 128, window 256), recurrentgemma-9b (MQA of 256, window
+# 2048, which binds at 2100); whisper's 1500 x 1500 is in the sweep
+FLASH_BWD_CASES = [c for c in FLASH_CASES if c[-1] == "float32"] + [
+    (1, 2048, 2048, 16, 8, 128, True, 0, 0.0, "float32"),
+    (1, 1024, 1024, 8, 4, 256, True, 0, 50.0, "float32"),
+    (1, 1024, 1024, 8, 4, 256, True, 4096, 50.0, "float32"),
+    (1, 512, 512, 48, 8, 128, True, 256, 0.0, "float32"),
+    (1, 2100, 2100, 16, 1, 256, True, 2048, 0.0, "float32"),
+]
+# dq, dk, dv (and the forward's lse) within FLASH_BWD_REL * max(1,
+# max|want|): kernel and plain version both sum in fp32 (the kernel with
+# fmaf on the CUDA cores, the plain version through cuBLAS), in other
+# orders, over D and over up to 2100 keys or rows (times the GQA group)
+FLASH_BWD_REL = 1e-5
 # gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
 # plain version both sum in fp32 (over D=256 and up to 4608 keys), the
 # layers' v are O(1) (unit-variance h times N(0, 1/d) weights) and the
@@ -404,6 +464,35 @@ HYBRID_ROWS, HYBRID_ROW_PROMPT = 3, 4096
 # 1500 seeded frame embeddings N(0, 0.1^2) and 96-token prompts, 32 greedy
 # decode steps
 WHISPER_ROWS, WHISPER_TEXT, WHISPER_GEN = 4, 96, 32
+# phase 5e, LM training: qwen3-0.6b at full width and depth (28 layers,
+# d_model 1024, 16 query heads over 8 KV heads of 128 with qk-norm, tied
+# embeddings of vocab 151936; 595,984,384 fp32 params drawn on the card).
+# The real-layer drill's step is train_4k's length; the card-vs-CPU local
+# step is at OP 14 with the int8 cut, batch 1, 1024 tokens; split equals
+# native at OPs 0, 14 and 28; the driver runs fedadapt with 3 clients, 2
+# rounds of 2 local steps of 4096 tokens, the int8 cut, AdamW with cosine
+QWEN3_DRILL_SEQ = 4096
+QWEN3_STEP_OP, QWEN3_STEP_SEQ = 14, 1024
+QWEN3_SPLIT_OPS = (0, 14, 28)
+QWEN3_DRIVER = ["--mode", "fedadapt", "--clients", "3", "--rounds", "2",
+                "--local-steps", "2", "--batch", "1", "--seq", "4096",
+                "--quantize-transfer"]
+# a local step on the card against the host CPU from the same params and
+# batch: the loss within 1e-5 relative, every gradient leaf within 1e-4 of
+# its largest CPU entry: fp32 sums over 1024 tokens and 28 layers run in
+# other orders on the two devices (cuBLAS and the kernels against MKL and
+# the plain versions; 6.2e-6 measured without the cut, PERF.md).  At the
+# int8 cut the CPU takes the card's codes (its own activations, the card's
+# quantized values, the straight-through gradient): each device rounds
+# values that the two place within an ulp of a code boundary to
+# neighbouring codes (76 of 1,048,576 at OP 14), a discrete step of
+# absmax / 127 in one element that moves every later value.  Each device
+# quantizing its own cut is printed too and held to the discrete-step
+# bound the repo's int8 comparisons take (1e-3, ROADMAP queue 3).  Phase
+# 6's smoke configs and the lm16m driver take TRAIN_LOSS_REL and
+# TRAIN_GRAD_REL.
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+CUT_FLIP_REL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -658,7 +747,8 @@ def expected_launches(h, fl, native_op, n_leaves):
     per_row = n_leaves if fl.server_step == "reference" else 1
     return {"quantize": quant, "dequantize": quant,
             "topk_compress": rows * per_row if fl.delta_density < 1 else 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0}
 
 
 def expected_async_launches(h, fl, native_op, K, resumed=False):
@@ -684,7 +774,8 @@ def expected_async_launches(h, fl, native_op, K, resumed=False):
     quant = cut + (rows if fl.quantize_deltas else 0)
     return {"quantize": quant, "dequantize": quant,
             "topk_compress": rows if fl.delta_density < 1 else 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0}
 
 
 def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
@@ -1380,6 +1471,9 @@ def profile_device(torch, what, run, wall_of=None):
     stats.sort(key=lambda r: -r[1])
     ours = {name: sum(t for k, t, _ in stats if mark in k) / 1e3
             for name, mark in (("flash_attention", "flash_fwd"),
+                               ("flash_attention_bwd_dq", "flash_bwd_dq"),
+                               ("flash_attention_bwd_dkdv",
+                                "flash_bwd_dkdv"),
                                ("ssd_scan", "ssd_scan_"))}
     # the SSD scan's passes by kernel name (every kernel of its source
     # starts with ssd_scan_)
@@ -1392,7 +1486,10 @@ def profile_device(torch, what, run, wall_of=None):
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{launches} kernels and copies, flash "
           f"attention {ours['flash_attention']:.1f} ms, ssd_scan "
-          f"{ours['ssd_scan']:.1f} ms")
+          f"{ours['ssd_scan']:.1f} ms" + (
+              f", flash backward dq {ours['flash_attention_bwd_dq']:.1f} ms"
+              f" dk/dv {ours['flash_attention_bwd_dkdv']:.1f} ms"
+              if ours["flash_attention_bwd_dq"] else ""))
     for row in top:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<5} {row['kernel']}")
     for name, (ms, count) in ssd_passes.items():
@@ -1516,6 +1613,78 @@ def check_flash(torch, tf, dev):
     worst = max(worst, flash_drill(torch, tf, q, k, v, True, 0, 50.0,
                                    FLASH_TOL["float32"],
                                    "(1, 130, 130, 4, 2, 64) misaligned"))
+    return worst
+
+
+def flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap, what):
+    """The forward kernel's lse against the plain log-sum-exp, and the
+    backward kernels' dq, dk, dv against ``attention_bwd_plain`` on the
+    same q, k, v, o, lse and do, each within FLASH_BWD_REL * max(1,
+    max|want|); a row that sees no key must get dq exactly 0.  Returns
+    the max abs errors by name."""
+    out, lse = tf.flash_attention_lse(q, k, v, causal, window, cap)
+    got = tf.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    torch.cuda.synchronize()
+    want_lse = tf.attention_plain_lse(q, k, v, causal, window, cap)[1]
+    want = tf.attention_bwd_plain(q, k, v, out, lse, do, causal, window, cap)
+    empty = torch.isinf(want_lse)
+    if not torch.equal(torch.isinf(lse), empty) or bool((lse[empty] < 0)
+                                                         .any()):
+        fail(f"flash bwd {what}: lse is not +inf exactly on the rows that "
+             f"see no key")
+    errs = {}
+    pairs = [("lse", lse[~empty], want_lse[~empty])] + list(
+        zip(("dq", "dk", "dv"), got, want))
+    for name, g, w in pairs:
+        if not bool(torch.isfinite(g).all()):
+            fail(f"flash bwd {what}: non-finite {name}")
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        bound = FLASH_BWD_REL * max(1.0, float(w.abs().max())
+                                    if w.numel() else 0.0)
+        if err > bound:
+            fail(f"flash bwd {what}: {name} max abs err {err} beyond "
+                 f"{bound}")
+        errs[name] = err
+    if bool((got[0].transpose(1, 2)[empty] != 0).any()):
+        fail(f"flash bwd {what}: a row that sees no key got a nonzero dq")
+    print(f"flash_attention_bwd {what}: max_abs_err "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + (f"; {int(empty.sum())} rows see no key, dq 0" if empty.any()
+             else ""), flush=True)
+    return errs
+
+
+def check_flash_bwd(torch, tf, dev):
+    """Phase 3, the flash backward (``FLASH_BWD_CASES`` and inputs 4 bytes
+    off a 16-byte boundary): returns the worst max abs error of the dq
+    kernel and of the dk/dv kernel."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkdv": 0.0}
+
+    def drill(q, k, v, causal, window, cap, what):
+        do = torch.randn(q.shape, generator=gen).to(dev)
+        e = flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap,
+                            what)
+        worst["flash_attention_bwd_dq"] = max(
+            worst["flash_attention_bwd_dq"], e["dq"])
+        worst["flash_attention_bwd_dkdv"] = max(
+            worst["flash_attention_bwd_dkdv"], e["dk"], e["dv"])
+
+    for B, Sq, Sk, H, KV, D, causal, window, cap, _ in FLASH_BWD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev)
+                   for shape in ((B, Sq, H, D), (B, Sk, KV, D),
+                                 (B, Sk, KV, D)))
+        drill(q, k, v, causal, window, cap,
+              f"({B}, {Sq}, {Sk}, {H}, {KV}, {D}) causal={causal} "
+              f"window={window} softcap={cap}")
+    B, S, H, KV, D = 1, 130, 4, 2, 64
+    q, k, v = (torch.randn(n + 1, generator=gen).to(dev)[1:].view(shape)
+               for n, shape in ((B * S * H * D, (B, S, H, D)),
+                                (B * S * KV * D, (B, S, KV, D)),
+                                (B * S * KV * D, (B, S, KV, D))))
+    if q.data_ptr() % 16 == 0:
+        fail("flash bwd misaligned drill: q is 16-byte aligned")
+    drill(q, k, v, True, 0, 50.0, "(1, 130, 130, 4, 2, 64) misaligned")
     return worst
 
 
@@ -2798,6 +2967,289 @@ def whisper_main_path(torch, tf, dev, launches, reset_launches):
     return out, real
 
 
+def train_grads(torch, program, params, batch, op, quantize, cut=None):
+    """The loss of ``program.loss_through_cut`` and its gradient over every
+    param leaf (the driver's local step without the update).  With
+    ``cut``, the cut activations take those values in the forward (another
+    device's int8 round trip) with the straight-through gradient, as the
+    int8 cut's."""
+    from repro_torch.tree import tree_leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    if cut is None:
+        loss = program.loss_through_cut(live, batch, op, quantize=quantize)
+    else:
+        acts = program.client_forward(live, batch, op)
+        acts = acts + (cut - acts).detach()
+        loss = program.server_forward(live, acts, batch, op)
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(t) if g is None else g
+                           for t, g in zip(leaves, grads)]
+
+
+def compare_training(torch, what, card, host, nonzero=True,
+                     loss_tol=None, grad_tol=None):
+    """A loss and its gradients from the card against the host CPU's:
+    the loss within ``loss_tol`` (TRAIN_LOSS_REL) relative, every leaf
+    within ``grad_tol`` (TRAIN_GRAD_REL) of its largest CPU entry and,
+    with ``nonzero``, every leaf's card gradient nonzero.  Returns the
+    worst relative errors."""
+    (lc, gc), (lh, gh) = card, host
+    loss_tol = TRAIN_LOSS_REL if loss_tol is None else loss_tol
+    grad_tol = TRAIN_GRAD_REL if grad_tol is None else grad_tol
+    loss_rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    if not loss_rel <= loss_tol:
+        fail(f"{what}: loss {float(lc)} on the card, {float(lh)} on the "
+             f"CPU: {loss_rel:.3g} relative > {loss_tol}")
+    worst, zero = 0.0, []
+    for i, (c, h) in enumerate(zip(gc, gh)):
+        c = c.cpu()
+        if not bool(torch.isfinite(c).all()):
+            fail(f"{what}: leaf {i} gradient not finite on the card")
+        scale = float(h.abs().max())
+        err = float((c - h).abs().max()) / max(scale, 1e-30)
+        if not err <= grad_tol:
+            fail(f"{what}: leaf {i} {tuple(h.shape)} gradient "
+                 f"{err:.3g} of its max {scale:.3g} apart > {grad_tol}")
+        worst = max(worst, err)
+        if float(c.abs().max()) == 0.0:
+            zero.append(i)
+    if nonzero and zero:
+        fail(f"{what}: leaves {zero} got a zero gradient on the card")
+    print(f"{what}: loss {float(lc):.6f} (card) vs {float(lh):.6f} (CPU), "
+          f"{loss_rel:.3g} relative; {len(gc)} gradient leaves within "
+          f"{worst:.3g} of their max (bounds {loss_tol}, {grad_tol})"
+          + (", none zero on the card" if nonzero else ""), flush=True)
+    return {"loss_card": float(lc), "loss_cpu": float(lh),
+            "loss_rel": loss_rel, "grad_rel": worst, "leaves": len(gc)}
+
+
+def training_launches(cfg, ops_rows, local_steps, native_op):
+    """Each kernel's launches in a run of the LM driver (no failures) from
+    its OPs: every local step runs the flash forward once per layer and
+    again in the remat recompute, and the two backward kernels once per
+    layer; the int8 cut's quantize and dequantize once per step below the
+    native OP; top-k and the SSD scan never."""
+    steps = local_steps * sum(len(row) for row in ops_rows)
+    cut = local_steps * sum(op < native_op for row in ops_rows for op in row)
+    L = cfg.num_layers
+    return {"quantize": cut, "dequantize": cut, "topk_compress": 0,
+            "flash_attention": 2 * L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkdv": L * steps, "ssd_scan": 0}
+
+
+def qwen3_training_path(torch, tf, dev, launches, reset_launches):
+    """Phase 5e: qwen3-0.6b trained at full width and depth through the
+    split path (``LMSplitProgram``), the flash backward kernels and the LM
+    driver (``repro_torch.launch.train``); then the SSD scan's refusal of
+    a gradient on the card.  Returns the record and layer 0's q, k, v and
+    dO of a real 4096-token step (phase 7's row)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.data.synthetic import batch_tokens, make_token_stream
+    from repro_torch.launch import train as driver
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models.split_program import get_split_program
+    from repro_torch.tree import tree_map
+    free_card(torch)
+    out = {}
+    program = get_split_program(cfg)
+    native = program.native_op
+    t0 = time.perf_counter()
+    params = program.init(0, dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    # the config's count leaves out the norm vectors (two of d_model and
+    # q/k-norm's two of head_dim a layer, and the final norm)
+    norms = cfg.num_layers * 2 * (cfg.d_model + cfg.head_dim) + cfg.d_model
+    if n != cfg.param_count() + norms:
+        fail(f"qwen3-0.6b: {n} params, the config counts "
+             f"{cfg.param_count()} + {norms} in norms")
+    print(f"qwen3-0.6b: {n:,} fp32 params ({n * 4 / 2**30:.2f} GiB) drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    stream = make_token_stream(400_000, cfg.vocab_size, seed=7)
+
+    def batch_of(S, step):
+        toks, labs = batch_tokens(stream, 1, S, step)
+        return {"tokens": torch.from_numpy(toks).to(dev),
+                "labels": torch.from_numpy(labs).to(dev)}
+
+    # 1. the flash backward on the q, k, v and dO of layers 0 and 27 of a
+    # real 4096-token step (native OP: every layer through the stack)
+    layers = (0, cfg.num_layers - 1)
+    seen, got_do, kernel = [0], {}, L.flash_attention
+
+    def capture(q, k, v, causal=True, window=0, softcap=0.0):
+        i = seen[0]
+        seen[0] += 1
+        o = kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+        if i in layers:
+            got_do[i] = [q.detach(), k.detach(), v.detach(), causal, window,
+                         softcap]
+            o.register_hook(lambda g, i=i: got_do[i].append(g.detach()))
+        return o
+
+    L.flash_attention = capture
+    try:
+        train_grads(torch, program, params, batch_of(QWEN3_DRILL_SEQ, 0),
+                    native, False)
+    finally:
+        L.flash_attention = kernel
+    torch.cuda.synchronize()
+    if seen[0] != 2 * cfg.num_layers or any(len(got_do[i]) != 7
+                                           for i in layers):
+        fail(f"qwen3-0.6b drill: {seen[0]} flash calls (the forward and its "
+             f"recompute need {2 * cfg.num_layers}), dO of layers "
+             f"{[i for i in layers if len(got_do[i]) == 7]}")
+    # the gradients are linear in dO: the drills take it scaled to a max
+    # of 1 (a real step's is ~1e-6), where the bound 1e-5 x max(1,
+    # max|want|) is a relative one
+    out["real_layer_bwd_err"] = {}
+    for i in layers:
+        q, k, v, causal, window, cap, do = got_do[i]
+        do = do / do.abs().max()
+        out["real_layer_bwd_err"][i] = flash_bwd_drill(
+            torch, tf, q, k, v, do, causal, window, cap,
+            f"qwen3-0.6b layer {i} of a real {QWEN3_DRILL_SEQ}-token step, "
+            f"dO / max|dO|")
+    q, k, v, _, _, _, do = got_do[0]
+    real = (q, k, v, do / do.abs().max())
+    del got_do
+
+    # 2. one local step on the card against the host CPU
+    batch = batch_of(QWEN3_STEP_SEQ, 1)
+    reset_launches()
+    card = train_grads(torch, program, params, batch, QWEN3_STEP_OP, True)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = training_launches(cfg, [[QWEN3_STEP_OP]], 1, native)
+    if counts != want:
+        fail(f"qwen3-0.6b local step: launches {counts}, it needs {want}")
+    from repro_torch.kernels.quant_transfer import fake_quant_int8, quantize
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        acts = program.client_forward(params, batch, QWEN3_STEP_OP)
+        card_cut = fake_quant_int8(acts).cpu()
+        host_acts = program.client_forward(host, hbatch, QWEN3_STEP_OP)
+        parted = int((quantize(acts)[0].cpu() != quantize(host_acts)[0])
+                     .sum())
+    del acts, host_acts
+    t0 = time.perf_counter()
+    cpu = train_grads(torch, program, host, hbatch, QWEN3_STEP_OP, True,
+                      cut=card_cut)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    what = (f"qwen3-0.6b local step at OP {QWEN3_STEP_OP}, int8 cut, "
+            f"{QWEN3_STEP_SEQ} tokens")
+    out["step_vs_cpu"] = compare_training(
+        torch, f"{what} (the CPU takes the card's codes)", card, cpu)
+    print(f"{what}: {parted} of {card_cut.numel()} int8 codes of the cut "
+          f"part between the card and the CPU")
+    out["step_vs_cpu_own_cut"] = compare_training(
+        torch, f"{what} (each device its own codes)", card,
+        train_grads(torch, program, host, hbatch, QWEN3_STEP_OP, True),
+        loss_tol=CUT_FLIP_REL, grad_tol=CUT_FLIP_REL)
+    out["cut_codes_parted"] = parted
+    del host, card, cpu, card_cut
+
+    # 3. split equals native
+    with torch.no_grad():
+        native_loss = float(api.loss(cfg, params, batch))
+        out["split_vs_native"] = {}
+        for op in QWEN3_SPLIT_OPS:
+            got = float(program.loss_through_cut(params, batch, op))
+            rel = abs(got - native_loss) / abs(native_loss)
+            if not rel <= TRAIN_LOSS_REL:
+                fail(f"qwen3-0.6b: loss through the cut at OP {op} {got} vs "
+                     f"api.loss {native_loss}: {rel:.3g} > {TRAIN_LOSS_REL}")
+            out["split_vs_native"][op] = rel
+    print(f"qwen3-0.6b: loss_through_cut at OPs {QWEN3_SPLIT_OPS} vs "
+          f"api.loss {native_loss:.6f}: relative "
+          f"{[f'{r:.3g}' for r in out['split_vs_native'].values()]} "
+          f"(<= {TRAIN_LOSS_REL})", flush=True)
+
+    # 4. the driver, against a CPU replay of its control plane
+    args = driver.parser().parse_args(QWEN3_DRIVER)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = driver.train(cfg, args, device=dev, init_params=params,
+                       log=lambda line: print(f"  {line}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    h = run["history"]
+    replay = driver.replay_control(cfg, args)
+    if h["ops"] != replay["ops"] or h["dropped"] != replay["dropped"] or \
+            any(not np_equal(a, b) for a, b in zip(h["times"],
+                                                   replay["times"])):
+        fail(f"qwen3-0.6b driver: OPs {h['ops']}, times {h['times']}, "
+             f"drops {h['dropped']} vs the CPU replay's {replay}")
+    if not all(math.isfinite(x) for row in h["client_losses"] for x in row):
+        fail(f"qwen3-0.6b driver: losses {h['client_losses']}")
+    want = training_launches(cfg, h["ops"], args.local_steps, native)
+    print(f"train-qwen3-0.6b: launches {counts} (expected from its OPs "
+          f"{h['ops']}: {want})")
+    if counts != want:
+        fail(f"train-qwen3-0.6b: launches {counts}, its history needs "
+             f"{want}")
+    steps = args.local_steps * sum(len(row) for row in h["ops"])
+    out.update({
+        "launches": counts, "ops": h["ops"], "loss": h["loss"],
+        "client_losses": h["client_losses"],
+        "round_time_model_s": [t.tolist() for t in h["times"]],
+        "round_wall_s": h["wall_s"], "wall_s": wall, "local_steps": steps,
+        "s_per_local_step": sum(h["wall_s"]) / steps,
+        "tokens_per_s": steps * args.batch * args.seq / sum(h["wall_s"]),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    print(f"train-qwen3-0.6b: OPs and modelled round times equal to the CPU "
+          f"replay; losses {[round(x, 4) for x in h['loss']]}; "
+          f"{out['s_per_local_step']:.3f} s per local step of "
+          f"{args.seq} tokens (round wall / steps, aggregation included), "
+          f"{out['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+
+    # 5. one local step's forward and backward under the profiler
+    b4 = batch_of(args.seq, 3)
+    out["profile_step"] = profile_device(
+        torch, f"one local step's loss and gradient at OP {QWEN3_STEP_OP}, "
+        f"int8 cut, {args.seq} tokens",
+        lambda: train_grads(torch, program, run["params"], b4,
+                            QWEN3_STEP_OP, True))
+    del run, params
+
+    # 6. the SSD scan refuses a gradient on the card
+    mcfg = get_smoke_config("mamba2-780m")
+    mp = tree_map(lambda t: t.requires_grad_(), api.init(mcfg, 0,
+                                                         device=dev))
+    toks = torch.zeros((1, 32), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        if not bool(torch.isfinite(api.loss(mcfg, mp, {"tokens": toks,
+                                                        "labels": toks}))):
+            fail("mamba2-780m smoke: the loss without a gradient is not "
+                 "finite on the card")
+    try:
+        api.loss(mcfg, mp, {"tokens": toks, "labels": toks})
+    except NotImplementedError as e:
+        if "the SSD scan's backward kernel" not in str(e):
+            fail(f"mamba2-780m smoke: the refusal names no backward kernel: "
+                 f"{e}")
+        print(f"mamba2-780m smoke on the card: the loss under autograd "
+              f"raises NotImplementedError: {e}")
+        out["ssd_refusal"] = str(e)
+    else:
+        fail("mamba2-780m smoke: a gradient through the SSD scan on the "
+             "card did not raise")
+    return out, real
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
 def small_lm_cpu_vs_card(torch, dev, arch):
     """Phase 6, language models: ``arch``'s smoke config on the CPU (the
     plain kernels) and on the card (the kernels), same weights: for each
@@ -2880,6 +3332,75 @@ def small_lm_cpu_vs_card(torch, dev, arch):
     return {"steps": steps, "max_logit_diff": diff,
             "atol": SMALL_SERVE_ATOL, "card_launches": n,
             "dropped": dropped}
+
+
+def small_lm_training_cpu_vs_card(torch, dev, arch):
+    """Phase 6, LM training: ``arch``'s smoke config's loss and gradient
+    (``api.loss``; gemma2's softcap, qwen3's qk-norm, mixtral's MoE at its
+    capacity factor 1.25, internvl2's patches, recurrentgemma's groups,
+    whisper's frames) on the CPU and on the card from the same weights and
+    batch, within TRAIN_LOSS_REL and TRAIN_GRAD_REL."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config(arch)
+    host = api.init(cfg, seed=0, device="cpu")
+    card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host),
+                                        dev)
+    gen = torch.Generator().manual_seed(9)
+    S = 96 - cfg.num_patches if cfg.family == "vlm" else 96
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
+                                       generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn((2, cfg.encoder_seq,
+                                             cfg.d_model), generator=gen)
+
+    def grads(params, b):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = api.loss(cfg, live, b)
+        return loss.detach(), list(torch.autograd.grad(
+            loss, tree_leaves(live)))
+
+    on_card = grads(card, {k: v.to(dev) for k, v in batch.items()})
+    return compare_training(torch, f"{arch} smoke loss and gradient",
+                            on_card, grads(host, batch))
+
+
+def lm16m_driver_cpu_vs_card(torch, dev):
+    """Phase 6, the LM driver: ``lm16m`` for 2 rounds (3 clients, 2 local
+    steps of 2 x 64 tokens, the int8 cut) on the card and on the CPU from
+    the same initial params and agent noise (the agent's own seeded
+    generator on both): OPs and modelled times exactly, each round's loss
+    within TRAIN_LOSS_REL."""
+    from repro_torch.configs.lm_small import LM16M
+    from repro_torch.launch import train as driver
+    from repro_torch.models.split_program import get_split_program
+    argv = ["--rounds", "2", "--local-steps", "2", "--batch", "2", "--seq",
+            "64", "--clients", "3", "--quantize-transfer"]
+    args = driver.parser().parse_args(argv)
+    init = get_split_program(LM16M).init(0, "cpu")
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        runs[name] = driver.train(LM16M, args, device=device,
+                                  init_params=init,
+                                  log=lambda line: None)["history"]
+    a, b = runs["card"], runs["cpu"]
+    if a["ops"] != b["ops"] or a["dropped"] != b["dropped"] or any(
+            not np_equal(x, y) for x, y in zip(a["times"], b["times"])):
+        fail(f"lm16m driver: card OPs {a['ops']} times {a['times']} vs CPU "
+             f"{b['ops']} {b['times']}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["loss"], b["loss"]))
+    if not rel <= TRAIN_LOSS_REL:
+        fail(f"lm16m driver: losses {a['loss']} (card) vs {b['loss']} (CPU)")
+    print(f"lm16m driver, 2 rounds: OPs {a['ops']} and modelled times equal "
+          f"on the card and the CPU; losses {a['loss']} vs {b['loss']}, "
+          f"{rel:.3g} relative (<= {TRAIN_LOSS_REL})", flush=True)
+    return {"ops": a["ops"], "loss_card": a["loss"], "loss_cpu": b["loss"],
+            "loss_rel": rel}
 
 
 def ssd_cost(B, S, H, P, N, Q):
@@ -2997,6 +3518,100 @@ def time_flash(torch, tf, real):
     return rows
 
 
+def time_flash_bwd(torch, tf, real):
+    """Phase 7, the flash backward on real layers: qwen3-0.6b's layer 0
+    (``real["qwen3"]``: q, k, v and dO of a 4096-token training step; 16
+    query heads over 8 KV heads of 128, causal) and gemma2-2b's global
+    layer (S=4608, D=256, softcap 50; a seeded dO).  Rows for each kernel
+    (dq: the S, dP and dQ products, 6 * D * H operations a visible pair;
+    dk/dv: S, dP, dV and dK, 8 * D * H) and for the whole backward (the
+    function's 5 products, 10 * D * H a pair: 171.8 GFLOP at qwen3's
+    shape).  ``bound_ms`` is the 3xTF32 tensor-core bound (three TF32
+    products per operation pair at 495 TFLOP/s), ``bound_fp32_ms`` the
+    fp32 CUDA-core bound the kernels run against (67 TFLOP/s).  The plain
+    version (``attention_bwd_plain``, which computes dq, dk and dv) is
+    timed in a CUDA graph; the yardstick, never called by the port, is the
+    backward of ``scaled_dot_product_attention`` (k and v repeated to H
+    heads; no softcap) or of compiled ``flex_attention`` (the softcap),
+    timed eagerly as one forward and backward less one forward, each
+    gradient's max abs difference from the kernels' kept as
+    ``library_err``."""
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    q, k, v, window, cap = real["global"]
+    cases = [("qwen3-0.6b", real["qwen3"][:3], 0, 0.0, real["qwen3"][3]),
+             ("gemma2-2b", (q, k, v), window, cap,
+              torch.randn(q.shape, generator=gen).to(q.device))]
+    for model, (q, k, v), window, cap, do in cases:
+        B, S, H, D = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        pairs = int(tf.visible_mask(S, Sk, True, window, q.device).sum())
+        o, lse = tf.flash_attention_lse(q, k, v, True, window, cap)
+        mine = tf.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+        _, delta = tf.flash_attention_bwd_dq(q, k, v, o, lse, do, True,
+                                             window, cap)
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        if cap > 0.0:
+            fwd = flex_attention_call(torch, qq, kk, vv, window, cap)
+            what = "flex_attention backward"
+
+            def lib_grads():
+                out = fwd().transpose(1, 2)
+                return torch.autograd.grad(out, (qq, kk, vv), do)
+        else:
+            what = "scaled_dot_product_attention backward"
+
+            def fwd():
+                return F.scaled_dot_product_attention(
+                    qq.transpose(1, 2),
+                    kk.transpose(1, 2).repeat_interleave(H // KV, dim=1),
+                    vv.transpose(1, 2).repeat_interleave(H // KV, dim=1),
+                    is_causal=True)
+
+            def lib_grads():
+                return torch.autograd.grad(fwd().transpose(1, 2),
+                                           (qq, kk, vv), do)
+        library_err = max(float((a - b).abs().max())
+                          for a, b in zip(lib_grads(), mine))
+        kw = dict(reps=5, inner=3)
+        lib_ms = (time_ms(lib_grads, graph=False, **kw)
+                  - time_ms(fwd, graph=False, **kw))
+        plain_ms = time_ms(lambda: tf.attention_bwd_plain(
+            q, k, v, o, lse, do, True, window, cap), **kw)
+        io = 4 * (q.numel() + k.numel() + v.numel())
+        for name, fn, products, nbytes in [
+                ("flash_attention_bwd_dq", lambda: tf.flash_attention_bwd_dq(
+                    q, k, v, o, lse, do, True, window, cap), 3,
+                 io + 4 * (3 * q.numel() + 2 * lse.numel())),
+                ("flash_attention_bwd_dkdv",
+                 lambda: tf.flash_attention_bwd_dkdv(
+                     q, k, v, lse, delta, do, True, window, cap), 4,
+                 io + 4 * (q.numel() + 2 * lse.numel() + k.numel()
+                           + v.numel())),
+                ("flash_attention_bwd", lambda: tf.flash_attention_bwd(
+                    q, k, v, o, lse, do, True, window, cap), 5,
+                 io + 4 * (3 * q.numel() + lse.numel() + k.numel()
+                           + v.numel()))]:
+            ops = 2 * products * D * H * pairs
+            b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+            row = {"name": name, "shape": [B, S, H, KV, D],
+                   "ms": time_ms(fn, **kw),
+                   "call_ms": time_ms(fn, graph=False, **kw),
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_fp32_ms": bound_ms(nbytes, ops)[0],
+                   "library_ms": lib_ms, "library": what,
+                   "library_err": library_err, "model": model,
+                   "window": window, "softcap": cap, "causal": True,
+                   "pairs": pairs, "gflop": ops / 1e9,
+                   "plain_computes": "dq, dk and dv",
+                   "library_computes": "dq, dk and dv"}
+            rows.append(row)
+        print(f"flash backward vs {what} ({model}): max abs grad diff "
+              f"{library_err:.3g}")
+    return rows
+
+
 def flex_attention_call(torch, q, k, v, window, cap):
     """One PyTorch call computing the flash kernel's causal function:
     ``flex_attention`` (compiled by inductor, as its documentation asks)
@@ -3103,7 +3718,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
         fp32 = (f", 3xTF32 tensor cores; fp32 CUDA-core bound_fp32_ms "
                 f"{r['bound_fp32_ms']:.5f}" if "bound_fp32_ms" in r else "")
         print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
-              f"{launches[r['name']]}, kernel_ms {r['ms']:.4f} "
+              f"{launches.get(r['name'], 'dq + dk/dv')}, kernel_ms "
+              f"{r['ms']:.4f} "
               f"(graph; eager call {r['call_ms']:.4f}), bound_ms "
               f"{r['bound_ms']:.5f} ({r['bound_by']}{fp32}), plain_ms "
               f"{r['plain_ms']:.4f}, library_ms {lib}")
@@ -3116,11 +3732,20 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                              ref + "topk_compress/topk_compress.py:64"),
            "flash_attention": (port + "flash_attention.cu",
                                ref + "flash_attention/flash_attention.py:84"),
+           # no Pallas backward exists: the reference differentiates the jnp
+           # attention (layers.multi_head_attention) that the forward kernel
+           # replaces on the TPU path
+           "flash_attention_bwd_dq": (
+               port + "flash_attention.cu",
+               ref + "flash_attention/flash_attention.py:84"),
+           "flash_attention_bwd_dkdv": (
+               port + "flash_attention.cu",
+               ref + "flash_attention/flash_attention.py:84"),
            "ssd_scan": (port + "ssd_scan.cu", ref + "ssd_scan/ssd_scan.py:69")}
     kernels = []
     for r in rows:
-        if r["name"] in [k["name"] for k in kernels]:
-            continue                    # the JSON line holds the main shape
+        if r["name"] in [k["name"] for k in kernels] or r["name"] not in src:
+            continue   # the JSON line holds each kernel's main-path shape
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": src[r["name"]][0],
                         "replaces": src[r["name"]][1],
@@ -3132,6 +3757,12 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                         "library_ms": r["library_ms"]})
         if "bound_fp32_ms" in r:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
+        if r["name"].startswith("flash_attention_bwd"):
+            kernels[-1]["replaces_note"] = (
+                "no Pallas backward exists: the gradient of this line's "
+                "function, which the reference takes by autodiff of the jnp "
+                "attention (src/repro/models/layers.py:137)")
+            kernels[-1]["plain_and_library_compute"] = "dq, dk and dv"
     return kernels, rows
 
 
@@ -3185,6 +3816,7 @@ def main() -> None:
         phase("3. kernels vs plain versions")
         worst = check_kernels(torch, tq, tt, dev)
         worst["flash_attention"] = check_flash(torch, tf, dev)
+        worst.update(check_flash_bwd(torch, tf, dev))
         worst["ssd_scan"] = check_ssd(torch, ts, dev)
         torch.cuda.synchronize()
 
@@ -3258,6 +3890,18 @@ def main() -> None:
             worst["flash_attention"], hybrid_serving["real_layer_max_abs_err"],
             whisper_serving["real_layer_max_abs_err"])
         free_card(torch)
+
+        phase("5e. LM training: qwen3-0.6b (full width and depth) through "
+              "the split path, the flash backward kernels and the driver")
+        training, real["qwen3"] = qwen3_training_path(
+            torch, tf, dev, LAUNCHES, reset_launches)
+        record["main_path"]["train-qwen3-0.6b"] = training
+        for e in training["real_layer_bwd_err"].values():
+            worst["flash_attention_bwd_dq"] = max(
+                worst["flash_attention_bwd_dq"], e["dq"])
+            worst["flash_attention_bwd_dkdv"] = max(
+                worst["flash_attention_bwd_dkdv"], e["dk"], e["dv"])
+        free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -3272,11 +3916,18 @@ def main() -> None:
         record["small_hybrid_encdec"] = {
             arch: small_lm_cpu_vs_card(torch, dev, arch)
             for arch in ("recurrentgemma-9b", "whisper-base")}
+        record["small_training"] = {
+            arch: small_lm_training_cpu_vs_card(torch, dev, arch)
+            for arch in ("gemma2-2b", "qwen3-0.6b", "mixtral-8x22b",
+                         "internvl2-2b", "recurrentgemma-9b",
+                         "whisper-base")}
+        record["small_driver"] = lm16m_driver_cpu_vs_card(torch, dev)
 
         phase("7. kernel times")
         kernels, rows = time_kernels(
             torch, tq, tt, dev, launches, worst,
-            time_flash(torch, tf, real) + time_ssd(torch, ts, ssd_real))
+            time_flash(torch, tf, real) + time_flash_bwd(torch, tf, real)
+            + time_ssd(torch, ts, ssd_real))
         record["kernels"], record["timings"] = kernels, rows
         torch.cuda.synchronize()
     except SystemExit:

@@ -1,4 +1,4 @@
-"""Eq. 1 cost model (the VGG half of ``repro/core/costmodel.py``, numpy).
+"""Eq. 1 cost model (counterpart of ``repro/core/costmodel.py``, numpy).
 
     T_t^k = mu * W / C_dev  +  (1 - mu) * W / C_srv  +  L(mu) / Net      (Eq. 1)
 
@@ -6,15 +6,20 @@ A ``Workload`` is the paper's (W, L(mu)) pair materialized per layer:
 forward FLOPs per layer and the activation bytes crossing each candidate cut
 (Offloading Point).  ``calibrate_linear`` / ``calibrate_device`` fit the
 device and server speeds to the paper's measured per-OP tables
-(``core/testbed.py``).  The LM FLOP helpers wait for the LM families.
+(``core/testbed.py``).  ``lm_layer_flops`` / ``lm_workload`` /
+``program_workload`` materialize the LM families' workloads, and
+``slice_profile`` models a fleet of pod slices as FedAdapt devices (the LM
+training driver's simulated cluster).  The reference's HBM-traffic model
+(``analytic_step_memory_bytes``) serves its dry runs only and is not here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.vgg import VGGConfig
 from repro_torch.models import vgg as vgg_model
 
@@ -54,6 +59,73 @@ def vgg_workload(cfg: VGGConfig, batch_size: int = 100,
     cuts += [vgg_model.activation_bytes(cfg, i, bytes_per_el) * batch_size
              for i in range(len(cfg.layers))]
     return Workload(cfg.name, fl, np.asarray(cuts, np.float64))
+
+
+def lm_layer_flops(cfg: ModelConfig, seq: int) -> np.ndarray:
+    """Forward FLOPs per layer for one sequence (active params only for
+    MoE), the reference's formulas term for term."""
+    d, S = cfg.d_model, seq
+    per_layer = []
+    n_mlp = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if cfg.family == "ssm":
+            s = cfg.ssm
+            di, N = s.expand * d, s.state_dim
+            nheads = di // s.head_dim
+            proj = 2 * S * d * (2 * di + 2 * N + nheads) + 2 * S * di * d
+            conv = 2 * S * (di + 2 * N) * s.conv_width
+            Q = min(s.chunk, S)
+            ssd = 2 * S * Q * N + 2 * S * Q * di          # scores + intra
+            ssd += 2 * S * N * di * 2                     # states + inter
+            per_layer.append(proj + conv + ssd)
+            continue
+        if kind == "R":                                   # RG-LRU block
+            w = (cfg.rglru.lru_width or d)
+            mix = 2 * S * d * w * 2 + 2 * S * w * w * 2 \
+                + 2 * S * w * cfg.rglru.conv_width + 10 * S * w \
+                + 2 * S * w * d
+        else:                                             # attention
+            eff = min(S, cfg.window) if (kind == "L" and cfg.window) else S
+            qkvo = 2 * S * d * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+            scores = 2 * S * eff * cfg.q_dim * 2          # qk^T + pv
+            mix = qkvo + scores
+        if cfg.moe is not None:
+            ffn = 2 * S * cfg.moe.top_k * n_mlp * d * cfg.d_ff
+            ffn += 2 * S * d * cfg.moe.num_experts        # router
+            if cfg.moe.dense_residual:
+                ffn += 2 * S * n_mlp * d * cfg.d_ff
+        elif cfg.d_ff:
+            ffn = 2 * S * n_mlp * d * cfg.d_ff
+        else:
+            ffn = 0.0
+        per_layer.append(mix + ffn)
+    return np.asarray(per_layer, np.float64)
+
+
+def lm_embed_head_flops(cfg: ModelConfig, seq: int) -> float:
+    return 2.0 * seq * cfg.d_model * cfg.vocab_size      # unembed matmul
+
+
+def lm_workload(cfg: ModelConfig, batch: int, seq: int,
+                bytes_per_el: int = 2) -> Workload:
+    fl = lm_layer_flops(cfg, seq) * batch
+    # the LM cut activation is (B, S, d) at every boundary
+    cut = float(batch * seq * cfg.d_model * bytes_per_el)
+    cuts = np.full(cfg.num_layers + 1, cut, np.float64)
+    cuts[-1] = 0.0                                       # native: no transfer
+    return Workload(cfg.name, fl, cuts)
+
+
+def program_workload(program, batch: int, seq: Optional[int] = None,
+                     bytes_per_el: int = 4) -> Workload:
+    """(W, L(mu)) of any ``models.split_program.SplitProgram``: its
+    per-unit FLOPs and the cut bytes at every OP."""
+    fl = np.asarray(program.layer_flops(batch, seq), np.float64)
+    cuts = np.asarray(
+        [program.cut_bytes(op, batch, seq, bytes_per_el=bytes_per_el)
+         for op in range(program.num_boundaries)], np.float64)
+    return Workload(getattr(program.cfg, "name", program.family), fl, cuts)
 
 
 # =============================================================================
@@ -128,3 +200,23 @@ def calibrate_device(w: Workload, ops: Sequence[int],
             den += dev * dev
     inv_c = num / max(den, 1e-30)
     return 1.0 / max(inv_c, 1e-15)
+
+
+# =============================================================================
+# the simulated fleet of pod slices (the reference's datacenter adaptation)
+# =============================================================================
+# The reference's TPU v5e figures, kept so that Eq. 1's modelled times come
+# out exactly the reference's.  They model the LM training driver's
+# simulated cluster of slices (``launch/train.py``); they are not this
+# card's rates, and nothing measured on the card is compared with them.
+V5E_PEAK_FLOPS = 197e12          # bf16 FLOP/s per chip
+V5E_HBM_BPS = 819e9              # bytes/s per chip
+V5E_ICI_BPS = 50e9               # bytes/s per link
+DCN_BPS = 25e9 / 8               # conservative cross-pod bytes/s (25 Gbit/s)
+
+
+def slice_profile(name: str, chips: int, mfu: float = 0.4,
+                  link_bytes_per_s: float = V5E_ICI_BPS) -> DeviceProfile:
+    """A pod slice as a FedAdapt 'device' (the datacenter adaptation)."""
+    return DeviceProfile(name, chips * V5E_PEAK_FLOPS * mfu,
+                         link_bytes_per_s * 8.0)

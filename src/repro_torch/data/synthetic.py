@@ -1,9 +1,9 @@
 """Deterministic synthetic data (a copy of the reference's
-``make_cifar_like`` / ``make_token_stream`` / ``split_clients``:
-byte-identical arrays per seed)."""
+``make_cifar_like`` / ``make_token_stream`` / ``token_dataset`` /
+``split_clients`` / ``batch_tokens``: byte-identical arrays per seed)."""
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -42,6 +42,17 @@ def make_token_stream(n_tokens: int, vocab: int, seed: int = 0,
     return out
 
 
+def token_dataset(num_seqs: int, seq: int, vocab: int, seed: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """(tokens, next-token labels) rows cut from one synthetic stream,
+    int32 (num_seqs, seq) each, shaped like ``make_cifar_like``'s output so
+    ``split_clients`` and the loaders take LM data unchanged."""
+    stream = make_token_stream(num_seqs * (seq + 1), vocab, seed=seed)
+    rows = stream[:num_seqs * (seq + 1)].reshape(num_seqs, seq + 1)
+    return {"tokens": rows[:, :-1].astype(np.int32),
+            "labels": rows[:, 1:].astype(np.int32)}
+
+
 def split_clients(data: Dict[str, np.ndarray], num_clients: int
                   ) -> List[Dict[str, np.ndarray]]:
     """IID split into ``num_clients`` equal, non-overlapping shards."""
@@ -49,3 +60,14 @@ def split_clients(data: Dict[str, np.ndarray], num_clients: int
     per = n // num_clients
     return [{k: v[i * per:(i + 1) * per] for k, v in data.items()}
             for i in range(num_clients)]
+
+
+def batch_tokens(stream: np.ndarray, batch: int, seq: int, step: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic sliding batches of ``stream``: (tokens, next-token
+    labels), (batch, seq) each; step ``step`` starts at ``step * batch *
+    (seq + 1)`` modulo the stream's usable length."""
+    need = batch * (seq + 1)
+    start = (step * need) % max(len(stream) - need - 1, 1)
+    chunk = stream[start:start + need].reshape(batch, seq + 1)
+    return chunk[:, :-1], chunk[:, 1:]

@@ -79,6 +79,34 @@
 //   columns of up to 4 n-tiles are mapped so that a lane reads its V values
 //   with one load (V rows padded to DP + 8), and the epilogue undoes the
 //   mapping.  P rows are padded to 36 floats.
+// * with a non-null lse the forward also writes each row's log-sum-exp,
+//   m + log(l), for the backward (+inf on a row that sees no key).
+//
+// Backward (for training; the reference has no Pallas backward: JAX
+// differentiates its jnp attention, layers.multi_head_attention).  From q,
+// k, v, o, the forward's lse and dO, with the forward's semantics:
+//   P  = exp(s - lse)                 s scaled and softcapped, 0 if masked
+//   dV = P^T dO        dP = dO V^T    delta = rowsum(dO * O)
+//   dS = P * (dP - delta) * (1 - tanh^2(s_raw * scale / cap))  [softcap]
+//   dQ = scale * dS K  dK = scale * dS^T Q
+// GQA sums the group's query heads into their KV head.  A row that sees no
+// key has lse = +inf, so P = 0 and its gradients are 0.  fp32 in and out.
+// Arithmetic: fp32 on the CUDA cores (fmaf), no TF32 product.  It is a
+// first, simple kernel: the 5 products (S, dP, dV, dK, dQ) over the
+// visible pairs are 10 * D * H operations a pair, 171.8 GFLOP at
+// qwen3-0.6b's layer (S = 4096, H = 16, D = 128, causal), 2.56 ms at the
+// 67 TFLOP/s fp32 rate; shared-memory reads of the tiles bound the inner
+// loops well above that (PERF.md has the times).  Two kernels, no atomics,
+// so a result does not depend on the schedule:
+// * dq: one CTA of 8 warps per (batch, head, query tile of BT rows); it
+//   computes delta for its rows (one warp a row) and writes it out, then
+//   walks the key tiles its rows can see, recomputing S and dP.
+// * dk/dv: one CTA per (batch, KV head, key tile); it keeps the tile's K
+//   and V and its dK, dV accumulators (BT x D each, in registers) and walks
+//   the group's query heads and the query tiles that can see the tile.
+// BT = 64 (32 at D = 256); both kernels hold Q, dO, K, V tiles and the
+// tile's P and dS in shared memory (165 KB at D = 128, 139 KB at 256),
+// opted in once per instantiation as the forward is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +120,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPP = kBK + 4;   // P row stride
 constexpr float kNegInf = -1e30f;
+#define kPosInf __int_as_float(0x7f800000)
 
 template <int DP>
 struct Layout {
@@ -231,9 +260,10 @@ __device__ __forceinline__ void lds(float (&x)[W], const float* p) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, int B, int Sq,
-                int Sk, int H, int KV, int D, int causal, int window,
-                float softcap, float scale, bool vec) {
+                const T* __restrict__ v, T* __restrict__ out,
+                float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                int KV, int D, int causal, int window, float softcap,
+                float scale, bool vec) {
   using L = Layout<DP>;
   constexpr int QP = L::QP, VP = L::VP;
   // S: warps 2s and 2s+1 own the 16-row stripe s and split D in halves
@@ -524,6 +554,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();   // also: every warp is done reading rowv
   if (tid < kBQ) rowv[tid] = fmaxf(red[tid * 2] + red[tid * 2 + 1], 1e-30f);
   __syncthreads();
+  // the row log-sum-exp m + log(l) for the backward, in the scaled and
+  // softcapped units of s; +inf where the row sees no key (l = 0), so that
+  // every exp(s - lse) of that row is 0
+  if (lse != nullptr && half == 0 && tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + 8 * r;
+      const float lsum = red[row * 2] + red[row * 2 + 1];
+      if (q0 + row < Sq)
+        lse[((long long)b * H + h) * Sq + q0 + row] =
+            lsum > 0.f ? m[r] + logf(lsum) : kPosInf;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -551,9 +594,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int D, int causal, int window,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+           int causal, int window, float softcap, cudaStream_t stream) {
   constexpr size_t smem = Layout<DP>::bytes;
   static bool attribute_set = false;   // once per instantiation, before any
   if (!attribute_set) {                // graph capture (warm-up calls)
@@ -569,47 +612,489 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const long long nq = (Sq + kBQ - 1) / kBQ;
   const long long grid = nq * B * H;
   flash_fwd_kernel<T, DP><<<(unsigned)grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, B, Sq, Sk, H, KV, D,
-      causal, window, softcap, (float)(1.0 / sqrt((double)D)), vec);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, B, Sq, Sk, H, KV,
+      D, causal, window, softcap, (float)(1.0 / sqrt((double)D)), vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int H, int KV, int D, int causal, int window,
-             float softcap, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+             int causal, int window, float softcap, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, window,
-                         softcap, stream);
+    return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal,
+                         window, softcap, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, window,
-                         softcap, stream);
+    return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal,
+                         window, softcap, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, window,
-                          softcap, stream);
-  return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, window,
-                        softcap, stream);
+    return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal,
+                          window, softcap, stream);
+  return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal,
+                        window, softcap, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward: dq, dk, dv of the forward's function, from q, k, v, o, the
+// forward's row log-sum-exp and dO.  fp32 on the CUDA cores (see the file's
+// head).  A tile is BT query rows or BT keys; Q, dO, K, V tiles sit in
+// shared memory at row stride DP + 4 (a float4 read by 8 lanes of
+// consecutive rows hits 8 distinct 16-byte bank groups), P and dS tiles at
+// BT + 1.
+// ---------------------------------------------------------------------------
+template <int DP>
+struct Bwd {
+  static constexpr int BT = DP == 256 ? 32 : 64;
+  static constexpr int RS = DP + 4;
+  static constexpr int PS = BT + 1;
+  static constexpr int SA = BT / 16;               // S micro-tile: SA x SA
+  static constexpr int TX = DP / 4 < 16 ? DP / 4 : 16;  // float4 columns
+  static constexpr int TY = kThreads / TX;
+  static constexpr int RA = BT / TY;               // accumulator rows
+  static constexpr int CA = DP / (4 * TX);         // accumulator float4s
+  static_assert(RA * TY == BT && CA * 4 * TX == DP, "backward tiling");
+  static constexpr size_t bytes =
+      sizeof(float) * (size_t)(4 * BT * RS + 2 * BT * PS + 2 * BT);
+};
+
+// BT rows of D floats at `rs` floats a row into shared memory at row
+// stride RS; rows >= nvalid and columns >= D become 0
+template <int DP>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long rs, int nvalid, int D,
+                                          bool vec, int tid) {
+  constexpr int BT = Bwd<DP>::BT, RS = Bwd<DP>::RS;
+  if (vec) {
+    constexpr int C4 = DP / 4;
+    for (int i = tid; i < BT * C4; i += kThreads) {
+      const int r = i / C4, c = (i % C4) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nvalid && c < D)
+        x = *reinterpret_cast<const float4*>(src + r * rs + c);
+      *reinterpret_cast<float4*>(dst + r * RS + c) = x;
+    }
+  } else {
+    for (int i = tid; i < BT * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      dst[r * RS + c] = r < nvalid && c < D ? src[r * rs + c] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// S = Q.K^T and dP = dO.V^T of one (query tile, key tile) pair, then
+//   P  = exp(cap(S * scale) - lse)                 0 where masked
+//   dS = P * (dP - delta) * (1 - tanh^2)           the softcap's factor
+// into Ps and dSs.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16a
+// and keys tx + 16c.
+template <int DP>
+__device__ __forceinline__ void bwd_scores(
+    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
+    const float* lse_s, const float* delta_s, float* Ps, float* dSs, int q0,
+    int k0, int Sq, int Sk, int causal, int window, float softcap,
+    float scale, int tid) {
+  constexpr int RS = Bwd<DP>::RS, PS = Bwd<DP>::PS, SA = Bwd<DP>::SA;
+  const int ty = tid / 16, tx = tid % 16;
+  float s[SA][SA], dp[SA][SA];
+#pragma unroll
+  for (int a = 0; a < SA; ++a)
+#pragma unroll
+    for (int c = 0; c < SA; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DP; d += 4) {
+    float4 qa[SA], oa[SA];
+#pragma unroll
+    for (int a = 0; a < SA; ++a) {
+      qa[a] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * a) * RS + d]);
+      oa[a] = *reinterpret_cast<const float4*>(&dOs[(ty + 16 * a) * RS + d]);
+    }
+#pragma unroll
+    for (int c = 0; c < SA; ++c) {
+      const float4 kb =
+          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * c) * RS + d]);
+      const float4 vb =
+          *reinterpret_cast<const float4*>(&Vs[(tx + 16 * c) * RS + d]);
+#pragma unroll
+      for (int a = 0; a < SA; ++a) {
+        s[a][c] = dot4(qa[a], kb, s[a][c]);
+        dp[a][c] = dot4(oa[a], vb, dp[a][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < SA; ++a) {
+#pragma unroll
+    for (int c = 0; c < SA; ++c) {
+      const int i = ty + 16 * a, j = tx + 16 * c;
+      const int qp = q0 + i, kp = k0 + j;
+      bool valid = qp < Sq && kp < Sk;
+      if (causal) valid = valid && kp <= qp;
+      if (window > 0) valid = valid && kp > qp - window;
+      float p = 0.f, g = 0.f;
+      if (valid) {
+        float x = s[a][c] * scale;
+        float dcap = 1.f;
+        if (softcap > 0.f) {
+          const float t = tanhf(x / softcap);
+          x = softcap * t;
+          dcap = 1.f - t * t;
+        }
+        p = expf(x - lse_s[i]);
+        g = p * (dp[a][c] - delta_s[i]) * dcap;
+      }
+      Ps[i * PS + j] = p;
+      dSs[i * PS + j] = g;
+    }
+  }
+}
+
+// one CTA per (batch, head, query tile), heaviest tiles first: delta =
+// rowsum(dO * O) (also written out for the dk/dv kernel), then
+// dq = scale * sum over the visible key tiles of dS . K
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dout, float* __restrict__ dq,
+                    float* __restrict__ delta, int B, int Sq, int Sk, int H,
+                    int KV, int D, int causal, int window, float softcap,
+                    float scale, bool vec) {
+  using C = Bwd<DP>;
+  constexpr int BT = C::BT, RS = C::RS, PS = C::PS, TX = C::TX, TY = C::TY,
+                RA = C::RA, CA = C::CA;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + BT * RS;
+  float* Ks = dOs + BT * RS;
+  float* Vs = Ks + BT * RS;
+  float* Ps = Vs + BT * RS;
+  float* dSs = Ps + BT * PS;
+  float* lse_s = dSs + BT * PS;
+  float* delta_s = lse_s + BT;
+
+  const int nq = (Sq + BT - 1) / BT;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nq - 1 - (int)(blockIdx.x / (B * H));
+  const int b = bh / H, h = bh % H, g = h / (H / KV);
+  const int q0 = qt * BT, nrows = min(BT, Sq - q0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
+  const long long qoff = (((long long)b * Sq + q0) * H + h) * D;
+  const long long roff = ((long long)b * H + h) * Sq + q0;
+  load_rows<DP>(Qs, q + qoff, q_rs, nrows, D, vec, tid);
+  load_rows<DP>(dOs, dout + qoff, q_rs, nrows, D, vec, tid);
+  for (int i = tid; i < BT; i += kThreads)
+    lse_s[i] = i < nrows ? lse[roff + i] : 0.f;
+  __syncthreads();
+  for (int i = warp; i < BT; i += kWarps) {
+    float acc = 0.f;
+    if (i < nrows)
+      for (int d = lane; d < D; d += 32)
+        acc = fmaf(dOs[i * RS + d], o[qoff + i * q_rs + d], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      delta_s[i] = acc;
+      if (i < nrows) delta[roff + i] = acc;
+    }
+  }
+
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q0 + BT);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int ay = tid / TX, ax = tid % TX;
+  float4 acc[RA][CA];
+#pragma unroll
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int c = 0; c < CA; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = (k_begin / BT) * BT; k0 < k_end; k0 += BT) {
+    __syncthreads();   // every warp is done with the last tile (and delta)
+    const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
+    load_rows<DP>(Ks, k + koff, kv_rs, min(BT, Sk - k0), D, vec, tid);
+    load_rows<DP>(Vs, v + koff, kv_rs, min(BT, Sk - k0), D, vec, tid);
+    __syncthreads();
+    bwd_scores<DP>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Sk,
+                   causal, window, softcap, scale, tid);
+    __syncthreads();
+    for (int j = 0; j < BT; ++j) {
+      float gr[RA];
+#pragma unroll
+      for (int r = 0; r < RA; ++r) gr[r] = dSs[(ay + TY * r) * PS + j];
+#pragma unroll
+      for (int c = 0; c < CA; ++c) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(&Ks[j * RS + 4 * (ax + TX * c)]);
+#pragma unroll
+        for (int r = 0; r < RA; ++r) fma4(acc[r][c], gr[r], kv);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    const int row = ay + TY * r;
+    if (row >= nrows) continue;
+    float* dst = dq + qoff + row * q_rs;
+#pragma unroll
+    for (int c = 0; c < CA; ++c) {
+      const int col = 4 * (ax + TX * c);
+      const float e[4] = {acc[r][c].x, acc[r][c].y, acc[r][c].z,
+                          acc[r][c].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (col + t < D) dst[col + t] = e[t] * scale;
+    }
+  }
+}
+
+// one CTA per (batch, KV head, key tile), the first (heaviest under the
+// causal mask) tiles first: over the group's query heads and the query
+// tiles that can see the tile, dv = sum P^T . dO and dk = scale * sum
+// dS^T . Q; the group's heads are summed inside the CTA, in order (no
+// atomics: the result does not depend on the schedule)
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ dout, float* __restrict__ dk,
+                      float* __restrict__ dv, int B, int Sq, int Sk, int H,
+                      int KV, int D, int causal, int window, float softcap,
+                      float scale, bool vec) {
+  using C = Bwd<DP>;
+  constexpr int BT = C::BT, RS = C::RS, PS = C::PS, TX = C::TX, TY = C::TY,
+                RA = C::RA, CA = C::CA;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + BT * RS;
+  float* Ks = dOs + BT * RS;
+  float* Vs = Ks + BT * RS;
+  float* Ps = Vs + BT * RS;
+  float* dSs = Ps + BT * PS;
+  float* lse_s = dSs + BT * PS;
+  float* delta_s = lse_s + BT;
+
+  const int bg = blockIdx.x % (B * KV);
+  const int kt = (int)(blockIdx.x / (B * KV));
+  const int b = bg / KV, g = bg % KV, G = H / KV;
+  const int k0 = kt * BT, nkeys = min(BT, Sk - k0);
+  const int tid = threadIdx.x;
+  const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
+  const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
+  load_rows<DP>(Ks, k + koff, kv_rs, nkeys, D, vec, tid);
+  load_rows<DP>(Vs, v + koff, kv_rs, nkeys, D, vec, tid);
+
+  // the query rows that see some key of this tile
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(Sq, k0 + nkeys - 1 + window) : Sq;
+  const int ay = tid / TX, ax = tid % TX;
+  float4 dka[RA][CA], dva[RA][CA];
+#pragma unroll
+  for (int r = 0; r < RA; ++r)
+#pragma unroll
+    for (int c = 0; c < CA; ++c)
+      dka[r][c] = dva[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = g * G + hh;
+    for (int q0 = (q_begin / BT) * BT; q0 < q_end; q0 += BT) {
+      const int nrows = min(BT, Sq - q0);
+      const long long qoff = (((long long)b * Sq + q0) * H + h) * D;
+      const long long roff = ((long long)b * H + h) * Sq + q0;
+      __syncthreads();   // every warp is done with the last query tile
+      load_rows<DP>(Qs, q + qoff, q_rs, nrows, D, vec, tid);
+      load_rows<DP>(dOs, dout + qoff, q_rs, nrows, D, vec, tid);
+      for (int i = tid; i < BT; i += kThreads) {
+        lse_s[i] = i < nrows ? lse[roff + i] : 0.f;
+        delta_s[i] = i < nrows ? delta[roff + i] : 0.f;
+      }
+      __syncthreads();
+      bwd_scores<DP>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq,
+                     Sk, causal, window, softcap, scale, tid);
+      __syncthreads();
+      for (int i = 0; i < BT; ++i) {
+        float p[RA], gr[RA];
+#pragma unroll
+        for (int r = 0; r < RA; ++r) {
+          p[r] = Ps[i * PS + ay + TY * r];
+          gr[r] = dSs[i * PS + ay + TY * r];
+        }
+#pragma unroll
+        for (int c = 0; c < CA; ++c) {
+          const int col = 4 * (ax + TX * c);
+          const float4 ov = *reinterpret_cast<const float4*>(&dOs[i * RS + col]);
+          const float4 qv = *reinterpret_cast<const float4*>(&Qs[i * RS + col]);
+#pragma unroll
+          for (int r = 0; r < RA; ++r) {
+            fma4(dva[r][c], p[r], ov);
+            fma4(dka[r][c], gr[r], qv);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    const int row = ay + TY * r;
+    if (row >= nkeys) continue;
+    float* dkr = dk + koff + row * kv_rs;
+    float* dvr = dv + koff + row * kv_rs;
+#pragma unroll
+    for (int c = 0; c < CA; ++c) {
+      const int col = 4 * (ax + TX * c);
+      const float ek[4] = {dka[r][c].x, dka[r][c].y, dka[r][c].z,
+                           dka[r][c].w};
+      const float ev[4] = {dva[r][c].x, dva[r][c].y, dva[r][c].z,
+                           dva[r][c].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (col + t < D) {
+          dkr[col + t] = ek[t] * scale;
+          dvr[col + t] = ev[t];
+        }
+      }
+    }
+  }
+}
+
+struct BwdArgs {
+  const float *q, *k, *v, *o, *lse, *dout;
+  float *dq, *dk, *dv, *delta;
+  int B, Sq, Sk, H, KV, D, causal, window;
+  float softcap;
+};
+
+// 16-byte loads need every row start 16-byte aligned
+inline bool bwd_vec(const BwdArgs& a) {
+  const uintptr_t p = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                      (uintptr_t)a.o | (uintptr_t)a.dout;
+  return a.D % 4 == 0 && p % 16 == 0;
+}
+
+template <int DP>
+int launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = Bwd<DP>::bytes;
+  static bool attribute_set = false;   // once per instantiation, before any
+  if (!attribute_set) {                // graph capture (warm-up calls)
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const long long nq = (a.Sq + Bwd<DP>::BT - 1) / Bwd<DP>::BT;
+  flash_bwd_dq_kernel<DP><<<(unsigned)(nq * a.B * a.H), kThreads, smem,
+                            stream>>>(
+      a.q, a.k, a.v, a.o, a.lse, a.dout, a.dq, a.delta, a.B, a.Sq, a.Sk, a.H,
+      a.KV, a.D, a.causal, a.window, a.softcap,
+      (float)(1.0 / sqrt((double)a.D)), bwd_vec(a));
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_bwd_dkdv(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = Bwd<DP>::bytes;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const long long nk = (a.Sk + Bwd<DP>::BT - 1) / Bwd<DP>::BT;
+  flash_bwd_dkdv_kernel<DP><<<(unsigned)(nk * a.B * a.KV), kThreads, smem,
+                              stream>>>(
+      a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dk, a.dv, a.B, a.Sq, a.Sk,
+      a.H, a.KV, a.D, a.causal, a.window, a.softcap,
+      (float)(1.0 / sqrt((double)a.D)), bwd_vec(a));
+  return (int)cudaGetLastError();
+}
+
+template <int (*F32)(const BwdArgs&, cudaStream_t),
+          int (*F64)(const BwdArgs&, cudaStream_t),
+          int (*F128)(const BwdArgs&, cudaStream_t),
+          int (*F256)(const BwdArgs&, cudaStream_t)>
+int dispatch_bwd(const BwdArgs& a, void* stream) {
+  if (a.D < 1 || a.D > 256 || a.KV < 1 || a.H % a.KV != 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.D <= 32) return F32(a, s);
+  if (a.D <= 64) return F64(a, s);
+  if (a.D <= 128) return F128(a, s);
+  return F256(a, s);
 }
 
 }  // namespace
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
-// contiguous; dtype 0 = float32, 1 = bfloat16.  The caller checks
-// 1 <= D <= 256, H % KV == 0 and B, Sq, Sk >= 1.
+// contiguous; dtype 0 = float32, 1 = bfloat16.  lse, when not null, is
+// (B, H, Sq) float32: each row's log-sum-exp for the backward (null when
+// serving).  The caller checks 1 <= D <= 256, H % KV == 0 and
+// B, Sq, Sk >= 1.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int H, int KV, int D, int causal,
-                                     int window, float softcap, int dtype,
+                                     const void* v, void* out, void* lse,
+                                     int B, int Sq, int Sk, int H, int KV,
+                                     int D, int causal, int window,
+                                     float softcap, int dtype,
                                      void* stream) {
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, window,
-                           softcap, s);
+    return dispatch<float>(q, k, v, out, l, B, Sq, Sk, H, KV, D, causal,
+                           window, softcap, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, D, causal,
-                                   window, softcap, s);
+    return dispatch<__nv_bfloat16>(q, k, v, out, l, B, Sq, Sk, H, KV, D,
+                                   causal, window, softcap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward, in two launches on one stream: first the dq kernel, which
+// also writes delta (B, H, Sq), then the dk/dv kernel, which reads it.  All
+// float32 and contiguous: q, o, dout, dq (B, Sq, H, D); k, v, dk, dv
+// (B, Sk, KV, D); lse (the forward's) and delta (B, H, Sq).
+extern "C" int repro_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* delta, int B, int Sq,
+    int Sk, int H, int KV, int D, int causal, int window, float softcap,
+    void* stream) {
+  const BwdArgs a{(const float*)q, (const float*)k, (const float*)v,
+                  (const float*)o, (const float*)lse, (const float*)dout,
+                  (float*)dq, nullptr, nullptr, (float*)delta, B, Sq, Sk, H,
+                  KV, D, causal, window, softcap};
+  return dispatch_bwd<launch_bwd_dq<32>, launch_bwd_dq<64>,
+                      launch_bwd_dq<128>, launch_bwd_dq<256>>(a, stream);
+}
+
+extern "C" int repro_flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* lse,
+    const void* delta, const void* dout, void* dk, void* dv, int B, int Sq,
+    int Sk, int H, int KV, int D, int causal, int window, float softcap,
+    void* stream) {
+  const BwdArgs a{(const float*)q, (const float*)k, (const float*)v, nullptr,
+                  (const float*)lse, (const float*)dout, nullptr, (float*)dk,
+                  (float*)dv, (float*)delta, B, Sq, Sk, H, KV, D, causal,
+                  window, softcap};
+  return dispatch_bwd<launch_bwd_dkdv<32>, launch_bwd_dkdv<64>,
+                      launch_bwd_dkdv<128>, launch_bwd_dkdv<256>>(a, stream);
 }

@@ -14,6 +14,11 @@ buffer this wrapper allocates at the size the source asks for;
 ``ssd_scan_plain``, the chunked form of the reference's ``ssd_chunked`` in
 PyTorch.  ``ssd_sequential`` is the recurrence itself
 (the reference's ``ref.ssd_sequential``), for tests and drills.
+
+The kernel has no backward yet: on a CUDA tensor with grad enabled and an
+input that requires it, ``ssd_scan`` raises ``NotImplementedError``
+(ROADMAP's "the SSD scan's backward kernel") instead of returning outputs
+detached from the graph.  On the CPU the plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import not_ported
 from repro_torch.kernels import LAUNCHES, _build
 
 _SIGNATURES = {
@@ -164,6 +170,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     if not _build.wants_kernel(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        raise not_ported("a gradient through ssd_scan on the card (the SSD "
+                         "scan's backward kernel)",
+                         "the SSD scan's backward kernel")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)

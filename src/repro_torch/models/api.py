@@ -1,15 +1,16 @@
 """Model API by family (counterpart of ``repro/models/api.py``).
 
     params = init(cfg, seed, dtype, device)
+    loss   = loss(cfg, params, batch)
     logits, cache = prefill(cfg, params, batch, target_seq)
     logits, cache = decode(cfg, params, cache, token, pos)
 
-``batch`` holds ``tokens``, plus the frontend stubs: ``patches`` for the
-VLM and ``frames`` for encdec.  All six LM families are ported: ``dense``,
+``batch`` holds ``tokens`` (and ``labels`` for the loss), plus the
+frontend stubs: ``patches`` for the VLM and ``frames`` for encdec.  All six LM families are ported: ``dense``,
 ``moe`` and ``vlm`` (module ``transformer``), ``ssm`` (mamba2, module
 ``ssm``), ``hybrid`` (recurrentgemma, module ``hybrid``) and ``encdec``
-(whisper, module ``encdec``).  ``loss`` (LM training) raises
-``NotImplementedError`` naming its ROADMAP item.
+(whisper, module ``encdec``).  ``loss`` is the family's ``loss_fn``, the
+training loss.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from typing import Dict
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
 
@@ -38,8 +38,8 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None):
     return get_model(cfg).init(cfg, seed, dtype, device)
 
 
-def loss(cfg: ModelConfig, params, batch):
-    raise not_ported("the LM training loss (loss_fn)", "LM training")
+def loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    return get_model(cfg).loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ModelConfig, params, batch, target_seq=None):

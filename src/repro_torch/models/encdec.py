@@ -19,7 +19,9 @@ without causality, the decoder's causal self-attention through
 ``layers.attention_block``.  A decode step (one query row against the
 caches) stays plain PyTorch, as decode does in every family.  Rotary
 embeddings rotate the encoder's q and k and the decoder's, never the cross
-k and v.  ``loss_fn`` (LM training) is not ported.
+k and v.  ``loss_fn`` is the training loss (the chunked cross-entropy of
+the decoder's final hidden states); while autograd records, every encoder
+and decoder layer is rematerialised in the backward when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -97,16 +99,22 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
     """frames (B, T_enc, d), precomputed frame embeddings (the frontend
     stub) -> the encoder's final-norm states (B, T_enc, d)."""
     x = frames
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.encoder_layers):
-        p = tree_map(lambda t: t[i], params["enc_layers"])
-        h = L.rms_norm(x, p["ln1"])
-        q, k, v = L.qkv_projection(cfg, p["attn"], h, positions)
-        out = L.flash_attention(q, k, v, causal=False)   # bidirectional
-        x = x + out.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
-        x = x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
+        x = L.remat(cfg.remat, lambda x_, p: _enc_layer(cfg, p, x_,
+                                                        positions),
+                    x, tree_map(lambda t: t[i], params["enc_layers"]))
     return L.rms_norm(x, params["enc_norm"])
+
+
+def _enc_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    h = L.rms_norm(x, p["ln1"])
+    q, k, v = L.qkv_projection(cfg, p["attn"], h, positions)
+    out = L.flash_attention(q, k, v, causal=False)   # bidirectional
+    x = x + out.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
+    return x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
 
 
 def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -145,31 +153,52 @@ def decode_stack(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     self-attention k/v of the S positions in the first S of ``cache_seq or
     S`` slots, and each layer's cross k/v of ``enc_out``."""
     x = params["embed"][tokens]
+    if not return_cache:
+        x = decoder_layers(cfg, params, x, enc_out, 0, cfg.num_layers)
+        return L.rms_norm(x, params["final_norm"]), None
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = None
-    if return_cache:
-        kv = (cfg.num_layers, B, cache_seq or S, cfg.num_kv_heads,
-              cfg.head_dim)
-        xkv = (cfg.num_layers, B, enc_out.shape[1], cfg.num_kv_heads,
-               cfg.head_dim)
-        cache = {name: x.new_zeros(shape) for name, shape in
-                 (("k", kv), ("v", kv), ("xk", xkv), ("xv", xkv))}
+    kv = (cfg.num_layers, B, cache_seq or S, cfg.num_kv_heads, cfg.head_dim)
+    xkv = (cfg.num_layers, B, enc_out.shape[1], cfg.num_kv_heads,
+           cfg.head_dim)
+    cache = {name: x.new_zeros(shape) for name, shape in
+             (("k", kv), ("v", kv), ("xk", xkv), ("xv", xkv))}
     for i in range(cfg.num_layers):
-        p = T.layer_params(params, i)
-        h = L.rms_norm(x, p["ln1"])
-        attn_out, self_kv = L.attention_block(cfg, p["attn"], h, positions,
-                                              window=0)
-        x = x + attn_out
-        hx = L.rms_norm(x, p["ln_x"])
-        ek, ev = _enc_kv(cfg, p["cross"], enc_out)
-        x = x + _cross_attend(cfg, p["cross"], hx, ek, ev)
-        x = x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
-        if return_cache:
-            T.write_prefill_kv(cache["k"][i], cache["v"][i], self_kv)
-            cache["xk"][i] = ek
-            cache["xv"][i] = ev
+        x, self_kv, ek, ev = _dec_layer(cfg, T.layer_params(params, i), x,
+                                        enc_out, positions)
+        T.write_prefill_kv(cache["k"][i], cache["v"][i], self_kv)
+        cache["xk"][i] = ek
+        cache["xv"][i] = ev
     return L.rms_norm(x, params["final_norm"]), cache
+
+
+def _dec_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               enc_out: torch.Tensor, positions: torch.Tensor):
+    """One decoder layer over the full sequence: ``(x, its self-attention
+    k/v, the cross k, v of enc_out)``."""
+    h = L.rms_norm(x, p["ln1"])
+    attn_out, self_kv = L.attention_block(cfg, p["attn"], h, positions,
+                                          window=0)
+    x = x + attn_out
+    hx = L.rms_norm(x, p["ln_x"])
+    ek, ev = _enc_kv(cfg, p["cross"], enc_out)
+    x = x + _cross_attend(cfg, p["cross"], hx, ek, ev)
+    x = x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
+    return x, self_kv, ek, ev
+
+
+def decoder_layers(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   enc_out: torch.Tensor, start: int, stop: int
+                   ) -> torch.Tensor:
+    """Decoder layers ``[start, stop)`` over the full sequence ``x`` from
+    position 0, each rematerialised in the backward when ``cfg.remat``: the
+    whole decoder, and the two stages of the encdec split path."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for i in range(start, stop):
+        x = L.remat(cfg.remat, lambda x_, p, e: _dec_layer(
+            cfg, p, x_, e, positions)[0], x, T.layer_params(params, i),
+            enc_out)
+    return x
 
 
 # =============================================================================
@@ -187,8 +216,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                         cache_seq)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
-    raise not_ported("the LM training loss (loss_fn)", "LM training")
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (decoded over
+    the encoded ``batch["frames"]``) against ``batch["labels"]``."""
+    hidden, _ = forward(cfg, params, batch["tokens"], batch["frames"])
+    return L.chunked_ce_loss(hidden, params["unembed"], batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,

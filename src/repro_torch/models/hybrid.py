@@ -29,7 +29,11 @@ scans over the groups, the port loops.
 * A decode step takes a scalar position or a ``(B,)`` vector of per-row
   positions, as the dense transformer's does.
 
-``loss_fn`` (LM training) is not ported.
+``loss_fn`` is the training loss (the chunked cross-entropy of the final
+hidden states, soft-capped logits).  While autograd records, each
+super-block is rematerialised in the backward when ``cfg.remat`` (the
+reference's ``jax.checkpoint`` of its scan body); the remainder layers are
+not, as in the reference.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -272,17 +276,19 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ignored, as in the reference."""
     x = _embed(cfg, params, tokens)
     B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if not return_cache:
+        x = groups_forward(cfg, params, x, positions, 0,
+                           _pattern_info(cfg)[0])
+        x = rem_forward(cfg, params, x, positions)
+        return L.rms_norm(x, params["final_norm"]), None
     W = cfg.rglru.conv_width
-    if return_cache and S < W - 1:
+    if S < W - 1:
         raise ValueError(f"a prefill needs at least conv_width - 1 = {W - 1} "
                          f"tokens to fill the conv cache; got {S}")
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device) \
-        if return_cache else None
+    cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device)
     for kind, p, c in _layers(cfg, params, cache):
         x, made = apply_block(cfg, kind, p, x, positions)
-        if c is None:
-            continue
         if kind == "R":
             c["conv"].copy_(made["conv"])
             c["state"].copy_(made["state"])
@@ -291,8 +297,42 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return L.rms_norm(x, params["final_norm"]), cache
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
-    raise not_ported("the LM training loss (loss_fn)", "LM training")
+def _group(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+           slot_params: List[Params]) -> torch.Tensor:
+    for kind, p in zip(cfg.layer_pattern, slot_params):
+        x, _ = apply_block(cfg, kind, p, x, positions)
+    return x
+
+
+def groups_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   positions: torch.Tensor, start: int, stop: int
+                   ) -> torch.Tensor:
+    """Super-blocks ``[start, stop)`` (each the ``layer_pattern``'s layers
+    of one group) over the full sequence, each rematerialised in the
+    backward when ``cfg.remat``: the split path cuts between them."""
+    slots = params["layers"]["slots"]
+    for g in range(start, stop):
+        x = L.remat(cfg.remat, lambda x_, *ps: _group(cfg, x_, positions,
+                                                      list(ps)),
+                    x, *[tree_map(lambda t: t[g], slot) for slot in slots])
+    return x
+
+
+def rem_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """The remainder layers after the groups (no remat, as the
+    reference)."""
+    for i, p in enumerate(params["rem"]):
+        x, _ = apply_block(cfg, cfg.layer_pattern[i], p, x, positions)
+    return x
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored), the logits soft-capped."""
+    hidden, _ = forward(cfg, params, batch["tokens"])
+    return L.chunked_ce_loss(hidden, unembed_matrix(cfg, params),
+                             batch["labels"], cfg.logit_softcap)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,

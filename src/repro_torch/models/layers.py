@@ -25,6 +25,12 @@ its decode path a ``lax.ragged_dot``, none of them a Pallas kernel; here
 they are ``torch.bmm`` and one ``torch.matmul`` per expert group.  The
 reference's expert-parallel ``_moe_block_sharded`` needs sharding rules,
 which the port does not have: ``moe_block`` is the single-device path.
+
+Training: ``chunked_ce_loss`` (the LM loss, one ``torch.utils.checkpoint``
+per chunk of 1024 positions, so the ``(B, S, V)`` logits are never held for
+the backward), ``moe_aux_loss`` (the Switch-style load-balancing term) and
+``remat`` (the reference's ``jax.checkpoint`` of a block body, applied only
+while autograd records).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -287,16 +294,25 @@ def init_moe(gen, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
+def _router_probs(p: Params, xf: torch.Tensor) -> torch.Tensor:
+    return torch.softmax((xf @ p["router"]).float(), dim=-1)
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of each row and their indices, best first.
+    ``lax.top_k`` lets the lower index win a tie; a stable descending sort
+    keeps that order, where ``torch.topk``'s order among ties is
+    unspecified."""
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top.values[:, :k], top.indices[:, :k]
+
+
 def moe_route(cfg: ModelConfig, p: Params, xf: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing of ``xf`` (T, d): the renormalised fp32 weights and
-    the experts, each (T, k), best first.  ``lax.top_k`` lets the lower
-    expert win a tie; a stable descending sort keeps that order, where
-    ``torch.topk``'s order among ties is unspecified."""
-    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    k = cfg.moe.top_k
-    topw, topi = top.values[:, :k], top.indices[:, :k]
+    the experts, each (T, k), best first (ties to the lower expert)."""
+    topw, topi = _top_k(_router_probs(p, xf), cfg.moe.top_k)
     return topw / topw.sum(dim=-1, keepdim=True), topi
 
 
@@ -396,3 +412,64 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe.dense_residual:
         out = out + ffn(p["dense"], x, cfg.mlp_act)
     return out
+
+
+def moe_aux_loss(cfg: ModelConfig, p: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style) of the router ``p`` on
+    ``x`` (B, S, d): ``E * sum_e (fraction of top-k picks of e) * (mean
+    router probability of e)``; the gradient flows through the
+    probabilities."""
+    assert cfg.moe is not None
+    d = x.shape[-1]
+    E = cfg.moe.num_experts
+    probs = _router_probs(p, x.reshape(-1, d))
+    _, topi = _top_k(probs, cfg.moe.top_k)
+    frac_tokens = F.one_hot(topi, E).float().sum(dim=1).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return E * torch.sum(frac_tokens * frac_probs)
+
+
+# =============================================================================
+# training: activation remat and the chunked cross-entropy
+# =============================================================================
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (``torch.utils.checkpoint``, non-reentrant) when ``enabled`` and
+    autograd is recording; else a plain call (serving, and ``no_grad``)."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_loss(h: torch.Tensor, lab: torch.Tensor, unembed: torch.Tensor,
+                cap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = (h @ unembed).float()                         # (B, c, V)
+    if cap > 0.0:
+        logits = softcap(logits, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+    valid = (lab >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_ce_loss(hidden: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, logit_softcap_val: float = 0.0,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``hidden`` (B, S, d) through
+    ``unembed`` (d, V) against ``labels`` (B, S), -1 ignored, over chunks
+    of ``min(chunk, S)`` positions (S must be a multiple), each chunk's
+    logits recomputed in the backward (``remat``), as the reference's
+    ``jax.checkpoint`` does: the (B, S, V) logits are never held."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"seq {S} must be divisible by loss chunk {chunk}")
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        tl, tc = remat(True, _chunk_loss, hidden[:, c0:c0 + chunk],
+                       labels[:, c0:c0 + chunk], unembed, logit_softcap_val)
+        total, count = total + tl, count + tc
+    return total / torch.clamp(count, min=1.0)

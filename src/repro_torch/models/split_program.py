@@ -1,35 +1,52 @@
 """``SplitProgram``: offloading-point execution (counterpart of
-``repro/models/split_program.py``; the VGG family only so far).
+``repro/models/split_program.py``): one protocol over VGG and every LM
+family, so the loops, planners and cost model are generic.
 
-    program = get_split_program(VGG5)
-    params  = program.init(generator, device)
+    program = get_split_program(cfg)        # VGGConfig or any ModelConfig
+    params  = program.init(seed_or_generator, device)
     acts    = program.client_forward(params, batch, op)    # device stage
     loss    = program.server_forward(params, acts, batch, op)
     loss    = program.loss_through_cut(params, batch, op, quantize=True)
+    program.layer_flops(batch, seq)         # fwd FLOPs per split unit
+    program.cut_bytes(op, batch, seq)       # L(mu) of Eq. 1, one way
 
-``op`` counts the split units kept on the device; ``op == native_op`` is
-device-native execution (classic FL: nothing crosses the network, so nothing
-is quantized).  ``quantize=True`` sends the cut activation through the int8
-fake-quant (``kernels/quant_transfer``) with a straight-through gradient.
+``op`` counts the split units kept on the device: a layer for VGG and the
+stacked families (dense, MoE, VLM, SSM, encdec), a super-block of
+``len(layer_pattern)`` layers for the hybrid.  ``op == native_op`` is
+device-native execution (classic FL: nothing crosses the network, so
+nothing is quantized).  ``quantize=True`` sends every tensor of the cut
+payload through the int8 fake-quant (``kernels/quant_transfer``) with a
+straight-through gradient.  An LM's stages rematerialise their layers in
+the backward when ``cfg.remat``.
 
 ``width_mask(params, w)`` is a HeteroFL client's static 0/1 subnetwork
-(``fl/hetero.py``): the first ``ceil(w * C)`` channels of every hidden
-layer, as tensors on the params' device with their dtypes.
+(``fl/hetero.py``): for VGG the first ``ceil(w * C)`` channels of every
+hidden layer, as tensors on the params' device with their dtypes.  The
+generic masks of the LM families are not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.vgg import VGGConfig
+from repro_torch.core import costmodel as cm
 from repro_torch.kernels.quant_transfer import fake_quant_int8
+from repro_torch.models import encdec as encdec_model
+from repro_torch.models import hybrid as hybrid_model
+from repro_torch.models import layers as L
+from repro_torch.models import split as lm_split
+from repro_torch.models import ssm as ssm_model
+from repro_torch.models import transformer as T
 from repro_torch.models import vgg as vgg_model
+from repro_torch.tree import tree_map
 
-Params = List[Dict[str, torch.Tensor]]
+Params = Any
 
 
 class SplitProgram:
@@ -40,9 +57,9 @@ class SplitProgram:
     def __init__(self, cfg):
         self.cfg = cfg
 
-    def init(self, generator: Optional[torch.Generator] = None,
-             device=None) -> Params:
-        """Random params on ``device`` (``None``: the card)."""
+    def init(self, generator=None, device=None) -> Params:
+        """Random params on ``device`` (``None``: the card), from a
+        ``torch.Generator`` (VGG) or an integer seed (the LM families)."""
         raise NotImplementedError
 
     def client_forward(self, params: Params, batch: Dict, op: int):
@@ -58,11 +75,12 @@ class SplitProgram:
         transfer.  ``op == native_op`` never quantizes: nothing is shipped."""
         acts = self.client_forward(params, batch, op)
         if quantize and op < self.native_op:
-            acts = fake_quant_int8(acts)
+            acts = tree_map(fake_quant_int8, acts)
         return self.server_forward(params, acts, batch, op)
 
     def eval_metric(self, params: Params, batch: Dict) -> torch.Tensor:
-        raise NotImplementedError
+        """Higher-is-better scalar (accuracy for VGG, -CE loss for LMs)."""
+        return -self.loss_through_cut(params, batch, self.native_op)
 
     @property
     def num_boundaries(self) -> int:
@@ -73,9 +91,20 @@ class SplitProgram:
     def native_op(self) -> int:
         return self.num_boundaries - 1
 
-    def cut_bytes(self, op: int, batch: int, bytes_per_el: int = 4,
-                  quantize: bool = False) -> float:
+    def layer_flops(self, batch: int, seq: Optional[int] = None
+                    ) -> np.ndarray:
+        """Forward FLOPs per split unit for one iteration (one batch)."""
         raise NotImplementedError
+
+    def cut_bytes(self, op: int, batch: int, seq: Optional[int] = None,
+                  bytes_per_el: int = 4, quantize: bool = False) -> float:
+        """L(mu): bytes crossing the cut at ``op``, one way, per iteration
+        (the backward ships the same-shaped gradient; callers double)."""
+        raise NotImplementedError
+
+    def op_candidates(self) -> List[int]:
+        """The default OP grid for planners (a family may restrict it)."""
+        return list(range(self.num_boundaries))
 
     @staticmethod
     def _width_keep(n: int, width: float) -> int:
@@ -115,7 +144,12 @@ class VGGSplitProgram(SplitProgram):
     def num_boundaries(self) -> int:
         return len(self.cfg.layers) + 1
 
-    def cut_bytes(self, op, batch, bytes_per_el=4, quantize=False):
+    def layer_flops(self, batch, seq=None) -> np.ndarray:
+        return np.asarray(vgg_model.layer_flops(self.cfg),
+                          np.float64) * batch
+
+    def cut_bytes(self, op, batch, seq=None, bytes_per_el=4,
+                  quantize=False):
         if op >= self.native_op:
             return 0.0
         per = 1 if quantize else bytes_per_el
@@ -123,6 +157,9 @@ class VGGSplitProgram(SplitProgram):
             return float(batch * self.cfg.input_hw ** 2 * self.cfg.input_ch
                          * per)
         return vgg_model.activation_bytes(self.cfg, op - 1, per) * batch
+
+    def op_candidates(self) -> List[int]:
+        return list(self.cfg.ops)
 
     def width_mask(self, params, width: float) -> Params:
         """Channel-aware HeteroFL mask: every conv and hidden FC keeps its
@@ -169,8 +206,197 @@ class VGGSplitProgram(SplitProgram):
                  for k in m} for m, layer in zip(masks, params)]
 
 
+# =============================================================================
+# dense / MoE / VLM transformers (through models/split.py)
+# =============================================================================
+class LMSplitProgram(SplitProgram):
+    family = "lm"
+
+    def init(self, generator=0, device=None) -> Params:
+        """Random params (``models.<family>.init``) from the integer seed
+        ``generator``."""
+        return T.init(self.cfg, int(generator), device=device)
+
+    def client_forward(self, params, batch, op):
+        return lm_split.prefix_forward(self.cfg, params, batch["tokens"], op,
+                                       batch.get("patches"))
+
+    def server_forward(self, params, acts, batch, op):
+        return lm_split.suffix_loss(self.cfg, params, acts, batch["labels"],
+                                    op)
+
+    @property
+    def num_boundaries(self) -> int:
+        return self.cfg.num_layers + 1
+
+    def _eff_seq(self, seq: int) -> int:
+        return seq + (self.cfg.num_patches if self.cfg.family == "vlm"
+                      else 0)
+
+    def layer_flops(self, batch, seq=None) -> np.ndarray:
+        assert seq is not None, "LM split programs need the sequence length"
+        return cm.lm_layer_flops(self.cfg, self._eff_seq(seq)) * batch
+
+    def cut_bytes(self, op, batch, seq=None, bytes_per_el=4,
+                  quantize=False):
+        if op >= self.native_op:
+            return 0.0
+        assert seq is not None, "LM split programs need the sequence length"
+        per = 1 if quantize else bytes_per_el
+        return float(batch * self._eff_seq(seq) * self.cfg.d_model * per)
+
+
+# =============================================================================
+# SSM (Mamba-2): the same stacked cut, attention-free blocks
+# =============================================================================
+class SSMSplitProgram(LMSplitProgram):
+    family = "ssm"
+
+    def init(self, generator=0, device=None) -> Params:
+        return ssm_model.init(self.cfg, int(generator), device=device)
+
+    def client_forward(self, params, batch, op):
+        x = params["embed"][batch["tokens"]]
+        return ssm_model.layers_forward(self.cfg, params, x, 0, op)
+
+    def server_forward(self, params, acts, batch, op):
+        x = ssm_model.layers_forward(self.cfg, params, acts, op,
+                                     self.cfg.num_layers)
+        hidden = L.rms_norm(x, params["final_norm"])
+        return L.chunked_ce_loss(hidden, params["unembed"], batch["labels"])
+
+
+# =============================================================================
+# hybrid (RecurrentGemma): the cut between super-blocks
+# =============================================================================
+class HybridSplitProgram(LMSplitProgram):
+    """Layers of mixed kinds are grouped into super-blocks of
+    ``len(cfg.layer_pattern)`` layers, and the cut lands between them.  The
+    remainder layers (38 = 12 * 3 + 2) ride with the last unit: they run on
+    the device only at the native OP, on the server otherwise."""
+
+    family = "hybrid"
+
+    def init(self, generator=0, device=None) -> Params:
+        return hybrid_model.init(self.cfg, int(generator), device=device)
+
+    def _groups(self) -> int:
+        return hybrid_model._pattern_info(self.cfg)[0]
+
+    @staticmethod
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def client_forward(self, params, batch, op):
+        x = hybrid_model._embed(self.cfg, params, batch["tokens"])
+        return hybrid_model.groups_forward(self.cfg, params, x,
+                                           self._positions(x), 0, op)
+
+    def server_forward(self, params, acts, batch, op):
+        positions = self._positions(acts)
+        x = hybrid_model.groups_forward(self.cfg, params, acts, positions,
+                                        op, self._groups())
+        x = hybrid_model.rem_forward(self.cfg, params, x, positions)
+        hidden = L.rms_norm(x, params["final_norm"])
+        return L.chunked_ce_loss(hidden,
+                                 hybrid_model.unembed_matrix(self.cfg, params),
+                                 batch["labels"], self.cfg.logit_softcap)
+
+    @property
+    def num_boundaries(self) -> int:
+        return self._groups() + 1
+
+    def layer_flops(self, batch, seq=None) -> np.ndarray:
+        assert seq is not None, "LM split programs need the sequence length"
+        per_layer = cm.lm_layer_flops(self.cfg, seq) * batch
+        P = len(self.cfg.layer_pattern)
+        G = self._groups()
+        units = [per_layer[g * P:(g + 1) * P].sum() for g in range(G)]
+        units[-1] += per_layer[G * P:].sum()    # the remainder: last unit
+        return np.asarray(units, np.float64)
+
+
+# =============================================================================
+# encoder-decoder (Whisper): the encoder on the device, the cut in the
+# decoder
+# =============================================================================
+class EncDecSplitProgram(LMSplitProgram):
+    """The encoder is the modality frontend and always runs on the device;
+    the cut moves through the decoder stack.  The payload is (decoder acts,
+    encoder output): the server's cross-attention needs ``enc_out``."""
+
+    family = "encdec"
+
+    def init(self, generator=0, device=None) -> Params:
+        return encdec_model.init(self.cfg, int(generator), device=device)
+
+    def client_forward(self, params, batch, op):
+        enc_out = encdec_model.encode(self.cfg, params, batch["frames"])
+        x = params["embed"][batch["tokens"]]
+        x = encdec_model.decoder_layers(self.cfg, params, x, enc_out, 0, op)
+        return (x, enc_out)
+
+    def server_forward(self, params, acts, batch, op):
+        x, enc_out = acts
+        x = encdec_model.decoder_layers(self.cfg, params, x, enc_out, op,
+                                        self.cfg.num_layers)
+        hidden = L.rms_norm(x, params["final_norm"])
+        return L.chunked_ce_loss(hidden, params["unembed"], batch["labels"])
+
+    def layer_flops(self, batch, seq=None) -> np.ndarray:
+        assert seq is not None, "LM split programs need the sequence length"
+        cfg = self.cfg
+        S, Tn = seq, cfg.encoder_seq
+        n_mlp = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+        ffn = 2.0 * S * n_mlp * cfg.d_model * cfg.d_ff
+        self_attn = (2.0 * S * cfg.d_model * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+                     + 4.0 * S * S * cfg.q_dim)
+        cross = (2.0 * S * cfg.d_model * cfg.q_dim
+                 + 4.0 * Tn * cfg.d_model * cfg.kv_dim
+                 + 4.0 * S * Tn * cfg.q_dim
+                 + 2.0 * S * cfg.q_dim * cfg.d_model)
+        dec = self_attn + cross + ffn
+        enc_layer = (2.0 * Tn * cfg.d_model * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+                     + 4.0 * Tn * Tn * cfg.q_dim
+                     + 2.0 * Tn * n_mlp * cfg.d_model * cfg.d_ff)
+        units = np.full(cfg.num_layers, dec, np.float64)
+        # the encoder frontend rides the first unit (it always runs on the
+        # device, so Eq. 1's device fraction is approximate at OP 0)
+        units[0] += cfg.encoder_layers * enc_layer
+        return units * batch
+
+    def cut_bytes(self, op, batch, seq=None, bytes_per_el=4,
+                  quantize=False):
+        if op >= self.native_op:
+            return 0.0
+        assert seq is not None, "LM split programs need the sequence length"
+        per = 1 if quantize else bytes_per_el
+        return float(batch * (seq + self.cfg.encoder_seq)
+                     * self.cfg.d_model * per)
+
+
+# =============================================================================
+# registry
+# =============================================================================
+_FAMILY_PROGRAMS = {
+    "dense": LMSplitProgram,
+    "moe": LMSplitProgram,
+    "vlm": LMSplitProgram,
+    "ssm": SSMSplitProgram,
+    "hybrid": HybridSplitProgram,
+    "encdec": EncDecSplitProgram,
+}
+
+
 def get_split_program(cfg) -> SplitProgram:
+    """The SplitProgram of a VGGConfig or of any ModelConfig family."""
     if isinstance(cfg, VGGConfig):
         return VGGSplitProgram(cfg)
-    raise not_ported(f"config {type(cfg).__name__} (only VGG runs)",
-                     "LM families")
+    if isinstance(cfg, ModelConfig):
+        try:
+            return _FAMILY_PROGRAMS[cfg.family](cfg)
+        except KeyError:
+            raise KeyError(
+                f"no SplitProgram for family {cfg.family!r}; known: "
+                f"{sorted(_FAMILY_PROGRAMS)}") from None
+    raise TypeError(f"unsupported config type {type(cfg).__name__}")

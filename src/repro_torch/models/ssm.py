@@ -12,7 +12,11 @@ The full-sequence SSD (``ssd_chunked``, every prefill layer) goes through
 the SSD-scan kernel (``kernels.ssd_scan``), which returns y and the final
 state the prefill caches.  Decode (``ssd_decode_step`` and the conv
 window) stays plain PyTorch, as the reference computes it outside any
-Pallas kernel.  ``loss_fn`` is not ported.
+Pallas kernel.  ``loss_fn`` is the training loss (the chunked
+cross-entropy of the final hidden states), each layer rematerialised in
+the backward when ``cfg.remat``.  On the card the SSD scan has no backward
+kernel yet: a gradient through it raises (``kernels.ssd_scan``); on the
+CPU its plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
@@ -174,23 +178,37 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     N)}``.  ``patches`` and ``cache_seq`` are ignored, as in the reference
     (the cache does not grow with the sequence)."""
     x = params["embed"][tokens]
+    if not return_cache:
+        x = layers_forward(cfg, params, x, 0, cfg.num_layers)
+        return L.rms_norm(x, params["final_norm"]), None
     Bsz, S = tokens.shape
     W = cfg.ssm.conv_width
-    if return_cache and S < W - 1:
+    if S < W - 1:
         raise ValueError(f"a prefill needs at least conv_width - 1 = {W - 1} "
                          f"tokens to fill the conv cache; got {S}")
-    cache = init_cache(cfg, Bsz, S, x.dtype, x.device) if return_cache \
-        else None
+    cache = init_cache(cfg, Bsz, S, x.dtype, x.device)
     for i in range(cfg.num_layers):
         x, conv, state = block(cfg, T.layer_params(params, i), x)
-        if return_cache:
-            cache["conv"][i] = conv
-            cache["state"][i] = state
+        cache["conv"][i] = conv
+        cache["state"][i] = state
     return L.rms_norm(x, params["final_norm"]), cache
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
-    raise not_ported("the LM training loss (loss_fn)", "LM training")
+def layers_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   start: int, stop: int) -> torch.Tensor:
+    """Layers ``[start, stop)`` over the full sequence, each
+    rematerialised in the backward when ``cfg.remat``."""
+    for i in range(start, stop):
+        x = L.remat(cfg.remat, lambda x_, p: block(cfg, p, x_)[0], x,
+                    T.layer_params(params, i))
+    return x
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored)."""
+    hidden, _ = forward(cfg, params, batch["tokens"])
+    return L.chunked_ce_loss(hidden, params["unembed"], batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,

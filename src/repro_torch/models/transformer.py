@@ -15,7 +15,12 @@ windowed).  An MoE layer holds ``"moe"`` (``layers.moe_block``) where a
 dense one holds ``"ffn"``.  The VLM variant projects precomputed patch
 embeddings (the frontend stub) through ``patch_proj`` and puts them before
 the token embeddings; positions and the cache count the patches.
-``loss_fn`` (LM training) is not ported.
+
+``loss_fn`` is the training loss: the chunked cross-entropy of the final
+hidden states (labels -1 over the VLM's patches), plus 0.01 times the first
+layer's MoE load-balancing term for an MoE config.  While autograd records,
+each layer is rematerialised in the backward when ``cfg.remat`` (the
+reference's ``jax.checkpoint`` of the scan body); serving is unchanged.
 """
 from __future__ import annotations
 
@@ -197,16 +202,51 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     slot ``p % CL``, zeros elsewhere."""
     _check_family(cfg)
     x = embed_inputs(cfg, params, tokens, patches)
+    if not return_cache:
+        x = layers_forward(cfg, params, x, 0, cfg.num_layers)
+        return L.rms_norm(x, params["final_norm"]), None
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = None
-    if return_cache:
-        cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device)
+    cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device)
     for i, window in enumerate(window_schedule(cfg)):
         x, kv = _block(cfg, layer_params(params, i), x, positions, window)
-        if return_cache:
-            write_prefill_kv(cache["k"][i], cache["v"][i], kv)
+        write_prefill_kv(cache["k"][i], cache["v"][i], kv)
     return L.rms_norm(x, params["final_norm"]), cache
+
+
+def layers_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   start: int, stop: int) -> torch.Tensor:
+    """Layers ``[start, stop)`` over the full sequence ``x`` (B, S, d) from
+    position 0, each rematerialised in the backward when ``cfg.remat``
+    (``layers.remat``): the whole stack's forward, and the two stages of
+    the LM split path (``models/split.py``)."""
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    windows = window_schedule(cfg)
+    for i in range(start, stop):
+        x = L.remat(cfg.remat, lambda x_, p, w=windows[i]: _block(
+            cfg, p, x_, positions, w)[0], x, layer_params(params, i))
+    return x
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """The training loss of ``batch`` (``tokens``, ``labels`` (B, S_text),
+    -1 ignored; ``patches`` for the VLM): mean next-token cross-entropy,
+    plus ``0.01 * moe_aux_loss`` of the first layer's router on the
+    embeddings for an MoE config (the reference's representative term)."""
+    tokens, patches = batch["tokens"], batch.get("patches")
+    hidden, _ = forward(cfg, params, tokens, patches)
+    labels = batch["labels"]
+    if cfg.family == "vlm":   # patch positions carry no labels
+        pad = labels.new_full((labels.shape[0], cfg.num_patches), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = L.chunked_ce_loss(hidden, unembed_matrix(cfg, params), labels,
+                             cfg.logit_softcap)
+    if cfg.moe is not None:
+        h0 = embed_inputs(cfg, params, tokens, patches)
+        loss = loss + 0.01 * L.moe_aux_loss(
+            cfg, layer_params(params, 0)["moe"], h0)
+    return loss
 
 
 def write_prefill_kv(ck: torch.Tensor, cv: torch.Tensor, kv: Params

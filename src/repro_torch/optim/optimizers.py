@@ -6,8 +6,13 @@ tensors)::
     state = opt.init(params)
     params, state = opt.update(params, grads, state)
 
-* ``sgd``   -- SGD with momentum (the paper trains VGG with SGD).
-* ``adamw`` -- decoupled weight decay, folded into the step's delta.
+* ``sgd``       -- SGD with momentum (the paper trains VGG with SGD).
+* ``adamw``     -- decoupled weight decay, folded into the step's delta.
+* ``adafactor`` -- factored second moments (row and column means over the
+  last two axes of every leaf of 2 or more dims, leading stacked-layer
+  axes kept); the mixtral and arctic configs name it.
+
+``make_optimizer(name, schedule, **kw)`` picks one by name.
 
 ``torch.optim.AdamW`` is not a drop-in: the reference reads the learning
 rate from the schedule *before* the step counter increments, corrects the
@@ -118,3 +123,68 @@ def adamw(schedule=None, b1: float = 0.9, b2: float = 0.999,
 
     return Optimizer("adamw", init, update)
 
+
+
+# =============================================================================
+def adafactor(schedule=None, eps: float = 1e-30, clip_threshold: float = 1.0,
+              decay_pow: float = 0.8, min_dim_factored: int = 2,
+              weight_decay: float = 0.0) -> Optimizer:
+    """Shazeer & Stern (2018): a leaf of ``min_dim_factored`` or more dims
+    keeps a row vector ``vr`` (its shape without the last axis) and a column
+    vector ``vc`` (without the second-to-last) of second moments, a smaller
+    leaf a full ``v``; ``beta2 = 1 - step ** -decay_pow``; each leaf's update
+    is clipped to RMS ``clip_threshold``.  No first moment."""
+    schedule = schedule or constant(1e-2)
+
+    def _factored(p):
+        return p.dim() >= min_dim_factored
+
+    def init(params):
+        def stat(p):
+            def zeros(shape):
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=p.device)
+            if _factored(p):
+                return {"vr": zeros(p.shape[:-1]),
+                        "vc": zeros(p.shape[:-2] + p.shape[-1:])}
+            return {"v": zeros(p.shape)}
+        return {"step": torch.zeros((), dtype=torch.int32),
+                "stats": tree_map(stat, params)}
+
+    def update(params, grads, state):
+        step = state["step"] + 1
+        lr = float(schedule(state["step"]))
+        beta2 = float(1.0 - step.to(torch.float32) ** -decay_pow)
+
+        def upd(p, g, s):
+            g32 = g.to(torch.float32)
+            g2 = torch.square(g32) + eps
+            if _factored(p):
+                vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(dim=-1)
+                vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                denom = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(vr.mean(dim=-1)[..., None, None],
+                                       min=eps))
+                u = g32 / torch.sqrt(torch.clamp(denom, min=eps))
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = beta2 * s["v"] + (1 - beta2) * g2
+                u = g32 / torch.sqrt(torch.clamp(v, min=eps))
+                new_s = {"v": v}
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr * u).to(p.dtype), new_s
+
+        out = tree_map(upd, params, grads, state["stats"])
+        return tree_unzip(out, 0), {"step": step,
+                                    "stats": tree_unzip(out, 1)}
+
+    return Optimizer("adafactor", init, update)
+
+
+# =============================================================================
+def make_optimizer(name: str, schedule=None, **kw) -> Optimizer:
+    table = {"sgd": sgd, "adamw": adamw, "adafactor": adafactor}
+    return table[name](schedule=schedule, **kw)

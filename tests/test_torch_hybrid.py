@@ -419,12 +419,16 @@ def test_short_prompt_names_the_minimum(model):
 
 
 def test_family_dispatch_and_refusals(model):
+    """``api`` dispatches recurrentgemma to ``hybrid``, whose training loss
+    (``tests/test_torch_lm_loss.py`` holds it against the reference) is
+    ``api.loss``; the engine refuses the family, as the reference's."""
     _, tcfg, _, tp, _ = model
     assert tapi.get_model(tcfg) is TH
-    with pytest.raises(NotImplementedError, match="LM training"):
-        TH.loss_fn(tcfg, tp, None)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tapi.loss(tcfg, tp, None)
+    toks = torch.from_numpy(_tokens(8))
+    batch = {"tokens": toks, "labels": toks}
+    with torch.no_grad():
+        assert torch.equal(tapi.loss(tcfg, tp, batch),
+                           TH.loss_fn(tcfg, tp, batch))
     with pytest.raises(NotImplementedError, match="families"):
         ServeEngine(tcfg, tp)
 

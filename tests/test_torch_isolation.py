@@ -132,6 +132,35 @@ LM_ENTRY_POINTS = {
         "                        target_seq=8)\n"
         "logits, c = api.decode(cfg, p, c, t[:, :1], 5)\n"
         "assert logits.shape == (1, 256) and torch.isfinite(logits).all()\n"),
+    # LM training: every family's split program through the int8 cut, the
+    # flash Function's gradient and adafactor
+    "LM split programs: loss_through_cut + grad + adafactor": (
+        "import torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models.split_program import get_split_program\n"
+        "from repro_torch.optim import adafactor\n"
+        "from repro_torch.tree import tree_leaves, tree_map\n"
+        "for arch in ('qwen3-0.6b', 'mixtral-8x22b', 'internvl2-2b',\n"
+        "             'mamba2-780m', 'recurrentgemma-9b', 'whisper-base'):\n"
+        "    cfg = get_smoke_config(arch)\n"
+        "    prog = get_split_program(cfg)\n"
+        "    p = tree_map(lambda t: t.requires_grad_(), prog.init(0, 'cpu'))\n"
+        "    t = torch.zeros((1, 16), dtype=torch.long)\n"
+        "    b = {'tokens': t, 'labels': t,\n"
+        "         'patches': torch.zeros((1, cfg.num_patches, cfg.d_model)),\n"
+        "         'frames': torch.zeros((1, cfg.encoder_seq, cfg.d_model))}\n"
+        "    loss = prog.loss_through_cut(p, b, 1, quantize=True)\n"
+        "    g = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)\n"
+        "    assert torch.isfinite(loss) and any(x is not None for x in g)\n"
+        "opt = adafactor()\n"
+        "q = {'w': torch.ones(2, 3, 4)}\n"
+        "opt.update(q, q, opt.init(q))\n"),
+    "launch.train.main (lm16m, int8 cut)": (
+        "from repro_torch.launch.train import main\n"
+        "p = main(['--arch', 'lm16m', '--rounds', '2', '--local-steps', '1',\n"
+        "          '--batch', '1', '--seq', '16', '--clients', '2',\n"
+        "          '--quantize-transfer'], device='cpu')\n"
+        "assert p['embed'].shape == (4096, 320)\n"),
 }
 
 
@@ -180,5 +209,7 @@ def test_the_new_training_modules_are_in_the_import_check():
                  "repro_torch.fl.async_loop", "repro_torch.runtime.chaos",
                  "repro_torch.runtime.elastic", "repro_torch.fl.hetero",
                  "repro_torch.fl.hierarchy", "repro_torch.models.hybrid",
-                 "repro_torch.models.encdec", *DRIVERS):
+                 "repro_torch.models.encdec", "repro_torch.models.split",
+                 "repro_torch.models.split_program",
+                 "repro_torch.launch.train", *DRIVERS):
         assert name in _module_names()

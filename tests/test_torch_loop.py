@@ -187,6 +187,8 @@ def test_unknown_engine_or_server_step_raises(knob, value):
 
 
 def test_non_vgg_configs_raise():
+    """A config that is no VGGConfig or ModelConfig has no split program
+    (the LM families' programs are in tests/test_torch_split_lm.py)."""
     from repro_torch.models.split_program import get_split_program
-    with pytest.raises(NotImplementedError, match="LM families"):
+    with pytest.raises(TypeError, match="unsupported config type"):
         get_split_program(object())

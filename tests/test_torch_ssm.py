@@ -430,10 +430,16 @@ def test_full_width_param_count():
 
 
 def test_family_dispatch_and_refusals(model):
+    """``api`` dispatches mamba2 to ``ssm``, whose training loss
+    (``tests/test_torch_lm_loss.py`` holds it against the reference) is
+    ``api.loss``; the engine refuses the family, as the reference's."""
     _, tcfg, _, tp, _ = model
     assert tapi.get_model(tcfg) is TS
-    with pytest.raises(NotImplementedError, match="LM training"):
-        TS.loss_fn(tcfg, tp, None)
+    toks = torch.from_numpy(_tokens(8))
+    batch = {"tokens": toks, "labels": toks}
+    with torch.no_grad():
+        assert torch.equal(tapi.loss(tcfg, tp, batch),
+                           TS.loss_fn(tcfg, tp, batch))
     with pytest.raises(NotImplementedError, match="families"):
         ServeEngine(tcfg, tp)
 

@@ -162,10 +162,10 @@ def test_configs_equal_reference(name, cfg):
 
 
 def test_unported_families_raise():
-    """hybrid (recurrentgemma-9b) and encdec (whisper-base) are served by
-    their own modules now, which ``api.get_model`` returns; the
-    transformer still refuses them ("LM families"), and the loss of every
-    family raises "LM training"."""
+    """hybrid (recurrentgemma-9b) and encdec (whisper-base) are served and
+    trained by their own modules, which ``api.get_model`` returns; the
+    transformer still refuses them ("LM families").  ``api.loss`` is each
+    family's ``loss_fn`` (tests/test_torch_lm_loss.py)."""
     from repro_torch.configs import recurrentgemma_9b, whisper_base
     from repro_torch.models import encdec, hybrid
     for cfg, module in ((recurrentgemma_9b.smoke_config(), hybrid),
@@ -175,10 +175,13 @@ def test_unported_families_raise():
             TT.init(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="LM families"):
             TT.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="LM training"):
-            tapi.loss(cfg, None, None)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tapi.loss(qwen3_0_6b.smoke_config(), None, None)
+    cfg = qwen3_0_6b.smoke_config()
+    params = TT.init(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    batch = {"tokens": toks, "labels": toks}
+    with torch.no_grad():
+        assert torch.equal(tapi.loss(cfg, params, batch),
+                           TT.loss_fn(cfg, params, batch))
 
 
 def test_init_means_the_card():
