@@ -38,14 +38,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and the final state
    within 5e-4, the reference's own tolerances, and within 1e-5 of the
    largest plain value.  The flash backward (two fp32 kernels: dq, then
-   dk/dv) and the forward's row log-sum-exp against their plain versions
-   (``attention_bwd_plain``, the plain logsumexp) over the sweep's fp32
+   dk/dv) and the forward's output and row log-sum-exp against their plain
+   versions (``attention_bwd_plain``, ``attention_plain_lse``) over the
+   sweep's fp32
    cases (its head dim 13 and its rows that see no key, which must get dq
    exactly 0 and lse +inf) and qwen3-0.6b's (16 over 8 heads of 128, S =
    2048), gemma2-2b's (D = 256, softcap 50, global and window 4096 at S =
    1024), mixtral's (48 over 8 of 128, window 256), recurrentgemma-9b's
    (MQA of 256, window 2048 at S = 2100) shapes and inputs 4 bytes off a
-   16-byte boundary: dq, dk, dv each within 1e-5 x max(1, max|want|).
+   16-byte boundary: out, dq, dk, dv each within 1e-5 x max(1,
+   max|want|).
 4. the federated main path: ``run_federated`` on VGG-5 at full width
    (582,346 params, random weights from a seed), K=5 clients on the
    paper's 5-device testbed, 1000 samples each, batch 100, 10 local
@@ -237,10 +239,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    PyTorch call computes
    the SSD scan); the flash backward's two kernels and the whole backward
    at qwen3-0.6b's layer 0 (S = 4096, a real step's dO) and gemma2-2b's
-   global layer (softcap 50), beside the same two bounds, the plain
-   backward and the backward of SDPA (k and v repeated) or of compiled
-   ``flex_attention`` (the softcap); then print the kernels' JSON line and
-   the result line.
+   global layer (softcap 50), beside the same two bounds and the plain
+   version of the same part (dq; dk and dv; all three), the whole
+   backward also beside the backward of SDPA (k and v repeated) or of
+   compiled ``flex_attention`` (the softcap), which no PyTorch call splits
+   into the kernels' parts; then print the kernels' JSON line and the
+   result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -1617,24 +1621,25 @@ def check_flash(torch, tf, dev):
 
 
 def flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap, what):
-    """The forward kernel's lse against the plain log-sum-exp, and the
-    backward kernels' dq, dk, dv against ``attention_bwd_plain`` on the
-    same q, k, v, o, lse and do, each within FLASH_BWD_REL * max(1,
+    """The forward kernel's output and lse against ``attention_plain_lse``,
+    and the backward kernels' dq, dk, dv against ``attention_bwd_plain`` on
+    the same q, k, v, o, lse and do, each within FLASH_BWD_REL * max(1,
     max|want|); a row that sees no key must get dq exactly 0.  Returns
-    the max abs errors by name."""
+    the max abs errors by name ("out" is the forward kernel's) and their
+    bounds under "bounds"."""
     out, lse = tf.flash_attention_lse(q, k, v, causal, window, cap)
     got = tf.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
     torch.cuda.synchronize()
-    want_lse = tf.attention_plain_lse(q, k, v, causal, window, cap)[1]
+    want_out, want_lse = tf.attention_plain_lse(q, k, v, causal, window, cap)
     want = tf.attention_bwd_plain(q, k, v, out, lse, do, causal, window, cap)
     empty = torch.isinf(want_lse)
     if not torch.equal(torch.isinf(lse), empty) or bool((lse[empty] < 0)
                                                          .any()):
         fail(f"flash bwd {what}: lse is not +inf exactly on the rows that "
              f"see no key")
-    errs = {}
-    pairs = [("lse", lse[~empty], want_lse[~empty])] + list(
-        zip(("dq", "dk", "dv"), got, want))
+    errs, bounds = {}, {}
+    pairs = [("out", out, want_out), ("lse", lse[~empty], want_lse[~empty])
+             ] + list(zip(("dq", "dk", "dv"), got, want))
     for name, g, w in pairs:
         if not bool(torch.isfinite(g).all()):
             fail(f"flash bwd {what}: non-finite {name}")
@@ -1644,31 +1649,38 @@ def flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap, what):
         if err > bound:
             fail(f"flash bwd {what}: {name} max abs err {err} beyond "
                  f"{bound}")
-        errs[name] = err
+        errs[name], bounds[name] = err, bound
     if bool((got[0].transpose(1, 2)[empty] != 0).any()):
         fail(f"flash bwd {what}: a row that sees no key got a nonzero dq")
     print(f"flash_attention_bwd {what}: max_abs_err "
           + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
           + (f"; {int(empty.sum())} rows see no key, dq 0" if empty.any()
              else ""), flush=True)
-    return errs
+    return {**errs, "bounds": bounds}
 
 
-def check_flash_bwd(torch, tf, dev):
+def add_bwd_errs(worst, e):
+    """Fold one ``flash_bwd_drill``'s errors into the worst by kernel."""
+    for name, err in (("flash_attention", e["out"]),
+                      ("flash_attention_bwd_dq", e["dq"]),
+                      ("flash_attention_bwd_dkdv", max(e["dk"], e["dv"]))):
+        worst[name] = max(worst[name], err)
+
+
+def check_flash_bwd(torch, tf, dev, worst):
     """Phase 3, the flash backward (``FLASH_BWD_CASES`` and inputs 4 bytes
-    off a 16-byte boundary): returns the worst max abs error of the dq
-    kernel and of the dk/dv kernel."""
+    off a 16-byte boundary): folds into ``worst`` the max abs errors of the
+    forward kernel's output (with its lse on), of the dq kernel and of the
+    dk/dv kernel; returns each drill's errors and bounds."""
     gen = torch.Generator(device="cpu").manual_seed(4)
-    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkdv": 0.0}
+    worst.update(flash_attention_bwd_dq=0.0, flash_attention_bwd_dkdv=0.0)
+    drills = {}
 
     def drill(q, k, v, causal, window, cap, what):
         do = torch.randn(q.shape, generator=gen).to(dev)
-        e = flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap,
-                            what)
-        worst["flash_attention_bwd_dq"] = max(
-            worst["flash_attention_bwd_dq"], e["dq"])
-        worst["flash_attention_bwd_dkdv"] = max(
-            worst["flash_attention_bwd_dkdv"], e["dk"], e["dv"])
+        drills[what] = flash_bwd_drill(torch, tf, q, k, v, do, causal,
+                                       window, cap, what)
+        add_bwd_errs(worst, drills[what])
 
     for B, Sq, Sk, H, KV, D, causal, window, cap, _ in FLASH_BWD_CASES:
         q, k, v = (torch.randn(shape, generator=gen).to(dev)
@@ -1685,7 +1697,7 @@ def check_flash_bwd(torch, tf, dev):
     if q.data_ptr() % 16 == 0:
         fail("flash bwd misaligned drill: q is 16-byte aligned")
     drill(q, k, v, True, 0, 50.0, "(1, 130, 130, 4, 2, 64) misaligned")
-    return worst
+    return drills
 
 
 def capture_flash_calls(torch, L, run):
@@ -3528,14 +3540,17 @@ def time_flash_bwd(torch, tf, real):
     function's 5 products, 10 * D * H a pair: 171.8 GFLOP at qwen3's
     shape).  ``bound_ms`` is the 3xTF32 tensor-core bound (three TF32
     products per operation pair at 495 TFLOP/s), ``bound_fp32_ms`` the
-    fp32 CUDA-core bound the kernels run against (67 TFLOP/s).  The plain
-    version (``attention_bwd_plain``, which computes dq, dk and dv) is
-    timed in a CUDA graph; the yardstick, never called by the port, is the
-    backward of ``scaled_dot_product_attention`` (k and v repeated to H
-    heads; no softcap) or of compiled ``flex_attention`` (the softcap),
-    timed eagerly as one forward and backward less one forward, each
-    gradient's max abs difference from the kernels' kept as
-    ``library_err``."""
+    fp32 CUDA-core bound the kernels run against (67 TFLOP/s).  Each row's
+    plain version computes that row's part, timed in a CUDA graph:
+    ``attention_bwd_dq_plain`` (dq and delta), ``attention_bwd_dkdv_plain``
+    (dk, dv) and ``attention_bwd_plain`` (all three).  The yardstick, never
+    called by the port, computes the whole backward only, so only the
+    whole row has one: the backward of ``scaled_dot_product_attention`` (k
+    and v repeated to H heads; no softcap) or of compiled
+    ``flex_attention`` (the softcap), timed eagerly as one forward and
+    backward less one forward, each gradient's max abs difference from the
+    kernels' kept as ``library_err``; the kernels' rows carry
+    ``library_ms`` None."""
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(11)
     rows = []
@@ -3577,35 +3592,41 @@ def time_flash_bwd(torch, tf, real):
         kw = dict(reps=5, inner=3)
         lib_ms = (time_ms(lib_grads, graph=False, **kw)
                   - time_ms(fwd, graph=False, **kw))
-        plain_ms = time_ms(lambda: tf.attention_bwd_plain(
-            q, k, v, o, lse, do, True, window, cap), **kw)
         io = 4 * (q.numel() + k.numel() + v.numel())
-        for name, fn, products, nbytes in [
-                ("flash_attention_bwd_dq", lambda: tf.flash_attention_bwd_dq(
-                    q, k, v, o, lse, do, True, window, cap), 3,
-                 io + 4 * (3 * q.numel() + 2 * lse.numel())),
+        args = (True, window, cap)
+        for name, fn, plain, products, nbytes, computes in [
+                ("flash_attention_bwd_dq",
+                 lambda: tf.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                   *args),
+                 lambda: tf.attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                   *args), 3,
+                 io + 4 * (3 * q.numel() + 2 * lse.numel()), "dq, delta"),
                 ("flash_attention_bwd_dkdv",
-                 lambda: tf.flash_attention_bwd_dkdv(
-                     q, k, v, lse, delta, do, True, window, cap), 4,
+                 lambda: tf.flash_attention_bwd_dkdv(q, k, v, lse, delta, do,
+                                                     *args),
+                 lambda: tf.attention_bwd_dkdv_plain(q, k, v, lse, delta, do,
+                                                     *args), 4,
                  io + 4 * (q.numel() + 2 * lse.numel() + k.numel()
-                           + v.numel())),
-                ("flash_attention_bwd", lambda: tf.flash_attention_bwd(
-                    q, k, v, o, lse, do, True, window, cap), 5,
-                 io + 4 * (3 * q.numel() + lse.numel() + k.numel()
-                           + v.numel()))]:
+                           + v.numel()), "dk, dv"),
+                ("flash_attention_bwd",
+                 lambda: tf.flash_attention_bwd(q, k, v, o, lse, do, *args),
+                 lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, *args),
+                 5, io + 4 * (3 * q.numel() + lse.numel() + k.numel()
+                              + v.numel()), "dq, dk, dv")]:
             ops = 2 * products * D * H * pairs
             b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+            whole = name == "flash_attention_bwd"
             row = {"name": name, "shape": [B, S, H, KV, D],
                    "ms": time_ms(fn, **kw),
                    "call_ms": time_ms(fn, graph=False, **kw),
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "plain_ms": time_ms(plain, **kw), "bound_ms": b_ms,
+                   "bound_by": b_by,
                    "bound_fp32_ms": bound_ms(nbytes, ops)[0],
-                   "library_ms": lib_ms, "library": what,
+                   "library_ms": lib_ms if whole else None,
+                   "library": what if whole else None,
                    "library_err": library_err, "model": model,
                    "window": window, "softcap": cap, "causal": True,
-                   "pairs": pairs, "gflop": ops / 1e9,
-                   "plain_computes": "dq, dk and dv",
-                   "library_computes": "dq, dk and dv"}
+                   "pairs": pairs, "gflop": ops / 1e9, "computes": computes}
             rows.append(row)
         print(f"flash backward vs {what} ({model}): max abs grad diff "
               f"{library_err:.3g}")
@@ -3715,6 +3736,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f" {r['model']} window {r['window']} softcap "
                  f"{r['softcap']}" if "window" in r else "")
+        if "computes" in r:
+            extra += f" ({r['computes']})"
         fp32 = (f", 3xTF32 tensor cores; fp32 CUDA-core bound_fp32_ms "
                 f"{r['bound_fp32_ms']:.5f}" if "bound_fp32_ms" in r else "")
         print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
@@ -3762,7 +3785,20 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                 "no Pallas backward exists: the gradient of this line's "
                 "function, which the reference takes by autodiff of the jnp "
                 "attention (src/repro/models/layers.py:137)")
-            kernels[-1]["plain_and_library_compute"] = "dq, dk and dv"
+            kernels[-1]["computes"] = r["computes"]
+            # no library call computes one kernel's part alone: the pair's
+            # row (the same shape, the whole backward) carries the yardstick
+            pair = next(p for p in rows if p["name"] == "flash_attention_bwd"
+                        and p["shape"] == r["shape"])
+            kernels[-1]["library_note"] = (
+                "no PyTorch call computes this kernel's part alone; "
+                "whole_backward holds the pair (dq + dk/dv kernels) against "
+                "the library's whole backward")
+            kernels[-1]["whole_backward"] = {
+                key: pair[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "bound_fp32_ms",
+                                           "library_ms", "library",
+                                           "library_err", "computes")}
     return kernels, rows
 
 
@@ -3816,7 +3852,7 @@ def main() -> None:
         phase("3. kernels vs plain versions")
         worst = check_kernels(torch, tq, tt, dev)
         worst["flash_attention"] = check_flash(torch, tf, dev)
-        worst.update(check_flash_bwd(torch, tf, dev))
+        record["flash_bwd_drills"] = check_flash_bwd(torch, tf, dev, worst)
         worst["ssd_scan"] = check_ssd(torch, ts, dev)
         torch.cuda.synchronize()
 
@@ -3897,10 +3933,7 @@ def main() -> None:
             torch, tf, dev, LAUNCHES, reset_launches)
         record["main_path"]["train-qwen3-0.6b"] = training
         for e in training["real_layer_bwd_err"].values():
-            worst["flash_attention_bwd_dq"] = max(
-                worst["flash_attention_bwd_dq"], e["dq"])
-            worst["flash_attention_bwd_dkdv"] = max(
-                worst["flash_attention_bwd_dkdv"], e["dk"], e["dv"])
+            add_bwd_errs(worst, e)
         free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}

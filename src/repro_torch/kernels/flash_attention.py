@@ -106,17 +106,41 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by the kernels' formulas in torch ops: ``P = exp(s - lse)`` (0 where
     masked), ``dS = P * (dP - rowsum(do * o))`` times the softcap's
     ``1 - tanh^2``.  A row that sees no key (lse = +inf) gets zeros.  The
-    CPU's backward and the kernels' yardstick on the card."""
-    return _bwd_plain(q, k, v, _delta_plain(o, do), lse, do, causal, window,
-                      softcap)
+    CPU's backward and the kernels' yardstick on the card; like the kernels
+    it is two passes, ``attention_bwd_dq_plain`` then
+    ``attention_bwd_dkdv_plain``, each recomputing P and dS."""
+    dq, delta = attention_bwd_dq_plain(q, k, v, o, lse, do, causal, window,
+                                       softcap)
+    return (dq,) + attention_bwd_dkdv_plain(q, k, v, lse, delta, do, causal,
+                                            window, softcap)
 
 
-def _delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """rowsum(do * o) as (B, H, Sq) fp32."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2)
+def attention_bwd_dq_plain(q, k, v, o, lse, do, causal=True, window=0,
+                           softcap=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dq kernel's plain version: dq, and delta = rowsum(do * o)
+    (B, H, Sq) fp32."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    _, ds, _, _ = _p_ds_plain(q, k, v, delta, lse, do, causal, window,
+                              softcap)
+    B, Sq, H, D = q.shape
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, D)
+    return dq.to(q.dtype), delta
 
 
-def _bwd_plain(q, k, v, delta, lse, do, causal, window, softcap):
+def attention_bwd_dkdv_plain(q, k, v, lse, delta, do, causal=True, window=0,
+                             softcap=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's plain version: dk and dv, the GQA group's query
+    heads summed into each KV head."""
+    p, ds, qg, dog = _p_ds_plain(q, k, v, delta, lse, do, causal, window,
+                                 softcap)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _p_ds_plain(q, k, v, delta, lse, do, causal, window, softcap):
+    """P and dS (times the scale) ``(B, KV, G, Sq, Sk)`` fp32, with q and do
+    grouped ``(B, Sq, KV, G, D)``."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -132,15 +156,11 @@ def _bwd_plain(q, k, v, delta, lse, do, causal, window, softcap):
     mask = visible_mask(Sq, Sk, causal, window, q.device)
     lse5 = lse.float().reshape(B, KV, G, Sq)[..., None]
     p = torch.where(mask, torch.exp(s - lse5), 0.0)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
     ds = p * (dp - delta.float().reshape(B, KV, G, Sq)[..., None])
     if softcap > 0:
         ds = ds * (1.0 - t * t)
-    ds = ds * scale
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, D)
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return p, ds * scale, qg, dog
 
 
 def _check(q, k, v) -> None:
@@ -241,8 +261,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dq, dk, dv from q, k, v, the forward's output ``o`` and log-sum-exp
     ``lse`` (B, H, Sq), and ``do``: fp32 tensors of one device.  A CUDA
     tensor launches the dq kernel (which also writes each row's
-    ``rowsum(do * o)``) and then the dk/dv kernel; a CPU tensor takes
-    ``attention_bwd_plain``."""
+    ``rowsum(do * o)``) and then the dk/dv kernel; a CPU tensor takes their
+    plain versions, which make ``attention_bwd_plain``."""
     _check(q, k, v)
     B, Sq, H, _ = q.shape
     tensors = (q, k, v, o, lse, do)
@@ -257,11 +277,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_attention_bwd: every input must lie on q's "
                          "device")
-    if not _build.wants_kernel(q, "flash_attention_bwd"):
-        return attention_bwd_plain(q, k, v, o, lse, do, causal, window,
-                                   softcap)
-    if q.numel() == 0 or k.shape[1] == 0:
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, window,
                                        softcap)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, do, causal,
@@ -287,11 +302,12 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, window=0,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's first kernel (inputs as ``flash_attention_bwd``
     checks them): dq, and delta = rowsum(do * o) (B, H, Sq), which the
-    dk/dv kernel reads.  A CPU tensor takes the plain version."""
+    dk/dv kernel reads.  A CPU tensor takes ``attention_bwd_dq_plain``."""
     if not _build.wants_kernel(q, "flash_attention_bwd_dq"):
-        delta = _delta_plain(o, do)
-        return _bwd_plain(q, k, v, delta, lse, do, causal, window,
-                          softcap)[0], delta
+        return attention_bwd_dq_plain(q, k, v, o, lse, do, causal, window,
+                                      softcap)
+    if q.numel() == 0 or k.shape[1] == 0:
+        return torch.zeros_like(q), torch.zeros(lse.shape, device=q.device)
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     dq = torch.empty_like(q)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
@@ -307,11 +323,13 @@ def flash_attention_bwd_dkdv(q, k, v, lse, delta, do, causal=True, window=0,
                              softcap=0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's second kernel: dk and dv, the GQA group's query
-    heads summed into each KV head.  A CPU tensor takes the plain
-    version."""
+    heads summed into each KV head.  A CPU tensor takes
+    ``attention_bwd_dkdv_plain``."""
     if not _build.wants_kernel(q, "flash_attention_bwd_dkdv"):
-        return _bwd_plain(q, k, v, delta, lse, do, causal, window,
-                          softcap)[1:]
+        return attention_bwd_dkdv_plain(q, k, v, lse, delta, do, causal,
+                                        window, softcap)
+    if q.numel() == 0 or k.shape[1] == 0:
+        return torch.zeros_like(k), torch.zeros_like(v)
     q, k, v, lse, delta, do = (t.contiguous()
                                for t in (q, k, v, lse, delta, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -227,7 +227,7 @@ class LMSplitProgram(SplitProgram):
 
     @property
     def num_boundaries(self) -> int:
-        return self.cfg.num_layers + 1
+        return lm_split.num_boundaries(self.cfg)
 
     def _eff_seq(self, seq: int) -> int:
         return seq + (self.cfg.num_patches if self.cfg.family == "vlm"
@@ -242,8 +242,8 @@ class LMSplitProgram(SplitProgram):
         if op >= self.native_op:
             return 0.0
         assert seq is not None, "LM split programs need the sequence length"
-        per = 1 if quantize else bytes_per_el
-        return float(batch * self._eff_seq(seq) * self.cfg.d_model * per)
+        return lm_split.cut_bytes(self.cfg, batch, self._eff_seq(seq),
+                                  bytes_per_el, quantize)
 
 
 # =============================================================================
@@ -370,9 +370,9 @@ class EncDecSplitProgram(LMSplitProgram):
         if op >= self.native_op:
             return 0.0
         assert seq is not None, "LM split programs need the sequence length"
-        per = 1 if quantize else bytes_per_el
-        return float(batch * (seq + self.cfg.encoder_seq)
-                     * self.cfg.d_model * per)
+        # the payload: the decoder's acts and the encoder's output
+        return lm_split.cut_bytes(self.cfg, batch, seq + self.cfg.encoder_seq,
+                                  bytes_per_el, quantize)
 
 
 # =============================================================================

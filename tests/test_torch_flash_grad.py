@@ -72,6 +72,39 @@ def test_flash_gradient_matches_reference(B, Sq, Sk, H, KV, D, causal,
         _assert_rel(g.numpy(), w, name)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype",
+                         [CASES[2], CASES[3], CASES[4], EMPTY_ROWS])
+def test_each_backward_kernel_wrapper_takes_its_plain_part(
+        B, Sq, Sk, H, KV, D, causal, window, cap, dtype):
+    """On the CPU the dq wrapper gives dq and delta = rowsum(do * o), and
+    the dk/dv wrapper, fed that delta, gives dk and dv: each against the
+    reference's gradient (same bound), without a launch."""
+    q, k, v, do = _inputs(B, Sq, Sk, H, KV, D, seed=Sq * 3 + D)
+    _, vjp = jax.vjp(
+        lambda a, b, c: attention_ref(a, b, c, causal=causal, window=window,
+                                      softcap=cap),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = tf.flash_attention_lse(tq, tk, tv, causal, window, cap)
+    before = dict(LAUNCHES)
+    dq, delta = tf.flash_attention_bwd_dq(tq, tk, tv, o, lse, tdo, causal,
+                                          window, cap)
+    dk, dv = tf.flash_attention_bwd_dkdv(tq, tk, tv, lse, delta, tdo, causal,
+                                         window, cap)
+    assert LAUNCHES == before
+    assert delta.shape == (B, H, Sq) and delta.dtype == torch.float32
+    torch.testing.assert_close(delta, (tdo * o).sum(-1).transpose(1, 2),
+                               rtol=0, atol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(g).all(), name
+        _assert_rel(g.numpy(), w, name)
+    whole = tf.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal, window,
+                                   cap)
+    for g, w in zip((dq, dk, dv), whole):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_rows_that_see_no_key_get_zero_gradients():
     B, Sq, Sk, H, KV, D, causal, window, cap, _ = EMPTY_ROWS
     q, k, v, do = _inputs(B, Sq, Sk, H, KV, D, seed=5)

@@ -117,22 +117,28 @@ def check_split_program(arch):
     assert type(tprog).__name__ == type(jprog).__name__
     assert tprog.num_boundaries == jprog.num_boundaries
     assert tprog.op_candidates() == jprog.op_candidates()
+    # at the native OP nothing crosses: the quantized run is the plain one
+    # in both packages
+    cases = [(op, quant) for op in range(tprog.num_boundaries)
+             for quant in (False, True)
+             if not (quant and op == tprog.native_op)]
+    jb = jax_batch(b)
+
+    def every_case(p):
+        return [jax.value_and_grad(
+            lambda p: jprog.loss_through_cut(p, jb, op, quantize=quant))(p)
+            for op, quant in cases]
+
+    # one compile for every case (each its own would compile 2L + 1 times)
     worst = 0.0
-    for op in range(tprog.num_boundaries):
-        for quant in (False, True):
-            # at the native OP nothing crosses: the quantized run is the
-            # plain one in both packages
-            if not (quant and op == tprog.native_op):
-                jl, jg = jax.jit(jax.value_and_grad(
-                    lambda p: jprog.loss_through_cut(p, jax_batch(b), op,
-                                                     quantize=quant)))(jp)
-            tg, tl = port_grads(
-                lambda p: tprog.loss_through_cut(p, torch_batch(b), op,
-                                                 quantize=quant), tp)
-            what = f"{arch} op {op} quantize {quant}"
-            assert abs(float(tl.detach()) - float(jl)) <= \
-                1e-6 * abs(float(jl)), what
-            worst = max(worst, assert_grads_close(tg, jg, 1e-5, what))
+    for (op, quant), (jl, jg) in zip(cases, jax.jit(every_case)(jp)):
+        tg, tl = port_grads(
+            lambda p: tprog.loss_through_cut(p, torch_batch(b), op,
+                                             quantize=quant), tp)
+        what = f"{arch} op {op} quantize {quant}"
+        assert abs(float(tl.detach()) - float(jl)) <= \
+            1e-6 * abs(float(jl)), what
+        worst = max(worst, assert_grads_close(tg, jg, 1e-5, what))
     with torch.no_grad():
         got = tprog.eval_metric(tp, torch_batch(b))
     want = jprog.eval_metric(jp, jax_batch(b))
