@@ -37,8 +37,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    S < chunk, a chunk of 40, P over two slices, an odd P over 64), on y
    and the final state
    within 5e-4, the reference's own tolerances, and within 1e-5 of the
-   largest plain value.  The flash backward (two fp32 kernels: dq, then
-   dk/dv) and the forward's output and row log-sum-exp against their plain
+   largest plain value.  The flash backward (two kernels, dq then dk/dv,
+   3xTF32 on the tensor cores) and the forward's output and row log-sum-exp against their plain
    versions (``attention_bwd_plain``, ``attention_plain_lse``) over the
    sweep's fp32
    cases (its head dim 13 and its rows that see no key, which must get dq
@@ -243,8 +243,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version of the same part (dq; dk and dv; all three), the whole
    backward also beside the backward of SDPA (k and v repeated) or of
    compiled ``flex_attention`` (the softcap), which no PyTorch call splits
-   into the kernels' parts; then print the kernels' JSON line and the
-   result line.
+   into the kernels' parts; each row also carries the work the kernels
+   compute (three products in dq, four in dk/dv: seven for the pair) and
+   its 3xTF32 bound; two calls of the pair on each of these layers must
+   give bitwise-equal dq, dk and dv (the kernels use no atomics); then
+   print the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -366,9 +369,10 @@ FLASH_BWD_CASES = [c for c in FLASH_CASES if c[-1] == "float32"] + [
     (1, 2100, 2100, 16, 1, 256, True, 2048, 0.0, "float32"),
 ]
 # dq, dk, dv (and the forward's lse) within FLASH_BWD_REL * max(1,
-# max|want|): kernel and plain version both sum in fp32 (the kernel with
-# fmaf on the CUDA cores, the plain version through cuBLAS), in other
-# orders, over D and over up to 2100 keys or rows (times the GQA group)
+# max|want|): kernel and plain version both sum in fp32 (the kernel's
+# products in 3xTF32 on the tensor cores, each tile's summed apart; the
+# plain version through cuBLAS), in other orders, over D and over up to
+# 2100 keys or rows (times the GQA group)
 FLASH_BWD_REL = 1e-5
 # gemma2-2b's real-layer drill.  1e-5 as in the sweep: the kernel and the
 # plain version both sum in fp32 (over D=256 and up to 4608 keys), the
@@ -3540,7 +3544,12 @@ def time_flash_bwd(torch, tf, real):
     function's 5 products, 10 * D * H a pair: 171.8 GFLOP at qwen3's
     shape).  ``bound_ms`` is the 3xTF32 tensor-core bound (three TF32
     products per operation pair at 495 TFLOP/s), ``bound_fp32_ms`` the
-    fp32 CUDA-core bound the kernels run against (67 TFLOP/s).  Each row's
+    same operations at the fp32 CUDA-core rate (67 TFLOP/s).  Each row
+    also carries what its kernels compute, ``computed_gflop`` (dq 3
+    products, dk/dv 4, the pair 7: both kernels recompute S and dP, 240.6
+    GFLOP at qwen3's shape), and ``computed_bound_ms``, its 3xTF32 bound.
+    Two calls of the pair on each layer must give bitwise-equal dq, dk and
+    dv (no atomics), or the run fails.  Each row's
     plain version computes that row's part, timed in a CUDA graph:
     ``attention_bwd_dq_plain`` (dq and delta), ``attention_bwd_dkdv_plain``
     (dk, dv) and ``attention_bwd_plain`` (all three).  The yardstick, never
@@ -3564,6 +3573,14 @@ def time_flash_bwd(torch, tf, real):
         pairs = int(tf.visible_mask(S, Sk, True, window, q.device).sum())
         o, lse = tf.flash_attention_lse(q, k, v, True, window, cap)
         mine = tf.flash_attention_bwd(q, k, v, o, lse, do, True, window, cap)
+        again = tf.flash_attention_bwd(q, k, v, o, lse, do, True, window,
+                                       cap)
+        if not all(torch.equal(a, b) for a, b in zip(mine, again)):
+            fail(f"flash backward ({model}): two calls on the same inputs "
+                 f"differ (dq, dk, dv must be bitwise repeatable)")
+        print(f"flash backward ({model}): two calls give bitwise-equal dq, "
+              f"dk, dv")
+        del again
         _, delta = tf.flash_attention_bwd_dq(q, k, v, o, lse, do, True,
                                              window, cap)
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3594,26 +3611,27 @@ def time_flash_bwd(torch, tf, real):
                   - time_ms(fwd, graph=False, **kw))
         io = 4 * (q.numel() + k.numel() + v.numel())
         args = (True, window, cap)
-        for name, fn, plain, products, nbytes, computes in [
+        for name, fn, plain, products, computed, nbytes, computes in [
                 ("flash_attention_bwd_dq",
                  lambda: tf.flash_attention_bwd_dq(q, k, v, o, lse, do,
                                                    *args),
                  lambda: tf.attention_bwd_dq_plain(q, k, v, o, lse, do,
-                                                   *args), 3,
+                                                   *args), 3, 3,
                  io + 4 * (3 * q.numel() + 2 * lse.numel()), "dq, delta"),
                 ("flash_attention_bwd_dkdv",
                  lambda: tf.flash_attention_bwd_dkdv(q, k, v, lse, delta, do,
                                                      *args),
                  lambda: tf.attention_bwd_dkdv_plain(q, k, v, lse, delta, do,
-                                                     *args), 4,
+                                                     *args), 4, 4,
                  io + 4 * (q.numel() + 2 * lse.numel() + k.numel()
                            + v.numel()), "dk, dv"),
                 ("flash_attention_bwd",
                  lambda: tf.flash_attention_bwd(q, k, v, o, lse, do, *args),
                  lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, *args),
-                 5, io + 4 * (3 * q.numel() + lse.numel() + k.numel()
+                 5, 7, io + 4 * (3 * q.numel() + lse.numel() + k.numel()
                               + v.numel()), "dq, dk, dv")]:
             ops = 2 * products * D * H * pairs
+            done = 2 * computed * D * H * pairs
             b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
             whole = name == "flash_attention_bwd"
             row = {"name": name, "shape": [B, S, H, KV, D],
@@ -3626,7 +3644,11 @@ def time_flash_bwd(torch, tf, real):
                    "library": what if whole else None,
                    "library_err": library_err, "model": model,
                    "window": window, "softcap": cap, "causal": True,
-                   "pairs": pairs, "gflop": ops / 1e9, "computes": computes}
+                   "pairs": pairs, "gflop": ops / 1e9, "computes": computes,
+                   "computed_gflop": done / 1e9,
+                   "computed_bound_ms": bound_ms(nbytes, 3 * done,
+                                                 TF32_OPS_PER_S)[0],
+                   "bitwise_repeat": True}
             rows.append(row)
         print(f"flash backward vs {what} ({model}): max abs grad diff "
               f"{library_err:.3g}")
@@ -3737,7 +3759,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
         extra = (f" {r['model']} window {r['window']} softcap "
                  f"{r['softcap']}" if "window" in r else "")
         if "computes" in r:
-            extra += f" ({r['computes']})"
+            extra += (f" ({r['computes']}; computes "
+                      f"{r['computed_gflop']:.1f} GFLOP, 3xTF32 bound "
+                      f"{r['computed_bound_ms']:.4f} ms)")
         fp32 = (f", 3xTF32 tensor cores; fp32 CUDA-core bound_fp32_ms "
                 f"{r['bound_fp32_ms']:.5f}" if "bound_fp32_ms" in r else "")
         print(f"kernel {r['name']} {tuple(r['shape'])}{extra}: launches "
@@ -3786,6 +3810,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                 "function, which the reference takes by autodiff of the jnp "
                 "attention (src/repro/models/layers.py:137)")
             kernels[-1]["computes"] = r["computes"]
+            kernels[-1]["computed_gflop"] = r["computed_gflop"]
+            kernels[-1]["computed_bound_ms"] = r["computed_bound_ms"]
             # no library call computes one kernel's part alone: the pair's
             # row (the same shape, the whole backward) carries the yardstick
             pair = next(p for p in rows if p["name"] == "flash_attention_bwd"
@@ -3798,7 +3824,9 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                 key: pair[key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "bound_fp32_ms",
                                            "library_ms", "library",
-                                           "library_err", "computes")}
+                                           "library_err", "computes",
+                                           "computed_gflop",
+                                           "computed_bound_ms")}
     return kernels, rows
 
 

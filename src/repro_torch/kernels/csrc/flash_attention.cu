@@ -91,22 +91,68 @@
 //   dQ = scale * dS K  dK = scale * dS^T Q
 // GQA sums the group's query heads into their KV head.  A row that sees no
 // key has lse = +inf, so P = 0 and its gradients are 0.  fp32 in and out.
-// Arithmetic: fp32 on the CUDA cores (fmaf), no TF32 product.  It is a
-// first, simple kernel: the 5 products (S, dP, dV, dK, dQ) over the
-// visible pairs are 10 * D * H operations a pair, 171.8 GFLOP at
-// qwen3-0.6b's layer (S = 4096, H = 16, D = 128, causal), 2.56 ms at the
-// 67 TFLOP/s fp32 rate; shared-memory reads of the tiles bound the inner
-// loops well above that (PERF.md has the times).  Two kernels, no atomics,
-// so a result does not depend on the schedule:
-// * dq: one CTA of 8 warps per (batch, head, query tile of BT rows); it
-//   computes delta for its rows (one warp a row) and writes it out, then
-//   walks the key tiles its rows can see, recomputing S and dP.
-// * dk/dv: one CTA per (batch, KV head, key tile); it keeps the tile's K
-//   and V and its dK, dV accumulators (BT x D each, in registers) and walks
-//   the group's query heads and the query tiles that can see the tile.
-// BT = 64 (32 at D = 256); both kernels hold Q, dO, K, V tiles and the
-// tile's P and dS in shared memory (165 KB at D = 128, 139 KB at 256),
-// opted in once per instantiation as the forward is.
+// Two kernels, no atomics, so a result does not depend on the schedule
+// (two calls give the same bits); each recomputes S and dP, so the pair
+// computes seven products where the function has five:
+// * dq: one CTA per (batch, head, query tile of BR rows), heaviest tiles
+//   first; it writes delta for its rows and walks the key tiles its rows
+//   can see: S = Q K^T, dP = dO V^T, dS, dQ += dS K.
+// * dk/dv: one CTA per (batch, KV head, key tile of BR keys), the first
+//   (heaviest under the causal mask) tiles first; it walks the group's
+//   query heads in order and, for each, the query tiles that see the key
+//   tile: S^T = K Q^T, dP^T = V dO^T, P^T and dS^T, dV += P^T dO,
+//   dK += dS^T Q.
+// Arithmetic: every product in 3xTF32 on the tensor cores (mma.sync
+// m16n8k8, the forward's split and helpers).  The accumulation follows the
+// forward's rule: S and dP sum their small and large products apart, and
+// each gradient tile's product (BC streamed rows) is summed in fresh
+// registers, small terms first, then added to the running fp32 dQ, dK or
+// dV by an fp32 add (at qwen3-0.6b's shape dQ adds up to 128 such tile
+// sums, a key tile's dK and dV 256).
+// What the design does about this card (PERF.md has the measurements):
+// * operands split once.  The resident operands (Q and dO in dq, K and V
+//   in dk/dv) are split into hi/lo when the CTA starts and kept in shared
+//   memory in mma fragment order (load_split): one LDS.128 is one A
+//   operand, with no register moves (an interleaved (hi, lo) row layout
+//   cost ~90 moves per 48 mma) and no bank conflicts.  The score tile
+//   that feeds a gradient product as A (dS in dq, P^T in dk/dv) is split
+//   by the lane that computed it, also in fragment order: the k-slots of
+//   the gradient products are mapped so that a lane's accumulators are its
+//   own A operand (bwd_put_split).  dS^T in dk/dv stays raw fp32 (split
+//   where read): split too, dk/dv would need 233,984 B of shared memory at
+//   D = 128, over the 232,448 a CTA may have.  The streamed tiles are split
+//   where they are read.
+// * the streamed tiles (K and V in dq; Q, dO, lse and delta in dk/dv) come
+//   BC rows at a time, double-buffered with cp.async as the forward's K and
+//   V (16 B copies, 4 B for D % 4 != 0 or a misaligned pointer; rows past
+//   the end and columns past D zero-filled), so a tile's loads overlap the
+//   previous tile's products.  Half the warps issue the copies
+//   (kCopyThreads).
+// * phases of one (resident, streamed) tile pair, 8 warps, one CTA an SM:
+//   scores in warp tiles of 16 resident x 16 streamed rows (SNT = 2) over
+//   D (at D = 256, 16 x 8, and two warps split D and trade partial sums
+//   through raw score tiles); the masks only in warp tiles that some
+//   (query, key) pair cannot see (the forward's rule); a barrier; the
+//   gradients in warp tiles of 32 resident rows x 8 GNT columns of D, the
+//   streamed tile as B with the forward's V mapping.  P's exponential is
+//   taken for every element and the masked ones selected away after, so
+//   that a tile's exponentials overlap (bwd_p_ds).
+// Tiles per head dim (BR resident rows, BC streamed rows; shared memory
+// dq / dk/dv): D <= 128: BR = 64, BC = 32 (D = 128: 217,600 / 227,840 B;
+// 64: 119,296 / 129,536; 32: 70,144 / 80,384); D = 256: BR = 32, BC = 16
+// (209,152 B each): a resident 64-row hi/lo pair alone would be 256 KB.
+// Streamed rows at DP + 8 words and raw score rows at BC + 8, so that the
+// fragment reads are free of bank conflicts (the gradient products' reads
+// of the streamed tile, two rows apart, are 2-way).  The launch opts in to
+// the shared memory once per instantiation, before any graph capture.
+// Bound on this card: operations.  At qwen3-0.6b's layer (S = 4096, H =
+// 16, KV = 8, D = 128, causal) the function is 10 * D * H operations for
+// each visible pair, 171.8 GFLOP: 1.04 ms in 3xTF32 at 495 TFLOP/s (2.56
+// in fp32 at 67); the seven products the pair computes are 14 * D * H a
+// pair, 240.6 GFLOP: 1.46 ms in 3xTF32 (3.59 in fp32).  mma.sync does not
+// reach wgmma's rate and every streamed operand costs five instructions to
+// split where it is read: the kernels sit near 4x the bound of what they
+// compute (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,23 +207,24 @@ __device__ __forceinline__ void pair_barrier(int id) {
 }
 
 // rows x DP floats of a (.., D) row-major source at `rs` elements a row
-// into shared memory at `stride` floats a row; rows >= nvalid and columns
-// >= D become 0.  fp32 through cp.async; bf16 converted through registers.
-template <int DP>
+// into shared memory at `stride` floats a row, by NT threads (tid < NT);
+// rows >= nvalid and columns >= D become 0.  fp32 through cp.async; bf16
+// converted through registers.
+template <int DP, int NT = kThreads>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const float* src, long long rs,
                                           int rows, int nvalid, int D,
                                           bool vec, int tid) {
   if (vec) {
     constexpr int C4 = DP / 4;
-    for (int i = tid; i < rows * C4; i += kThreads) {
+    for (int i = tid; i < rows * C4; i += NT) {
       const int r = i / C4, c = (i % C4) * 4;
       const bool in = r < nvalid && c < D;
       cp_async16(dst + r * stride + c, in ? src + r * rs + c : src,
                  in ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < rows * DP; i += kThreads) {
+    for (int i = tid; i < rows * DP; i += NT) {
       const int r = i / DP, c = i % DP;
       const bool in = r < nvalid && c < D;
       cp_async4(dst + r * stride + c, in ? src + r * rs + c : src,
@@ -636,133 +683,374 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 // ---------------------------------------------------------------------------
 // Backward: dq, dk, dv of the forward's function, from q, k, v, o, the
-// forward's row log-sum-exp and dO.  fp32 on the CUDA cores (see the file's
-// head).  A tile is BT query rows or BT keys; Q, dO, K, V tiles sit in
-// shared memory at row stride DP + 4 (a float4 read by 8 lanes of
-// consecutive rows hits 8 distinct 16-byte bank groups), P and dS tiles at
-// BT + 1.
+// forward's row log-sum-exp and dO, in 3xTF32 on the tensor cores (see the
+// file's head).  Shared memory of a CTA (BwdSmem): the two resident
+// operands split into hi/lo in fragment order, BR rows each; two buffers
+// of the two streamed tiles, BC raw rows each; the score tiles; lse and
+// delta.
 // ---------------------------------------------------------------------------
+// The threads that issue a streamed tile's cp.async copies: half the CTA.
+// Issuing them costs the pair 0.7-0.8 ms at qwen3-0.6b's layer though
+// their latency is hidden; by every thread, right after the barrier that
+// opens a tile, they hold all warps back from their products, and the
+// pair takes 5.42 ms against 5.33-5.41 (PERF.md).
+constexpr int kCopyThreads = kThreads / 2;
+
 template <int DP>
 struct Bwd {
-  static constexpr int BT = DP == 256 ? 32 : 64;
-  static constexpr int RS = DP + 4;
-  static constexpr int PS = BT + 1;
-  static constexpr int SA = BT / 16;               // S micro-tile: SA x SA
-  static constexpr int TX = DP / 4 < 16 ? DP / 4 : 16;  // float4 columns
-  static constexpr int TY = kThreads / TX;
-  static constexpr int RA = BT / TY;               // accumulator rows
-  static constexpr int CA = DP / (4 * TX);         // accumulator float4s
-  static_assert(RA * TY == BT && CA * 4 * TX == DP, "backward tiling");
-  static constexpr size_t bytes =
-      sizeof(float) * (size_t)(4 * BT * RS + 2 * BT * PS + 2 * BT);
+  static constexpr int BR = DP == 256 ? 32 : 64;   // resident rows
+  static constexpr int BC = DP == 256 ? 16 : 32;   // streamed rows a tile
+  static constexpr int KS = DP / 8;                // k-steps over D
+  static constexpr int KC = BC / 8;                // k-steps over BC
+  static constexpr int RS = DP + 8;                // streamed row
+  static constexpr int TS = BC + 8;                // raw score tile row
+  // scores: warp tiles of SMT m-tiles x SNT n-tiles over DK of D, SWK
+  // warps splitting D
+  static constexpr int SMT = 1, SNT = DP == 256 ? 1 : 2;
+  static constexpr int SWR = BR / (16 * SMT), SWC = BC / (8 * SNT);
+  static constexpr int SWK = kWarps / (SWR * SWC);
+  static constexpr int DK = DP / SWK;
+  // gradients: warp tiles of 2 m-tiles x GNT n-tiles; W n-tiles share a
+  // load of the streamed tile
+  static constexpr int GWR = BR / 32, GWC = kWarps / GWR;
+  static constexpr int GNT = DP / (8 * GWC);
+  static constexpr int W = GNT < 4 ? GNT : 4;
+  static_assert(SWR * SWC * SWK == kWarps && (SWK == 1 || SWK == 2),
+                "backward score tiling");
+  static_assert(GWR * GWC == kWarps && GNT * 8 * GWC == DP && GNT % W == 0,
+                "backward gradient tiling");
+  static constexpr int kRes = 2 * BR * DP;   // hi and lo, fragment order
+  static constexpr int kStr = BC * RS;
+  static constexpr int kF = 2 * BR * BC;     // a split score tile
+  static constexpr int kT = BR * TS;         // a raw score tile
 };
 
-// BT rows of D floats at `rs` floats a row into shared memory at row
-// stride RS; rows >= nvalid and columns >= D become 0
+// Word offsets of a kernel's shared memory.  Both kernels hold the two
+// resident planes, four streamed buffers and one split score tile (dS in
+// dq, P^T in dk/dv).  Raw score tiles: dk/dv keeps dS^T raw (splitting it
+// too would take 233,984 B at D = 128, over the 232,448 a CTA may have);
+// at D = 256, where two warps split D, both kernels need two raw tiles
+// for the partial scores (in dk/dv one of them then takes dS^T).  lse and
+// delta: BR each in dq, two buffers of BC each in dk/dv.
+template <int DP, bool DKDV>
+struct BwdSmem {
+  using C = Bwd<DP>;
+  static constexpr int kRaw = C::SWK == 2 ? 2 : (DKDV ? 1 : 0);
+  static constexpr int res = 0, str = 2 * C::kRes, split = str + 4 * C::kStr;
+  static constexpr int raw = split + C::kF;
+  static constexpr int rows = raw + kRaw * C::kT;
+  static constexpr int words = rows + (DKDV ? 4 * C::BC : 2 * C::BR);
+  static constexpr size_t bytes = sizeof(float) * (size_t)words;
+};
+
+// BR rows x DP of a (.., D) row-major fp32 source at `rs` elements a row,
+// each value split once into TF32 hi and lo and stored in the order the
+// score products read them as mma A operands: for 16-row m-tile mt and
+// k-step ks, the 32 lanes' hi quads (128 words), then their lo quads.
+// Lane gq * 4 + tq holds (row gq, row gq + 8) x (k-slot tq, k-slot tq + 4)
+// as (a0, a1, a2, a3), and the k-slots (tq, tq + 4) of step ks are
+// d = 8 ks + 2 tq + (0, 1), the pair a streamed row gives with one LDS.64.
+// So one LDS.128 is one operand (no register moves), the lanes read
+// consecutive 16 bytes (no bank conflicts) and the planes need no padding.
+// Rows >= nvalid and columns >= D become 0.
 template <int DP>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long rs, int nvalid, int D,
-                                          bool vec, int tid) {
-  constexpr int BT = Bwd<DP>::BT, RS = Bwd<DP>::RS;
+__device__ __forceinline__ void load_split(uint32_t* dst, const float* src,
+                                           long long rs, int nvalid, int D,
+                                           bool vec, int tid) {
+  constexpr int BR = Bwd<DP>::BR, KS = Bwd<DP>::KS;
+  auto put = [&](int r, int d, float x) {
+    uint32_t hi, lo;
+    split(x, hi, lo);
+    const int lane = (r & 7) * 4 + ((d & 7) >> 1);
+    const int reg = ((r >> 3) & 1) + 2 * (d & 1);
+    uint32_t* at = dst + (((r >> 4) * KS + (d >> 3)) * 2) * 128 + lane * 4 +
+                   reg;
+    at[0] = hi;
+    at[128] = lo;
+  };
   if (vec) {
     constexpr int C4 = DP / 4;
-    for (int i = tid; i < BT * C4; i += kThreads) {
+#pragma unroll 4
+    for (int i = tid; i < BR * C4; i += kThreads) {
       const int r = i / C4, c = (i % C4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nvalid && c < D)
         x = *reinterpret_cast<const float4*>(src + r * rs + c);
-      *reinterpret_cast<float4*>(dst + r * RS + c) = x;
+      put(r, c, x.x);
+      put(r, c + 1, x.y);
+      put(r, c + 2, x.z);
+      put(r, c + 3, x.w);
     }
   } else {
-    for (int i = tid; i < BT * DP; i += kThreads) {
+    for (int i = tid; i < BR * DP; i += kThreads) {
       const int r = i / DP, c = i % DP;
-      dst[r * RS + c] = r < nvalid && c < D ? src[r * rs + c] : 0.f;
+      put(r, c, r < nvalid && c < D ? src[r * rs + c] : 0.f);
     }
   }
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-}
-__device__ __forceinline__ float dot4(const float4& a, const float4& b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// S = Q.K^T and dP = dO.V^T of one (query tile, key tile) pair, then
-//   P  = exp(cap(S * scale) - lse)                 0 where masked
-//   dS = P * (dP - delta) * (1 - tanh^2)           the softcap's factor
-// into Ps and dSs.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16a
-// and keys tx + 16c.
+// The score products of one tile pair: s = A1 . X1^T and dp = A2 . X2^T
+// over d in [dk0, dk0 + DK), A1 and A2 the resident hi/lo planes
+// (load_split's order), X1 and X2 the streamed raw tiles.  The warp's rows
+// are sr0 + 16 i + (gq, gq + 8) (i < SMT), its streamed rows
+// sc0 + 8 j + gq (j < SNT); s[i][j][e] is row sr0 + 16 i + gq + 8 (e >> 1),
+// streamed row sc0 + 8 j + 2 tq + (e & 1).  The k-slots (tq, tq + 4) of a
+// step are d0 + 2 tq + (0, 1): one LDS.64 of a streamed row gives both.
+// Small products and large ones sum apart.
 template <int DP>
 __device__ __forceinline__ void bwd_scores(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_s, const float* delta_s, float* Ps, float* dSs, int q0,
-    int k0, int Sq, int Sk, int causal, int window, float softcap,
-    float scale, int tid) {
-  constexpr int RS = Bwd<DP>::RS, PS = Bwd<DP>::PS, SA = Bwd<DP>::SA;
-  const int ty = tid / 16, tx = tid % 16;
-  float s[SA][SA], dp[SA][SA];
+    const uint32_t* A1, const uint32_t* A2, const float* X1, const float* X2,
+    int sr0, int sc0, int dk0, int lane,
+    float (&s)[Bwd<DP>::SMT][Bwd<DP>::SNT][4],
+    float (&dp)[Bwd<DP>::SMT][Bwd<DP>::SNT][4]) {
+  using C = Bwd<DP>;
+  constexpr int SMT = C::SMT, SNT = C::SNT, RS = C::RS, KS = C::KS;
+  const int gq = lane >> 2, tq = lane & 3;
+  float sl[SMT][SNT][4], sh[SMT][SNT][4], pl[SMT][SNT][4], ph[SMT][SNT][4];
 #pragma unroll
-  for (int a = 0; a < SA; ++a)
+  for (int i = 0; i < SMT; ++i)
 #pragma unroll
-    for (int c = 0; c < SA; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < DP; d += 4) {
-    float4 qa[SA], oa[SA];
+    for (int j = 0; j < SNT; ++j)
 #pragma unroll
-    for (int a = 0; a < SA; ++a) {
-      qa[a] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * a) * RS + d]);
-      oa[a] = *reinterpret_cast<const float4*>(&dOs[(ty + 16 * a) * RS + d]);
+      for (int e = 0; e < 4; ++e)
+        sl[i][j][e] = sh[i][j][e] = pl[i][j][e] = ph[i][j][e] = 0.f;
+  const float* x1 = X1 + (sc0 + gq) * RS + 2 * tq;
+  const float* x2 = X2 + (sc0 + gq) * RS + 2 * tq;
+#pragma unroll 4
+  for (int d0 = dk0; d0 < dk0 + C::DK; d0 += 8) {
+    FragB b1[SNT], b2[SNT];
+#pragma unroll
+    for (int j = 0; j < SNT; ++j) {
+      const float2 u1 = *reinterpret_cast<const float2*>(x1 + 8 * j * RS + d0);
+      const float2 u2 = *reinterpret_cast<const float2*>(x2 + 8 * j * RS + d0);
+      b1[j].set(u1.x, u1.y);
+      b2[j].set(u2.x, u2.y);
     }
 #pragma unroll
-    for (int c = 0; c < SA; ++c) {
-      const float4 kb =
-          *reinterpret_cast<const float4*>(&Ks[(tx + 16 * c) * RS + d]);
-      const float4 vb =
-          *reinterpret_cast<const float4*>(&Vs[(tx + 16 * c) * RS + d]);
+    for (int i = 0; i < SMT; ++i) {
+      const int off = (((sr0 >> 4) + i) * KS + (d0 >> 3)) * 256 + lane * 4;
+      const uint4 u1 = *reinterpret_cast<const uint4*>(A1 + off);
+      const uint4 v1 = *reinterpret_cast<const uint4*>(A1 + off + 128);
+      const uint4 u2 = *reinterpret_cast<const uint4*>(A2 + off);
+      const uint4 v2 = *reinterpret_cast<const uint4*>(A2 + off + 128);
+      const uint32_t h1[4] = {u1.x, u1.y, u1.z, u1.w};
+      const uint32_t l1[4] = {v1.x, v1.y, v1.z, v1.w};
+      const uint32_t h2[4] = {u2.x, u2.y, u2.z, u2.w};
+      const uint32_t l2[4] = {v2.x, v2.y, v2.z, v2.w};
 #pragma unroll
-      for (int a = 0; a < SA; ++a) {
-        s[a][c] = dot4(qa[a], kb, s[a][c]);
-        dp[a][c] = dot4(oa[a], vb, dp[a][c]);
+      for (int j = 0; j < SNT; ++j) {
+        mma_tf32(sl[i][j], l1, b1[j].hi);
+        mma_tf32(pl[i][j], l2, b2[j].hi);
+        mma_tf32(sl[i][j], h1, b1[j].lo);
+        mma_tf32(pl[i][j], h2, b2[j].lo);
+        mma_tf32(sh[i][j], h1, b1[j].hi);
+        mma_tf32(ph[i][j], h2, b2[j].hi);
       }
     }
   }
 #pragma unroll
-  for (int a = 0; a < SA; ++a) {
+  for (int i = 0; i < SMT; ++i)
 #pragma unroll
-    for (int c = 0; c < SA; ++c) {
-      const int i = ty + 16 * a, j = tx + 16 * c;
-      const int qp = q0 + i, kp = k0 + j;
-      bool valid = qp < Sq && kp < Sk;
-      if (causal) valid = valid && kp <= qp;
-      if (window > 0) valid = valid && kp > qp - window;
-      float p = 0.f, g = 0.f;
-      if (valid) {
-        float x = s[a][c] * scale;
-        float dcap = 1.f;
-        if (softcap > 0.f) {
-          const float t = tanhf(x / softcap);
-          x = softcap * t;
-          dcap = 1.f - t * t;
-        }
-        p = expf(x - lse_s[i]);
-        g = p * (dp[a][c] - delta_s[i]) * dcap;
+    for (int j = 0; j < SNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][j][e] = sl[i][j][e] + sh[i][j][e];
+        dp[i][j][e] = pl[i][j][e] + ph[i][j][e];
       }
-      Ps[i * PS + j] = p;
-      dSs[i * PS + j] = g;
+}
+
+// At D = 256 the warps with wk = 1 summed the second half of D: they hand
+// their partial scores to the wk = 0 warp of the same tile through the
+// score tiles (the same positions that warp then overwrites with P, dS).
+// Every thread of the CTA calls this.
+template <int DP>
+__device__ __forceinline__ void bwd_trade_halves(
+    float* T0, float* T1, int wk, int sr0, int sc0, int gq, int tq,
+    float (&s)[Bwd<DP>::SMT][Bwd<DP>::SNT][4],
+    float (&dp)[Bwd<DP>::SMT][Bwd<DP>::SNT][4]) {
+  using C = Bwd<DP>;
+  if constexpr (C::SWK == 2) {
+    if (wk == 1) {
+#pragma unroll
+      for (int i = 0; i < C::SMT; ++i)
+#pragma unroll
+        for (int j = 0; j < C::SNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int at = (sr0 + 16 * i + gq + 8 * r) * C::TS + sc0 + 8 * j +
+                           2 * tq;
+            *reinterpret_cast<float2*>(T0 + at) =
+                make_float2(s[i][j][2 * r], s[i][j][2 * r + 1]);
+            *reinterpret_cast<float2*>(T1 + at) =
+                make_float2(dp[i][j][2 * r], dp[i][j][2 * r + 1]);
+          }
+    }
+    __syncthreads();
+    if (wk == 0) {
+#pragma unroll
+      for (int i = 0; i < C::SMT; ++i)
+#pragma unroll
+        for (int j = 0; j < C::SNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int at = (sr0 + 16 * i + gq + 8 * r) * C::TS + sc0 + 8 * j +
+                           2 * tq;
+            const float2 o = *reinterpret_cast<const float2*>(T0 + at);
+            const float2 p = *reinterpret_cast<const float2*>(T1 + at);
+            s[i][j][2 * r] += o.x;
+            s[i][j][2 * r + 1] += o.y;
+            dp[i][j][2 * r] += p.x;
+            dp[i][j][2 * r + 1] += p.y;
+          }
     }
   }
 }
 
-// one CTA per (batch, head, query tile), heaviest tiles first: delta =
-// rowsum(dO * O) (also written out for the dk/dv kernel), then
+// P and dS of one score element: s the raw product, l its row's lse, dl
+// its row's delta.  The exponential is taken whether or not the element is
+// visible and selected after: written as valid ? expf(..) : 0 it compiled
+// to a branch around each element's expf, which kept a tile's eight
+// exponentials from overlapping (the pair took 5.62 ms at qwen3-0.6b's
+// layer that way, 5.39-5.45 this way; PERF.md).  A masked element's exp
+// may overflow; it is not used.
+__device__ __forceinline__ void bwd_p_ds(float s, float dp, float l, float dl,
+                                         bool valid, float softcap,
+                                         float scale, float& p, float& ds) {
+  float x = s * scale;
+  float dcap = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(x / softcap);
+    x = softcap * t;
+    dcap = 1.f - t * t;
+  }
+  const float e = expf(x - l);
+  p = valid ? e : 0.f;
+  ds = p * (dp - dl) * dcap;
+}
+
+// acc += T . X over the BC streamed rows, X the streamed raw tile (BC x DP
+// at stride RS) and T a score tile, split (SPLIT: hi/lo quads in fragment
+// order, bwd_put_split's) or raw (BR x BC fp32 at stride TS, split where
+// read).  The k-slots (tq, tq + 4) of step kk are streamed rows
+// kk + 2 tq + (0, 1), so that a score-tile lane's accumulators are its own
+// A operand.  The warp's rows are gr0 + 16 i + (gq, gq + 8) (i < 2);
+// n-tile c + w (w < W) is column gc0 + (c / W) * 8 W + gq * W + w at
+// n = gq, so that a lane reads its W values of a row with one load.  The
+// tile's product is summed in fresh registers, small terms first, and
+// added to acc.
+template <int DP, bool SPLIT>
+__device__ __forceinline__ void bwd_grad(const float* T, const float* X,
+                                         int gr0, int gc0, int lane,
+                                         float (&acc)[2][Bwd<DP>::GNT][4]) {
+  using C = Bwd<DP>;
+  constexpr int GNT = C::GNT, W = C::W, TS = C::TS, RS = C::RS;
+  const int gq = lane >> 2, tq = lane & 3;
+  float tacc[2][GNT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < GNT; ++j)
+      tacc[i][j][0] = tacc[i][j][1] = tacc[i][j][2] = tacc[i][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::BC; kk += 8) {
+    FragA a[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if constexpr (SPLIT) {
+        const uint32_t* f = reinterpret_cast<const uint32_t*>(T) +
+                            (((gr0 >> 4) + i) * C::KC + kk / 8) * 256 +
+                            lane * 4;
+        const uint4 h = *reinterpret_cast<const uint4*>(f);
+        const uint4 l = *reinterpret_cast<const uint4*>(f + 128);
+        a[i].hi[0] = h.x; a[i].hi[1] = h.y; a[i].hi[2] = h.z; a[i].hi[3] = h.w;
+        a[i].lo[0] = l.x; a[i].lo[1] = l.y; a[i].lo[2] = l.z; a[i].lo[3] = l.w;
+      } else {
+        const float* p0 = T + (gr0 + 16 * i + gq) * TS + kk + 2 * tq;
+        const float2 x0 = *reinterpret_cast<const float2*>(p0);
+        const float2 x1 = *reinterpret_cast<const float2*>(p0 + 8 * TS);
+        a[i].set(x0.x, x1.x, x0.y, x1.y);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < GNT; c += W) {
+      const int col = gc0 + (c / W) * 8 * W + gq * W;
+      float x0[W], x1[W];
+      lds<W>(x0, X + (kk + 2 * tq) * RS + col);
+      lds<W>(x1, X + (kk + 2 * tq + 1) * RS + col);
+      FragB b[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) b[w].set(x0[w], x1[w]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < W; ++w) mma_tf32(tacc[i][c + w], a[i].lo, b[w].hi);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < W; ++w) mma_tf32(tacc[i][c + w], a[i].hi, b[w].lo);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < W; ++w) mma_tf32(tacc[i][c + w], a[i].hi, b[w].hi);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < GNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += tacc[i][j][e];
+}
+
+// one score n-tile's four values of this lane (accumulator layout: rows
+// (gq, gq + 8) x streamed columns (2 tq, 2 tq + 1) of m-tile mt, k-step ks)
+// split once and stored as the A operand bwd_grad<DP, true> reads: the
+// lane's own quad (x0, x2, x1, x3), hi then lo
+template <int DP>
+__device__ __forceinline__ void bwd_put_split(float* F, int mt, int ks,
+                                              int lane, float x0, float x1,
+                                              float x2, float x3) {
+  FragA a;
+  a.set(x0, x2, x1, x3);
+  uint32_t* f = reinterpret_cast<uint32_t*>(F) +
+                (mt * Bwd<DP>::KC + ks) * 256 + lane * 4;
+  *reinterpret_cast<uint4*>(f) = make_uint4(a.hi[0], a.hi[1], a.hi[2], a.hi[3]);
+  *reinterpret_cast<uint4*>(f + 128) =
+      make_uint4(a.lo[0], a.lo[1], a.lo[2], a.lo[3]);
+}
+
+// the warp's part of a BR x D gradient: rows below nvalid, columns below D,
+// each value times mul (acc[i][c + w][2 r + e] is row gr0 + 16 i + gq + 8 r,
+// column gc0 + (c / W) * 8 W + (2 tq + e) * W + w)
+template <int DP>
+__device__ __forceinline__ void bwd_store(float* dst, long long rs,
+                                          const float (&acc)[2][Bwd<DP>::GNT][4],
+                                          int gr0, int gc0, int nvalid, int D,
+                                          float mul, int gq, int tq) {
+  constexpr int GNT = Bwd<DP>::GNT, W = Bwd<DP>::W;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = gr0 + 16 * i + gq + 8 * r;
+      if (row >= nvalid) continue;
+      float* d = dst + row * rs;
+#pragma unroll
+      for (int c = 0; c < GNT; c += W) {
+        const int col = gc0 + (c / W) * 8 * W + 2 * tq * W;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int w = 0; w < W; ++w)
+            if (col + e * W + w < D)
+              d[col + e * W + w] = acc[i][c + w][2 * r + e] * mul;
+      }
+    }
+  }
+}
+
+// one CTA per (batch, head, query tile of BR rows), heaviest tiles first:
+// delta = rowsum(dO * O) (also written out for the dk/dv kernel), then
 // dq = scale * sum over the visible key tiles of dS . K
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -774,37 +1062,63 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int KV, int D, int causal, int window, float softcap,
                     float scale, bool vec) {
   using C = Bwd<DP>;
-  constexpr int BT = C::BT, RS = C::RS, PS = C::PS, TX = C::TX, TY = C::TY,
-                RA = C::RA, CA = C::CA;
+  using M = BwdSmem<DP, false>;
+  constexpr int BR = C::BR, BC = C::BC, RS = C::RS;
+  constexpr int SMT = C::SMT, SNT = C::SNT, SWC = C::SWC, SWR = C::SWR;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BT * RS;
-  float* Ks = dOs + BT * RS;
-  float* Vs = Ks + BT * RS;
-  float* Ps = Vs + BT * RS;
-  float* dSs = Ps + BT * PS;
-  float* lse_s = dSs + BT * PS;
-  float* delta_s = lse_s + BT;
+  float* sm = reinterpret_cast<float*>(smem4);
+  uint32_t* Qp = reinterpret_cast<uint32_t*>(sm + M::res);   // hi/lo
+  uint32_t* dOp = Qp + C::kRes;
+  float* Ks = sm + M::str;            // 2 buffers
+  float* Vs = Ks + 2 * C::kStr;       // 2 buffers
+  float* dSf = sm + M::split;         // dS, split
+  float* T0 = sm + M::raw;            // D = 256: the partial scores
+  float* T1 = T0 + C::kT;
+  float* lse_s = sm + M::rows;
+  float* delta_s = lse_s + BR;
 
-  const int nq = (Sq + BT - 1) / BT;
+  const int nq = (Sq + BR - 1) / BR;
   const int bh = blockIdx.x % (B * H);
   const int qt = nq - 1 - (int)(blockIdx.x / (B * H));
   const int b = bh / H, h = bh % H, g = h / (H / KV);
-  const int q0 = qt * BT, nrows = min(BT, Sq - q0);
+  const int q0 = qt * BR, nrows = min(BR, Sq - q0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
   const long long qoff = (((long long)b * Sq + q0) * H + h) * D;
   const long long roff = ((long long)b * H + h) * Sq + q0;
-  load_rows<DP>(Qs, q + qoff, q_rs, nrows, D, vec, tid);
-  load_rows<DP>(dOs, dout + qoff, q_rs, nrows, D, vec, tid);
-  for (int i = tid; i < BT; i += kThreads)
+  const float* kg = k + ((long long)b * Sk * KV + g) * D;
+  const float* vg = v + ((long long)b * Sk * KV + g) * D;
+
+  // the key tiles any row of this tile can see; the first one's copies go
+  // out before the planes are split
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q0 + BR);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int t_begin = k_begin / BC;
+  const int t_end = (k_end + BC - 1) / BC;
+  // the copies of a streamed tile are issued by warps 4-7 (kCopyThreads)
+  auto load = [&](int t, int buf) {
+    const int k1 = t * BC;
+    if (tid >= kThreads - kCopyThreads) {
+      const int ct = tid - (kThreads - kCopyThreads);
+      load_tile<DP, kCopyThreads>(Ks + buf * C::kStr, RS, kg + k1 * kv_rs,
+                                  kv_rs, BC, min(BC, Sk - k1), D, vec, ct);
+      load_tile<DP, kCopyThreads>(Vs + buf * C::kStr, RS, vg + k1 * kv_rs,
+                                  kv_rs, BC, min(BC, Sk - k1), D, vec, ct);
+    }
+    cp_async_commit();
+  };
+  if (t_begin < t_end) load(t_begin, 0);
+  load_split<DP>(Qp, q + qoff, q_rs, nrows, D, vec, tid);
+  load_split<DP>(dOp, dout + qoff, q_rs, nrows, D, vec, tid);
+  for (int i = tid; i < BR; i += kThreads)
     lse_s[i] = i < nrows ? lse[roff + i] : 0.f;
-  __syncthreads();
-  for (int i = warp; i < BT; i += kWarps) {
+  for (int i = warp; i < BR; i += kWarps) {
     float acc = 0.f;
     if (i < nrows)
       for (int d = lane; d < D; d += 32)
-        acc = fmaf(dOs[i * RS + d], o[qoff + i * q_rs + d], acc);
+        acc = fmaf(dout[qoff + i * q_rs + d], o[qoff + i * q_rs + d], acc);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -814,57 +1128,64 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  int k_begin = 0, k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + BT);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  const int ay = tid / TX, ax = tid % TX;
-  float4 acc[RA][CA];
+  const int wk = warp / (SWR * SWC), wrc = warp % (SWR * SWC);
+  const int sr0 = (wrc / SWC) * 16 * SMT, sc0 = (wrc % SWC) * 8 * SNT;
+  const int gr0 = (warp / C::GWC) * 32, gc0 = (warp % C::GWC) * 8 * C::GNT;
+  float acc[2][C::GNT][4];
 #pragma unroll
-  for (int r = 0; r < RA; ++r)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int c = 0; c < CA; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = (k_begin / BT) * BT; k0 < k_end; k0 += BT) {
-    __syncthreads();   // every warp is done with the last tile (and delta)
-    const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
-    load_rows<DP>(Ks, k + koff, kv_rs, min(BT, Sk - k0), D, vec, tid);
-    load_rows<DP>(Vs, v + koff, kv_rs, min(BT, Sk - k0), D, vec, tid);
-    __syncthreads();
-    bwd_scores<DP>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Sk,
-                   causal, window, softcap, scale, tid);
-    __syncthreads();
-    for (int j = 0; j < BT; ++j) {
-      float gr[RA];
+    for (int j = 0; j < C::GNT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < t_end) load(t + 1, buf ^ 1);
+    const float* Kb = Ks + buf * C::kStr;
+    const float* Vb = Vs + buf * C::kStr;
+    float s[SMT][SNT][4], dp[SMT][SNT][4];
+    bwd_scores<DP>(Qp, dOp, Kb, Vb, sr0, sc0, wk * C::DK, lane, s, dp);
+    bwd_trade_halves<DP>(T0, T1, wk, sr0, sc0, gq, tq, s, dp);
+    if (wk == 0) {
+      // rows are queries, streamed rows keys; masks only where some pair
+      // of the warp tile cannot see
+      const int k0 = t * BC + sc0, kb = k0 + 8 * SNT - 1;
+      const int qa = q0 + sr0, qb = qa + 16 * SMT - 1;
+      const bool whole = kb < Sk && qb < Sq && (!causal || kb <= qa) &&
+                         (window <= 0 || k0 > qb - window);
 #pragma unroll
-      for (int r = 0; r < RA; ++r) gr[r] = dSs[(ay + TY * r) * PS + j];
+      for (int i = 0; i < SMT; ++i)
 #pragma unroll
-      for (int c = 0; c < CA; ++c) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(&Ks[j * RS + 4 * (ax + TX * c)]);
+        for (int j = 0; j < SNT; ++j) {
+          float p[4], ds[4];
 #pragma unroll
-        for (int r = 0; r < RA; ++r) fma4(acc[r][c], gr[r], kv);
-      }
+          for (int e = 0; e < 4; ++e) {
+            const int row = sr0 + 16 * i + gq + 8 * (e >> 1), qp = q0 + row;
+            const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+            bool valid = true;
+            if (!whole) {
+              valid = kp < Sk && qp < Sq;
+              if (causal) valid = valid && kp <= qp;
+              if (window > 0) valid = valid && kp > qp - window;
+            }
+            bwd_p_ds(s[i][j][e], dp[i][j][e], lse_s[row], delta_s[row],
+                     valid, softcap, scale, p[e], ds[e]);
+          }
+          bwd_put_split<DP>(dSf, (sr0 >> 4) + i, (sc0 >> 3) + j, lane, ds[0],
+                            ds[1], ds[2], ds[3]);
+        }
     }
+    __syncthreads();   // dS is whole
+    bwd_grad<DP, true>(dSf, Kb, gr0, gc0, lane, acc);
   }
-#pragma unroll
-  for (int r = 0; r < RA; ++r) {
-    const int row = ay + TY * r;
-    if (row >= nrows) continue;
-    float* dst = dq + qoff + row * q_rs;
-#pragma unroll
-    for (int c = 0; c < CA; ++c) {
-      const int col = 4 * (ax + TX * c);
-      const float e[4] = {acc[r][c].x, acc[r][c].y, acc[r][c].z,
-                          acc[r][c].w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (col + t < D) dst[col + t] = e[t] * scale;
-    }
-  }
+  cp_async_wait_all();
+  bwd_store<DP>(dq + qoff, q_rs, acc, gr0, gc0, nrows, D, scale, gq, tq);
 }
 
-// one CTA per (batch, KV head, key tile), the first (heaviest under the
-// causal mask) tiles first: over the group's query heads and the query
-// tiles that can see the tile, dv = sum P^T . dO and dk = scale * sum
+// one CTA per (batch, KV head, key tile of BR keys), the first (heaviest
+// under the causal mask) tiles first: over the group's query heads and the
+// query tiles that can see the tile, dv = sum P^T . dO and dk = scale * sum
 // dS^T . Q; the group's heads are summed inside the CTA, in order (no
 // atomics: the result does not depend on the schedule)
 template <int DP>
@@ -879,98 +1200,124 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       int KV, int D, int causal, int window, float softcap,
                       float scale, bool vec) {
   using C = Bwd<DP>;
-  constexpr int BT = C::BT, RS = C::RS, PS = C::PS, TX = C::TX, TY = C::TY,
-                RA = C::RA, CA = C::CA;
+  using M = BwdSmem<DP, true>;
+  constexpr int BR = C::BR, BC = C::BC, RS = C::RS, TS = C::TS;
+  constexpr int SMT = C::SMT, SNT = C::SNT, SWC = C::SWC, SWR = C::SWR;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BT * RS;
-  float* Ks = dOs + BT * RS;
-  float* Vs = Ks + BT * RS;
-  float* Ps = Vs + BT * RS;
-  float* dSs = Ps + BT * PS;
-  float* lse_s = dSs + BT * PS;
-  float* delta_s = lse_s + BT;
+  float* sm = reinterpret_cast<float*>(smem4);
+  uint32_t* Kp = reinterpret_cast<uint32_t*>(sm + M::res);   // hi/lo
+  uint32_t* Vp = Kp + C::kRes;
+  float* Qs = sm + M::str;            // 2 buffers
+  float* dOs = Qs + 2 * C::kStr;      // 2 buffers
+  float* Pf = sm + M::split;          // P^T, split
+  float* T1 = sm + M::raw;            // dS^T, raw
+  float* T0 = T1 + C::kT;             // D = 256: the partial scores
+  float* lse_s = sm + M::rows;        // 2 buffers of BC
+  float* delta_s = lse_s + 2 * BC;
 
   const int bg = blockIdx.x % (B * KV);
   const int kt = (int)(blockIdx.x / (B * KV));
   const int b = bg / KV, g = bg % KV, G = H / KV;
-  const int k0 = kt * BT, nkeys = min(BT, Sk - k0);
-  const int tid = threadIdx.x;
+  const int k0 = kt * BR, nkeys = min(BR, Sk - k0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const long long q_rs = (long long)H * D, kv_rs = (long long)KV * D;
   const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
-  load_rows<DP>(Ks, k + koff, kv_rs, nkeys, D, vec, tid);
-  load_rows<DP>(Vs, v + koff, kv_rs, nkeys, D, vec, tid);
 
-  // the query rows that see some key of this tile
+  // the query rows that see some key of this tile, in tiles of BC; the
+  // walk is the group's heads in order, each over those tiles
   const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(Sq, k0 + nkeys - 1 + window) : Sq;
-  const int ay = tid / TX, ax = tid % TX;
-  float4 dka[RA][CA], dva[RA][CA];
+  const int qt0 = q_begin / BC;
+  const int nt = q_end > qt0 * BC ? (q_end - qt0 * BC + BC - 1) / BC : 0;
+  const int items = G * nt;
+  auto load_item = [&](int it, int buf) {
+    const int h = g * G + it / nt, q0 = (qt0 + it % nt) * BC;
+    const int nrows = min(BC, Sq - q0);
+    const long long qoff = (((long long)b * Sq + q0) * H + h) * D;
+    const long long roff = ((long long)b * H + h) * Sq + q0;
+    if (tid >= kThreads - kCopyThreads) {   // warps 4-7, as in dq
+      const int ct = tid - (kThreads - kCopyThreads);
+      load_tile<DP, kCopyThreads>(Qs + buf * C::kStr, RS, q + qoff, q_rs, BC,
+                                  nrows, D, vec, ct);
+      load_tile<DP, kCopyThreads>(dOs + buf * C::kStr, RS, dout + qoff, q_rs,
+                                  BC, nrows, D, vec, ct);
+    }
+    for (int i = tid; i < BC; i += kThreads) {
+      const bool in = i < nrows;
+      cp_async4(lse_s + buf * BC + i, in ? lse + roff + i : lse, in ? 4 : 0);
+      cp_async4(delta_s + buf * BC + i, in ? delta + roff + i : delta,
+                in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (items > 0) load_item(0, 0);
+  load_split<DP>(Kp, k + koff, kv_rs, nkeys, D, vec, tid);
+  load_split<DP>(Vp, v + koff, kv_rs, nkeys, D, vec, tid);
+
+  const int wk = warp / (SWR * SWC), wrc = warp % (SWR * SWC);
+  const int sr0 = (wrc / SWC) * 16 * SMT, sc0 = (wrc % SWC) * 8 * SNT;
+  const int gr0 = (warp / C::GWC) * 32, gc0 = (warp % C::GWC) * 8 * C::GNT;
+  float dka[2][C::GNT][4], dva[2][C::GNT][4];
 #pragma unroll
-  for (int r = 0; r < RA; ++r)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int c = 0; c < CA; ++c)
-      dka[r][c] = dva[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = g * G + hh;
-    for (int q0 = (q_begin / BT) * BT; q0 < q_end; q0 += BT) {
-      const int nrows = min(BT, Sq - q0);
-      const long long qoff = (((long long)b * Sq + q0) * H + h) * D;
-      const long long roff = ((long long)b * H + h) * Sq + q0;
-      __syncthreads();   // every warp is done with the last query tile
-      load_rows<DP>(Qs, q + qoff, q_rs, nrows, D, vec, tid);
-      load_rows<DP>(dOs, dout + qoff, q_rs, nrows, D, vec, tid);
-      for (int i = tid; i < BT; i += kThreads) {
-        lse_s[i] = i < nrows ? lse[roff + i] : 0.f;
-        delta_s[i] = i < nrows ? delta[roff + i] : 0.f;
-      }
-      __syncthreads();
-      bwd_scores<DP>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq,
-                     Sk, causal, window, softcap, scale, tid);
-      __syncthreads();
-      for (int i = 0; i < BT; ++i) {
-        float p[RA], gr[RA];
+    for (int j = 0; j < C::GNT; ++j)
 #pragma unroll
-        for (int r = 0; r < RA; ++r) {
-          p[r] = Ps[i * PS + ay + TY * r];
-          gr[r] = dSs[i * PS + ay + TY * r];
-        }
+      for (int e = 0; e < 4; ++e) dka[i][j][e] = dva[i][j][e] = 0.f;
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();   // item it is in; every warp is done with item it - 1
+    if (it + 1 < items) load_item(it + 1, buf ^ 1);
+    const float* Qb = Qs + buf * C::kStr;
+    const float* dOb = dOs + buf * C::kStr;
+    const float* lb = lse_s + buf * BC;
+    const float* db = delta_s + buf * BC;
+    float s[SMT][SNT][4], dp[SMT][SNT][4];
+    bwd_scores<DP>(Kp, Vp, Qb, dOb, sr0, sc0, wk * C::DK, lane, s, dp);
+    bwd_trade_halves<DP>(T0, T1, wk, sr0, sc0, gq, tq, s, dp);
+    if (wk == 0) {
+      // rows are keys, streamed rows queries
+      const int q0 = (qt0 + it % nt) * BC + sc0, qb = q0 + 8 * SNT - 1;
+      const int ka = k0 + sr0, kb = ka + 16 * SMT - 1;
+      const bool whole = kb < Sk && qb < Sq && (!causal || kb <= q0) &&
+                         (window <= 0 || ka > qb - window);
 #pragma unroll
-        for (int c = 0; c < CA; ++c) {
-          const int col = 4 * (ax + TX * c);
-          const float4 ov = *reinterpret_cast<const float4*>(&dOs[i * RS + col]);
-          const float4 qv = *reinterpret_cast<const float4*>(&Qs[i * RS + col]);
+      for (int i = 0; i < SMT; ++i)
 #pragma unroll
-          for (int r = 0; r < RA; ++r) {
-            fma4(dva[r][c], p[r], ov);
-            fma4(dka[r][c], gr[r], qv);
+        for (int j = 0; j < SNT; ++j) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = sr0 + 16 * i + gq + 8 * (e >> 1), kp = k0 + row;
+            const int col = sc0 + 8 * j + 2 * tq + (e & 1);
+            const int qp = q0 + col - sc0;
+            bool valid = true;
+            if (!whole) {
+              valid = kp < Sk && qp < Sq;
+              if (causal) valid = valid && kp <= qp;
+              if (window > 0) valid = valid && kp > qp - window;
+            }
+            bwd_p_ds(s[i][j][e], dp[i][j][e], lb[col], db[col], valid,
+                     softcap, scale, p[e], ds[e]);
           }
+          bwd_put_split<DP>(Pf, (sr0 >> 4) + i, (sc0 >> 3) + j, lane, p[0],
+                            p[1], p[2], p[3]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(
+                T1 + (sr0 + 16 * i + gq + 8 * r) * TS + sc0 + 8 * j + 2 * tq) =
+                make_float2(ds[2 * r], ds[2 * r + 1]);
         }
-      }
     }
+    __syncthreads();   // P^T and dS^T are whole
+    bwd_grad<DP, true>(Pf, dOb, gr0, gc0, lane, dva);
+    bwd_grad<DP, false>(T1, Qb, gr0, gc0, lane, dka);
   }
-#pragma unroll
-  for (int r = 0; r < RA; ++r) {
-    const int row = ay + TY * r;
-    if (row >= nkeys) continue;
-    float* dkr = dk + koff + row * kv_rs;
-    float* dvr = dv + koff + row * kv_rs;
-#pragma unroll
-    for (int c = 0; c < CA; ++c) {
-      const int col = 4 * (ax + TX * c);
-      const float ek[4] = {dka[r][c].x, dka[r][c].y, dka[r][c].z,
-                           dka[r][c].w};
-      const float ev[4] = {dva[r][c].x, dva[r][c].y, dva[r][c].z,
-                           dva[r][c].w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (col + t < D) {
-          dkr[col + t] = ek[t] * scale;
-          dvr[col + t] = ev[t];
-        }
-      }
-    }
-  }
+  cp_async_wait_all();
+  bwd_store<DP>(dk + koff, kv_rs, dka, gr0, gc0, nkeys, D, scale, gq, tq);
+  bwd_store<DP>(dv + koff, kv_rs, dva, gr0, gc0, nkeys, D, 1.f, gq, tq);
 }
 
 struct BwdArgs {
@@ -989,7 +1336,7 @@ inline bool bwd_vec(const BwdArgs& a) {
 
 template <int DP>
 int launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = Bwd<DP>::bytes;
+  constexpr size_t smem = BwdSmem<DP, false>::bytes;
   static bool attribute_set = false;   // once per instantiation, before any
   if (!attribute_set) {                // graph capture (warm-up calls)
     const cudaError_t err = cudaFuncSetAttribute(
@@ -998,7 +1345,7 @@ int launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
-  const long long nq = (a.Sq + Bwd<DP>::BT - 1) / Bwd<DP>::BT;
+  const long long nq = (a.Sq + Bwd<DP>::BR - 1) / Bwd<DP>::BR;
   flash_bwd_dq_kernel<DP><<<(unsigned)(nq * a.B * a.H), kThreads, smem,
                             stream>>>(
       a.q, a.k, a.v, a.o, a.lse, a.dout, a.dq, a.delta, a.B, a.Sq, a.Sk, a.H,
@@ -1009,7 +1356,7 @@ int launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
 
 template <int DP>
 int launch_bwd_dkdv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = Bwd<DP>::bytes;
+  constexpr size_t smem = BwdSmem<DP, true>::bytes;
   static bool attribute_set = false;
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1018,7 +1365,7 @@ int launch_bwd_dkdv(const BwdArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
-  const long long nk = (a.Sk + Bwd<DP>::BT - 1) / Bwd<DP>::BT;
+  const long long nk = (a.Sk + Bwd<DP>::BR - 1) / Bwd<DP>::BR;
   flash_bwd_dkdv_kernel<DP><<<(unsigned)(nk * a.B * a.KV), kThreads, smem,
                               stream>>>(
       a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dk, a.dv, a.B, a.Sq, a.Sk,

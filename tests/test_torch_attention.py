@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from test_kernels import FLASH_CASES
+from tf32_emulation import tf32_dot as _dot
 
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref
@@ -140,29 +141,6 @@ def test_flash_attention_rejects_bad_inputs(q_shape, k_shape, dtype, match):
 # =============================================================================
 # the kernel's 3xTF32 arithmetic, emulated on the CPU
 # =============================================================================
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
-    with ties away from zero (the low 13 bits cleared).  Adding half an
-    ulp to the sign-magnitude bits rounds the magnitude for either sign."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
-
-
-def _dot(eq: str, a: torch.Tensor, b: torch.Tensor,
-         split: bool) -> torch.Tensor:
-    """An fp32-accumulated product of TF32 operands.  ``split``: the 3xTF32
-    form, lo.hi + hi.lo before hi.hi, with hi = tf32(x) and
-    lo = tf32(x - hi); otherwise one TF32 product hi.hi.  Products of two
-    TF32 values are exact in fp32, so only the sums round, as in the
-    tensor cores' fp32 accumulation."""
-    ah, bh = _tf32_rna(a), _tf32_rna(b)
-    if not split:
-        return torch.einsum(eq, ah, bh)
-    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
-    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
-            + torch.einsum(eq, ah, bh))
-
-
 def _attention_tf32(q, k, v, causal, window, cap, split=True):
     """The kernel's function with both products in TF32 arithmetic: S from
     the split q and k, the unnormalized probabilities p = exp(s - max)

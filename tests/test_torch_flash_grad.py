@@ -12,13 +12,22 @@ against these plain versions on the card.
 
 Tolerance: dq, dk, dv within 1e-5 * max(1, max|want|), the bound the chip
 holds the kernels to; fp32 sums in other orders (observed below 2e-6).
+
+The kernels' arithmetic, every product in the 3xTF32 split on the tensor
+cores, each gradient tile's product summed apart and then added, is
+emulated here in plain PyTorch (``_attention_bwd_tf32``) and held to the
+same bound; a single TF32 product breaks it.
 """
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_kernels import FLASH_CASES
+from tf32_emulation import tf32_dot
 
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels import LAUNCHES
@@ -38,6 +47,20 @@ def _inputs(B, Sq, Sk, H, KV, D, seed):
             rng.randn(B, Sq, H, D).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _reference(B, Sq, Sk, H, KV, D, causal, window, cap):
+    """A case's seeded inputs (q, k, v, do), the reference's output and its
+    ``jax.vjp`` gradients dq, dk, dv, as numpy; computed once a case for
+    the tests that hold the port and the kernels' emulation against it."""
+    q, k, v, do = _inputs(B, Sq, Sk, H, KV, D, seed=Sq + Sk + D)
+    ref_out, vjp = jax.vjp(
+        lambda a, b, c: attention_ref(a, b, c, causal=causal, window=window,
+                                      softcap=cap),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    return ((q, k, v, do), np.asarray(ref_out),
+            tuple(np.asarray(w) for w in vjp(jnp.asarray(do))))
+
+
 def _port_grads(q, k, v, do, causal, window, cap):
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = tf.flash_attention(tq, tk, tv, causal=causal, window=window,
@@ -55,12 +78,8 @@ def _assert_rel(got, want, what):
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype", CASES)
 def test_flash_gradient_matches_reference(B, Sq, Sk, H, KV, D, causal,
                                           window, cap, dtype):
-    q, k, v, do = _inputs(B, Sq, Sk, H, KV, D, seed=Sq + Sk + D)
-    ref_out, vjp = jax.vjp(
-        lambda a, b, c: attention_ref(a, b, c, causal=causal, window=window,
-                                      softcap=cap),
-        *(jnp.asarray(a) for a in (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    (q, k, v, do), ref_out, want = _reference(B, Sq, Sk, H, KV, D, causal,
+                                              window, cap)
     before = dict(LAUNCHES)
     out, got = _port_grads(q, k, v, do, causal, window, cap)
     assert LAUNCHES == before                    # CPU: the plain versions
@@ -147,6 +166,90 @@ def test_gradient_is_fp32_only_and_no_grad_takes_the_forward_alone():
         tf.flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 7), q)
 
 
+# =============================================================================
+# the kernels' 3xTF32 arithmetic, emulated on the CPU
+# =============================================================================
+def _streamed_rows(D: int) -> int:
+    """The kernels' streamed tile (``Bwd<DP>::BC`` of
+    ``csrc/flash_attention.cu``): 16 rows at D > 128, else 32."""
+    return 16 if D > 128 else 32
+
+
+def _attention_bwd_tf32(q, k, v, do, causal, window, cap, split=True):
+    """dq, dk, dv by the products the kernels compute, each in TF32
+    arithmetic (``split``: 3xTF32, else one TF32 product): S = Q K^T and
+    dP = dO V^T over D; P = exp(s - lse) and dS = P (dP - delta) times the
+    softcap's factor in fp32; then dQ += dS K over each key tile, and
+    dV += P^T dO, dK += dS^T Q over each query tile of each head of the
+    GQA group in order, every tile's product summed apart and added to the
+    fp32 gradient.  lse and delta come from the plain fp32 forward."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, bc = H // KV, _streamed_rows(D)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = tf.attention_plain_lse(q, k, v, causal, window, cap)
+    qg = q.reshape(B, Sq, KV, G, D)
+    dog = do.reshape(B, Sq, KV, G, D)
+    delta = (dog * o.reshape(B, Sq, KV, G, D)).sum(-1)     # (B, Sq, KV, G)
+    raw = tf32_dot("bqkgd,bskd->bkgqs", qg, k, split) * scale
+    dcap = torch.ones(())
+    if cap > 0:
+        t = torch.tanh(raw / cap)
+        raw, dcap = cap * t, 1.0 - t * t
+    lse5 = lse.reshape(B, KV, G, Sq)[..., None]
+    mask = tf.visible_mask(Sq, Sk, causal, window)
+    p = torch.where(mask, torch.exp(raw - lse5), 0.0)
+    dp = tf32_dot("bqkgd,bskd->bkgqs", dog, v, split)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * dcap
+    dq = torch.zeros(B, Sq, KV, G, D)
+    for k0 in range(0, Sk, bc):
+        dq += tf32_dot("bkgqs,bskd->bqkgd", ds[..., k0:k0 + bc],
+                       k[:, k0:k0 + bc], split)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for g in range(G):
+        for q0 in range(0, Sq, bc):
+            rows = slice(q0, q0 + bc)
+            dv += tf32_dot("bkqs,bqkd->bskd", p[:, :, g, rows],
+                           dog[:, rows, :, g], split)
+            dk += tf32_dot("bkqs,bqkd->bskd", ds[:, :, g, rows],
+                           qg[:, rows, :, g], split)
+    return dq.reshape(B, Sq, H, D) * scale, dk * scale, dv
+
+
+def _bwd_tf32_errors(B, Sq, Sk, H, KV, D, causal, window, cap, split):
+    """The emulation's max abs error in dq, dk, dv against ``jax.vjp`` of
+    ``attention_ref``, and each bound 1e-5 * max(1, max|want|)."""
+    inputs, _, want = _reference(B, Sq, Sk, H, KV, D, causal, window, cap)
+    got = _attention_bwd_tf32(*(torch.from_numpy(a) for a in inputs),
+                              causal, window, cap, split)
+    out = []
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        out.append((float(np.abs(g.numpy() - w).max()),
+                    REL * max(1.0, float(np.abs(w).max()))))
+    return out
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype", CASES)
+def test_3xtf32_backward_within_tolerance(B, Sq, Sk, H, KV, D, causal,
+                                          window, cap, dtype):
+    """The kernels' 3xTF32 products, summed tile by tile, keep dq, dk and dv
+    within the reference's bound of ``jax.vjp`` of ``attention_ref``."""
+    for name, (err, bound) in zip(("dq", "dk", "dv"), _bwd_tf32_errors(
+            B, Sq, Sk, H, KV, D, causal, window, cap, split=True)):
+        assert err <= bound, f"{name}: max abs err {err} beyond {bound}"
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,cap,dtype", CASES)
+def test_single_tf32_backward_breaks_tolerance(B, Sq, Sk, H, KV, D, causal,
+                                               window, cap, dtype):
+    """Why every product splits: one TF32 product per operand pair puts
+    some gradient beyond ten times the bound on every case."""
+    errs = _bwd_tf32_errors(B, Sq, Sk, H, KV, D, causal, window, cap,
+                            split=False)
+    assert max(err / bound for err, bound in errs) > 10, errs
+
+
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
@@ -162,3 +265,7 @@ def test_backward_kernels_match_plain_on_the_card():
                                       cap)
         for g, w in zip(got, want):
             _assert_rel(g.cpu().numpy(), w.cpu().numpy(), "bwd")
+        # no atomics: a second call gives the same bits
+        again = tf.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                       cap)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
