@@ -47,7 +47,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1024), mixtral's (48 over 8 of 128, window 256), recurrentgemma-9b's
    (MQA of 256, window 2048 at S = 2100) shapes and inputs 4 bytes off a
    16-byte boundary: out, dq, dk, dv each within 1e-5 x max(1,
-   max|want|).
+   max|want|).  The SSD scan's backward (the forward's first three passes
+   again, then six kernels: fp32 FMAs on the CUDA cores, its first pass in
+   3xTF32) against ``ssd_scan_bwd_plain`` on every ``SSD_CASES`` shape
+   with an entering state and a final-state gradient and with neither:
+   dx, ddt, dBm, dCm, dinit within 1e-5 x max(1, max|want|), dA within
+   1e-4 x max(1, max|want|) (``SSD_BWD_DA_REL``), two calls bitwise
+   equal.
 4. the federated main path: ``run_federated`` on VGG-5 at full width
    (582,346 params, random weights from a seed), K=5 clients on the
    paper's 5-device testbed, 1000 samples each, batch 100, 10 local
@@ -205,9 +211,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once per layer and step; the int8 pair once per step below the native
    OP; top-k and the SSD scan never).  Printed: seconds per local step,
    tokens/s, peak memory, one step's loss and gradient under
-   ``torch.profiler``.  Last, mamba2-780m's smoke config on the card must
-   refuse a gradient (``NotImplementedError`` naming the SSD scan's
-   backward kernel) and give a finite loss without one.
+   ``torch.profiler``.
+5f. LM training of the SSM family: mamba2-780m at full width and depth
+   (48 layers, d_model 1536, 48 SSD heads of 64, state 128, chunk 128,
+   vocab 50280; 857,379,072 fp32 params drawn on the card from a seed,
+   after phase 5e's model is freed).  The SSD backward against its plain
+   version on the inputs and y's gradient (scaled to a max of 1) of layers
+   0 and 47 of a real 4096-token step, each bitwise repeatable; one local
+   step at OP 24 with the int8 cut, 1024 tokens, on the card against the
+   host CPU (the CPU taking the card's int8 codes; the loss within 1e-5
+   relative, every gradient leaf within 1e-4 of its largest CPU entry,
+   finite and nonzero on the card, the step's launches exact);
+   ``loss_through_cut`` at OPs 0, 24 and 48 equal to ``api.loss`` within
+   1e-5 relative; the LM driver with phase 5e's arguments, its OPs,
+   modelled times and drops equal to ``replay_control``'s, its losses
+   finite and its launches exactly what its OPs need (the SSD scan twice
+   per layer and step, its backward once, the int8 pair once per step
+   below the native OP, flash attention and top-k never).  Printed:
+   seconds per local step, tokens/s, peak memory, one step under
+   ``torch.profiler`` with the SSD backward's kernels by name and share.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -220,10 +242,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    recurrentgemma-9b and whisper-base (seeded frames) through prefill and
    decode (tokens equal, logits within 1e-4); the training loss and its
    gradient of the gemma2, qwen3, mixtral (capacity factor 1.25),
-   internvl2, recurrentgemma and whisper smoke configs (the loss within
-   1e-5 relative, every leaf within 1e-4 of its max); the lm16m driver
-   for 2 rounds from the same initial params and agent noise (OPs and
-   times exact, each round's loss within 1e-5 relative).
+   internvl2, recurrentgemma, whisper and mamba2 smoke configs (the loss
+   within 1e-5 relative, every leaf within 1e-4 of its max); the lm16m
+   driver for 2 rounds from the same initial params and agent noise (OPs
+   and times exact, each round's loss within 1e-5 relative).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
    beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
@@ -246,8 +268,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    into the kernels' parts; each row also carries the work the kernels
    compute (three products in dq, four in dk/dv: seven for the pair) and
    its 3xTF32 bound; two calls of the pair on each of these layers must
-   give bitwise-equal dq, dk and dv (the kernels use no atomics); then
-   print the kernels' JSON line and the result line.
+   give bitwise-equal dq, dk and dv (the kernels use no atomics); the SSD
+   scan's backward at mamba2-780m's layer 0 of a real 4096-token step
+   (its y's gradient scaled to a max of 1) beside its plain version and
+   the 3xTF32 and fp32 bounds of the products its passes compute (no
+   PyTorch call computes the SSD scan's gradient); then print the
+   kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -423,6 +449,19 @@ SSD_TOL = 5e-4
 # pass almost anything there); 3xTF32 and reordered fp32 sums stay a few
 # 1e-6 of the largest value (tests/test_torch_ssm.py emulates the passes)
 SSD_REL = 1e-5
+# phase 3's SSD backward drills: each SSD_CASES shape with an entering
+# state and a final-state gradient, and with neither.  dx, ddt, dBm, dCm
+# and dinit within SSD_BWD_REL * max(1, max|want|): kernel and plain
+# version both sum in fp32 (the kernel's recomputed forward products and
+# its first pass in 3xTF32, the rest fp32 FMAs), in other orders.  dA is
+# one sum a head over the B S rows of d(dt A)_s dt_s, each a reversed
+# prefix sum of d cum, whose row and column sums of M o dM cancel: fp32
+# rounding in any order leaves more of itself in dA, relative to its
+# largest value, than in the others (the plain version in fp32 against
+# float64, tests/test_torch_ssd_grad.py test_plain_fp32_against_float64;
+# the kernel sums the cancelling terms in double), so dA takes
+# SSD_BWD_DA_REL
+SSD_BWD_REL, SSD_BWD_DA_REL = 1e-5, 1e-4
 MAMBA_PROMPTS = (300, 1000, 4096, 16384)
 MAMBA_GEN = 32
 MAMBA_ROWS, MAMBA_ROW_PROMPT = 4, 4096
@@ -501,6 +540,16 @@ QWEN3_DRIVER = ["--mode", "fedadapt", "--clients", "3", "--rounds", "2",
 # TRAIN_GRAD_REL.
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
 CUT_FLIP_REL = 1e-3
+# phase 5f, LM training: mamba2-780m at full width and depth (48 layers,
+# d_model 1536, 48 SSD heads of 64, state 128, chunk 128, vocab 50280;
+# 857,379,072 fp32 params drawn on the card): the real-layer drill's step
+# of 4096 tokens; the card-vs-CPU local step at OP 24 (half the stack on
+# the device) with the int8 cut, 1024 tokens, held to TRAIN_LOSS_REL and
+# TRAIN_GRAD_REL; split equals native at OPs 0, 24 and 48; the driver with
+# phase 5e's arguments (QWEN3_DRIVER)
+MAMBA_DRILL_SEQ = 4096
+MAMBA_STEP_OP, MAMBA_STEP_SEQ = 24, 1024
+MAMBA_SPLIT_OPS = (0, 24, 48)
 
 
 def fail(msg: str) -> None:
@@ -756,7 +805,7 @@ def expected_launches(h, fl, native_op, n_leaves):
     return {"quantize": quant, "dequantize": quant,
             "topk_compress": rows * per_row if fl.delta_density < 1 else 0,
             "flash_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0}
+            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def expected_async_launches(h, fl, native_op, K, resumed=False):
@@ -783,7 +832,7 @@ def expected_async_launches(h, fl, native_op, K, resumed=False):
     return {"quantize": quant, "dequantize": quant,
             "topk_compress": rows if fl.delta_density < 1 else 0,
             "flash_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0}
+            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
@@ -1483,6 +1532,11 @@ def profile_device(torch, what, run, wall_of=None):
                                ("flash_attention_bwd_dkdv",
                                 "flash_bwd_dkdv"),
                                ("ssd_scan", "ssd_scan_"))}
+    # the SSD backward's own device kernels (it also runs the forward's
+    # first three passes again, under their names)
+    ours["ssd_scan_bwd"] = sum(
+        t for k, t, _ in stats
+        if "ssd_scan_bwd_" in k or "chunk_states<true>" in k) / 1e3
     # the SSD scan's passes by kernel name (every kernel of its source
     # starts with ssd_scan_)
     ssd_passes = {"ssd_scan_" + k.split("ssd_scan_", 1)[1].split("(")[0]:
@@ -1497,7 +1551,10 @@ def profile_device(torch, what, run, wall_of=None):
           f"{ours['ssd_scan']:.1f} ms" + (
               f", flash backward dq {ours['flash_attention_bwd_dq']:.1f} ms"
               f" dk/dv {ours['flash_attention_bwd_dkdv']:.1f} ms"
-              if ours["flash_attention_bwd_dq"] else ""))
+              if ours["flash_attention_bwd_dq"] else "") + (
+              f", the SSD backward's own kernels {ours['ssd_scan_bwd']:.1f} "
+              f"ms ({100 * ours['ssd_scan_bwd'] / busy_ms:.1f}% of busy)"
+              if ours["ssd_scan_bwd"] else ""))
     for row in top:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<5} {row['kernel']}")
     for name, (ms, count) in ssd_passes.items():
@@ -1971,6 +2028,72 @@ def check_ssd(torch, ts, dev):
             torch, ts, [a.to(dev) for a in args], chunk, s0,
             f"({B}, {S}, {H}, {P}, {N}) chunk={chunk} init_state={init}"))
     return worst
+
+
+def ssd_bwd_drill(torch, ts, args, chunk, init, dy, dfinal, what):
+    """The backward kernel against ``ssd_scan_bwd_plain`` on the same
+    inputs, each gradient within SSD_BWD_REL (dA: SSD_BWD_DA_REL) of
+    max(1, max|want|), and two calls bitwise equal (no atomics).  Returns
+    each gradient's max abs error and that scale by name."""
+    got = ts.ssd_scan_bwd(*args, chunk, init, dy, dfinal)
+    again = ts.ssd_scan_bwd(*args, chunk, init, dy, dfinal)
+    torch.cuda.synchronize()
+    want = ts.ssd_scan_bwd_plain(*args, chunk, init, dy, dfinal)
+    errs, notes = {}, []
+    for name, g, a, w in zip(("dx", "ddt", "dA", "dBm", "dCm", "dinit"),
+                             got, again, want):
+        if w is None:
+            if g is not None:
+                fail(f"ssd_scan_bwd {what}: {name} without an init_state")
+            continue
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"ssd_scan_bwd {what}: {name} {tuple(g.shape)} not finite "
+                 f"or not {tuple(w.shape)}")
+        if not torch.equal(g, a):
+            fail(f"ssd_scan_bwd {what}: two calls give different {name} "
+                 f"(the kernel must be bitwise repeatable)")
+        e = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        tol = SSD_BWD_DA_REL if name == "dA" else SSD_BWD_REL
+        if e > tol * scale:
+            fail(f"ssd_scan_bwd {what}: {name} max abs err {e} beyond "
+                 f"{tol} x {scale:.4g}")
+        notes.append(f"{name} {e:.3g} ({e / scale:.2g} of {scale:.3g})")
+        errs[name] = {"max_abs_err": e, "scale": scale}
+    print(f"ssd_scan_bwd {what}: max_abs_err {'; '.join(notes)}; bitwise "
+          f"repeatable", flush=True)
+    return errs
+
+
+def worst_ssd_bwd(drills):
+    """The worst max abs error and the worst error over its scale in a
+    list of ``ssd_bwd_drill`` results."""
+    errs = [e for d in drills for e in d.values()]
+    return (max(e["max_abs_err"] for e in errs),
+            max(e["max_abs_err"] / e["scale"] for e in errs))
+
+
+def check_ssd_bwd(torch, ts, dev):
+    """Phase 3, the SSD backward: every SSD_CASES shape (its ``init_state``
+    flag aside) with an entering state and a final-state gradient, and with
+    neither (inputs drawn as ``check_ssd`` draws them).  Returns each
+    drill's errors by its name."""
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    drills = {}
+    for B, S, H, P, N, chunk, init in SSD_CASES:
+        for with_state in (True, False):
+            def draw(*shape):
+                return torch.randn(shape, generator=gen).to(dev)
+            args = [draw(B, S, H, P),
+                    torch.nn.functional.softplus(draw(B, S, H)),
+                    -torch.exp(draw(H) * 0.5), draw(B, S, N), draw(B, S, N)]
+            s0, dfinal = ((draw(B, H, P, N), draw(B, H, P, N))
+                          if with_state else (None, None))
+            what = (f"({B}, {S}, {H}, {P}, {N}) chunk={chunk} "
+                    f"init_state/dfinal={with_state}")
+            drills[what] = ssd_bwd_drill(torch, ts, args, chunk, s0,
+                                         draw(B, S, H, P), dfinal, what)
+    return drills
 
 
 def capture_ssd_inputs(torch, S_model, cfg, params, tokens, layers):
@@ -3042,35 +3165,157 @@ def compare_training(torch, what, card, host, nonzero=True,
 
 def training_launches(cfg, ops_rows, local_steps, native_op):
     """Each kernel's launches in a run of the LM driver (no failures) from
-    its OPs: every local step runs the flash forward once per layer and
-    again in the remat recompute, and the two backward kernels once per
-    layer; the int8 cut's quantize and dequantize once per step below the
-    native OP; top-k and the SSD scan never."""
+    its OPs: every local step runs the sequence mixer's forward once per
+    layer and again in the remat recompute (flash attention, or the SSD
+    scan for mamba2) and its backward once per layer (the two flash
+    kernels, or the SSD scan's); the int8 cut's quantize and dequantize
+    once per step below the native OP; top-k never, nor the other
+    family's kernels."""
     steps = local_steps * sum(len(row) for row in ops_rows)
     cut = local_steps * sum(op < native_op for row in ops_rows for op in row)
     L = cfg.num_layers
+    ssm = cfg.family == "ssm"
+    attn = 0 if ssm else L * steps
     return {"quantize": cut, "dequantize": cut, "topk_compress": 0,
-            "flash_attention": 2 * L * steps,
-            "flash_attention_bwd_dq": L * steps,
-            "flash_attention_bwd_dkdv": L * steps, "ssd_scan": 0}
+            "flash_attention": 2 * attn, "flash_attention_bwd_dq": attn,
+            "flash_attention_bwd_dkdv": attn,
+            "ssd_scan": 2 * L * steps if ssm else 0,
+            "ssd_scan_bwd": L * steps if ssm else 0}
+
+
+def local_step_vs_cpu(torch, cfg, program, params, batch, op, launches,
+                      reset_launches):
+    """One local step (``loss_through_cut`` at ``op`` with the int8 cut,
+    then ``torch.autograd.grad``) on the card, its launches exactly what a
+    step needs, against the host CPU from the same params and batch, the
+    CPU taking the card's int8 codes (``compare_training``).  Returns the
+    record, the card's loss and gradients, the host params and batch."""
+    from repro_torch.kernels.quant_transfer import fake_quant_int8
+    from repro_torch.tree import tree_map
+    reset_launches()
+    card = train_grads(torch, program, params, batch, op, True)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = training_launches(cfg, [[op]], 1, program.native_op)
+    if counts != want:
+        fail(f"{cfg.name} local step: launches {counts}, it needs {want}")
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        card_cut = fake_quant_int8(program.client_forward(params, batch,
+                                                          op)).cpu()
+    t0 = time.perf_counter()
+    cpu = train_grads(torch, program, host, hbatch, op, True, cut=card_cut)
+    out = {"cpu_step_s": time.perf_counter() - t0}
+    out["step_vs_cpu"] = compare_training(
+        torch, f"{cfg.name} local step at OP {op}, int8 cut, "
+        f"{batch['tokens'].shape[1]} tokens (the CPU takes the card's "
+        f"codes)", card, cpu)
+    print(f"{cfg.name}: the CPU's step took {out['cpu_step_s']:.1f} s",
+          flush=True)
+    return out, card, host, hbatch
+
+
+def split_vs_native(torch, cfg, program, params, batch, ops):
+    """``loss_through_cut`` at each OP equal to ``api.loss`` within
+    TRAIN_LOSS_REL (no gradient); returns the relative gaps by OP."""
+    from repro_torch.models import api
+    with torch.no_grad():
+        native_loss = float(api.loss(cfg, params, batch))
+        rels = {}
+        for op in ops:
+            loss = float(program.loss_through_cut(params, batch, op))
+            rels[op] = abs(loss - native_loss) / abs(native_loss)
+            if not rels[op] <= TRAIN_LOSS_REL:
+                fail(f"{cfg.name}: loss through the cut at OP {op} {loss} vs "
+                     f"api.loss {native_loss}: {rels[op]:.3g} > "
+                     f"{TRAIN_LOSS_REL}")
+    print(f"{cfg.name}: loss_through_cut at OPs {ops} vs api.loss "
+          f"{native_loss:.6f}: relative {[f'{r:.3g}' for r in rels.values()]} "
+          f"(<= {TRAIN_LOSS_REL})", flush=True)
+    return rels
+
+
+def driver_path(torch, cfg, program, params, dev, launches, reset_launches,
+                batch_of, step_op):
+    """The LM driver (``QWEN3_DRIVER``'s arguments) from ``params``: its
+    OPs, modelled round times and drops equal to a CPU replay of its
+    control plane, its losses finite, its launches exactly what its OPs
+    need; then one local step at ``step_op`` from the trained params under
+    the profiler.  Returns the record."""
+    from repro_torch.launch import train as driver
+    args = driver.parser().parse_args(QWEN3_DRIVER)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = driver.train(cfg, args, device=dev, init_params=params,
+                       log=lambda line: print(f"  {line}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    h = run["history"]
+    replay = driver.replay_control(cfg, args)
+    if h["ops"] != replay["ops"] or h["dropped"] != replay["dropped"] or \
+            any(not np_equal(a, b) for a, b in zip(h["times"],
+                                                   replay["times"])):
+        fail(f"{cfg.name} driver: OPs {h['ops']}, times {h['times']}, "
+             f"drops {h['dropped']} vs the CPU replay's {replay}")
+    if not all(math.isfinite(x) for row in h["client_losses"] for x in row):
+        fail(f"{cfg.name} driver: losses {h['client_losses']}")
+    want = training_launches(cfg, h["ops"], args.local_steps,
+                             program.native_op)
+    print(f"train-{cfg.name}: launches {counts} (expected from its OPs "
+          f"{h['ops']}: {want})")
+    if counts != want:
+        fail(f"train-{cfg.name}: launches {counts}, its history needs "
+             f"{want}")
+    steps = args.local_steps * sum(len(row) for row in h["ops"])
+    out = {
+        "launches": counts, "ops": h["ops"], "loss": h["loss"],
+        "client_losses": h["client_losses"],
+        "round_time_model_s": [t.tolist() for t in h["times"]],
+        "round_wall_s": h["wall_s"], "wall_s": wall, "local_steps": steps,
+        "s_per_local_step": sum(h["wall_s"]) / steps,
+        "tokens_per_s": steps * args.batch * args.seq / sum(h["wall_s"]),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"train-{cfg.name}: OPs and modelled round times equal to the CPU "
+          f"replay; losses {[round(x, 4) for x in h['loss']]}; "
+          f"{out['s_per_local_step']:.3f} s per local step of "
+          f"{args.seq} tokens (round wall / steps, aggregation included), "
+          f"{out['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+    b4 = batch_of(args.seq, 3)
+    out["profile_step"] = profile_device(
+        torch, f"one local step's loss and gradient at OP {step_op}, int8 "
+        f"cut, {args.seq} tokens",
+        lambda: train_grads(torch, program, run["params"], b4, step_op,
+                            True))
+    return out
+
+
+def lm_batches(torch, cfg, dev):
+    """``batch_of(S, step)``: batch 1 of S tokens and their labels from a
+    seeded token stream, on the card."""
+    from repro_torch.data.synthetic import batch_tokens, make_token_stream
+    stream = make_token_stream(400_000, cfg.vocab_size, seed=7)
+
+    def batch_of(S, step):
+        toks, labs = batch_tokens(stream, 1, S, step)
+        return {"tokens": torch.from_numpy(toks).to(dev),
+                "labels": torch.from_numpy(labs).to(dev)}
+    return batch_of
 
 
 def qwen3_training_path(torch, tf, dev, launches, reset_launches):
     """Phase 5e: qwen3-0.6b trained at full width and depth through the
     split path (``LMSplitProgram``), the flash backward kernels and the LM
-    driver (``repro_torch.launch.train``); then the SSD scan's refusal of
-    a gradient on the card.  Returns the record and layer 0's q, k, v and
-    dO of a real 4096-token step (phase 7's row)."""
-    from repro_torch.configs import get_smoke_config
+    driver (``repro_torch.launch.train``).  Returns the record and layer
+    0's q, k, v and dO of a real 4096-token step (phase 7's row)."""
     from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
-    from repro_torch.data.synthetic import batch_tokens, make_token_stream
-    from repro_torch.launch import train as driver
-    from repro_torch.models import api
+    from repro_torch.kernels.quant_transfer import quantize
     from repro_torch.models import layers as L
     from repro_torch.models.split_program import get_split_program
-    from repro_torch.tree import tree_map
     free_card(torch)
-    out = {}
     program = get_split_program(cfg)
     native = program.native_op
     t0 = time.perf_counter()
@@ -3085,12 +3330,7 @@ def qwen3_training_path(torch, tf, dev, launches, reset_launches):
              f"{cfg.param_count()} + {norms} in norms")
     print(f"qwen3-0.6b: {n:,} fp32 params ({n * 4 / 2**30:.2f} GiB) drawn "
           f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    stream = make_token_stream(400_000, cfg.vocab_size, seed=7)
-
-    def batch_of(S, step):
-        toks, labs = batch_tokens(stream, 1, S, step)
-        return {"tokens": torch.from_numpy(toks).to(dev),
-                "labels": torch.from_numpy(labs).to(dev)}
+    batch_of = lm_batches(torch, cfg, dev)
 
     # 1. the flash backward on the q, k, v and dO of layers 0 and 27 of a
     # real 4096-token step (native OP: every layer through the stack)
@@ -3122,7 +3362,7 @@ def qwen3_training_path(torch, tf, dev, launches, reset_launches):
     # the gradients are linear in dO: the drills take it scaled to a max
     # of 1 (a real step's is ~1e-6), where the bound 1e-5 x max(1,
     # max|want|) is a relative one
-    out["real_layer_bwd_err"] = {}
+    out = {"real_layer_bwd_err": {}}
     for i in layers:
         q, k, v, causal, window, cap, do = got_do[i]
         do = do / do.abs().max()
@@ -3134,130 +3374,112 @@ def qwen3_training_path(torch, tf, dev, launches, reset_launches):
     real = (q, k, v, do / do.abs().max())
     del got_do
 
-    # 2. one local step on the card against the host CPU
+    # 2. one local step on the card against the host CPU, which also
+    # quantizes its own cut: the codes the two part, and that step held to
+    # the discrete-step bound
     batch = batch_of(QWEN3_STEP_SEQ, 1)
-    reset_launches()
-    card = train_grads(torch, program, params, batch, QWEN3_STEP_OP, True)
-    torch.cuda.synchronize()
-    counts = dict(launches)
-    want = training_launches(cfg, [[QWEN3_STEP_OP]], 1, native)
-    if counts != want:
-        fail(f"qwen3-0.6b local step: launches {counts}, it needs {want}")
-    from repro_torch.kernels.quant_transfer import fake_quant_int8, quantize
-    host = tree_map(lambda t: t.detach().cpu(), params)
-    hbatch = {k: v.cpu() for k, v in batch.items()}
+    step, card, host, hbatch = local_step_vs_cpu(
+        torch, cfg, program, params, batch, QWEN3_STEP_OP, launches,
+        reset_launches)
+    out.update(step)
     with torch.no_grad():
-        acts = program.client_forward(params, batch, QWEN3_STEP_OP)
-        card_cut = fake_quant_int8(acts).cpu()
-        host_acts = program.client_forward(host, hbatch, QWEN3_STEP_OP)
-        parted = int((quantize(acts)[0].cpu() != quantize(host_acts)[0])
-                     .sum())
-    del acts, host_acts
-    t0 = time.perf_counter()
-    cpu = train_grads(torch, program, host, hbatch, QWEN3_STEP_OP, True,
-                      cut=card_cut)
-    out["cpu_step_s"] = time.perf_counter() - t0
+        codes = quantize(program.client_forward(params, batch,
+                                                QWEN3_STEP_OP))[0].cpu()
+        parted = int((codes != quantize(program.client_forward(
+            host, hbatch, QWEN3_STEP_OP))[0]).sum())
     what = (f"qwen3-0.6b local step at OP {QWEN3_STEP_OP}, int8 cut, "
             f"{QWEN3_STEP_SEQ} tokens")
-    out["step_vs_cpu"] = compare_training(
-        torch, f"{what} (the CPU takes the card's codes)", card, cpu)
-    print(f"{what}: {parted} of {card_cut.numel()} int8 codes of the cut "
-          f"part between the card and the CPU")
+    print(f"{what}: {parted} of {codes.numel()} int8 codes of the cut part "
+          f"between the card and the CPU")
     out["step_vs_cpu_own_cut"] = compare_training(
         torch, f"{what} (each device its own codes)", card,
         train_grads(torch, program, host, hbatch, QWEN3_STEP_OP, True),
         loss_tol=CUT_FLIP_REL, grad_tol=CUT_FLIP_REL)
     out["cut_codes_parted"] = parted
-    del host, card, cpu, card_cut
+    del host, card
 
-    # 3. split equals native
-    with torch.no_grad():
-        native_loss = float(api.loss(cfg, params, batch))
-        out["split_vs_native"] = {}
-        for op in QWEN3_SPLIT_OPS:
-            got = float(program.loss_through_cut(params, batch, op))
-            rel = abs(got - native_loss) / abs(native_loss)
-            if not rel <= TRAIN_LOSS_REL:
-                fail(f"qwen3-0.6b: loss through the cut at OP {op} {got} vs "
-                     f"api.loss {native_loss}: {rel:.3g} > {TRAIN_LOSS_REL}")
-            out["split_vs_native"][op] = rel
-    print(f"qwen3-0.6b: loss_through_cut at OPs {QWEN3_SPLIT_OPS} vs "
-          f"api.loss {native_loss:.6f}: relative "
-          f"{[f'{r:.3g}' for r in out['split_vs_native'].values()]} "
-          f"(<= {TRAIN_LOSS_REL})", flush=True)
+    # 3. split equals native; 4. the driver and a profiled step
+    out["split_vs_native"] = split_vs_native(torch, cfg, program, params,
+                                             batch, QWEN3_SPLIT_OPS)
+    out.update(driver_path(torch, cfg, program, params, dev, launches,
+                           reset_launches, batch_of, QWEN3_STEP_OP))
+    del params
+    return out, real
 
-    # 4. the driver, against a CPU replay of its control plane
-    args = driver.parser().parse_args(QWEN3_DRIVER)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+
+def mamba2_training_path(torch, ts, dev, launches, reset_launches):
+    """Phase 5f: mamba2-780m trained at full width and depth through the
+    split path (``SSMSplitProgram``), the SSD scan's backward kernel and
+    the LM driver, as phase 5e trains qwen3-0.6b.  Returns the record and
+    layer 0's SSD inputs and y's gradient (scaled to a max of 1) of a real
+    4096-token step (phase 7's row)."""
+    from repro_torch.configs.mamba2_780m import CONFIG as cfg
+    from repro_torch.models import ssm as S_model
+    from repro_torch.models.split_program import get_split_program
+    free_card(torch)
+    program = get_split_program(cfg)
     t0 = time.perf_counter()
-    run = driver.train(cfg, args, device=dev, init_params=params,
-                       log=lambda line: print(f"  {line}", flush=True))
+    params = program.init(0, dev)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(launches)
-    h = run["history"]
-    replay = driver.replay_control(cfg, args)
-    if h["ops"] != replay["ops"] or h["dropped"] != replay["dropped"] or \
-            any(not np_equal(a, b) for a, b in zip(h["times"],
-                                                   replay["times"])):
-        fail(f"qwen3-0.6b driver: OPs {h['ops']}, times {h['times']}, "
-             f"drops {h['dropped']} vs the CPU replay's {replay}")
-    if not all(math.isfinite(x) for row in h["client_losses"] for x in row):
-        fail(f"qwen3-0.6b driver: losses {h['client_losses']}")
-    want = training_launches(cfg, h["ops"], args.local_steps, native)
-    print(f"train-qwen3-0.6b: launches {counts} (expected from its OPs "
-          f"{h['ops']}: {want})")
-    if counts != want:
-        fail(f"train-qwen3-0.6b: launches {counts}, its history needs "
-             f"{want}")
-    steps = args.local_steps * sum(len(row) for row in h["ops"])
-    out.update({
-        "launches": counts, "ops": h["ops"], "loss": h["loss"],
-        "client_losses": h["client_losses"],
-        "round_time_model_s": [t.tolist() for t in h["times"]],
-        "round_wall_s": h["wall_s"], "wall_s": wall, "local_steps": steps,
-        "s_per_local_step": sum(h["wall_s"]) / steps,
-        "tokens_per_s": steps * args.batch * args.seq / sum(h["wall_s"]),
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
-    print(f"train-qwen3-0.6b: OPs and modelled round times equal to the CPU "
-          f"replay; losses {[round(x, 4) for x in h['loss']]}; "
-          f"{out['s_per_local_step']:.3f} s per local step of "
-          f"{args.seq} tokens (round wall / steps, aggregation included), "
-          f"{out['tokens_per_s']:.0f} tokens/s; peak memory "
-          f"{out['peak_memory_gib']:.2f} GiB", flush=True)
+    n = count_params(params)
+    if n != 857_379_072:
+        fail(f"mamba2-780m: {n} params, its init shapes give 857,379,072")
+    print(f"mamba2-780m: {n:,} fp32 params ({n * 4 / 2**30:.2f} GiB) drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch_of = lm_batches(torch, cfg, dev)
 
-    # 5. one local step's forward and backward under the profiler
-    b4 = batch_of(args.seq, 3)
-    out["profile_step"] = profile_device(
-        torch, f"one local step's loss and gradient at OP {QWEN3_STEP_OP}, "
-        f"int8 cut, {args.seq} tokens",
-        lambda: train_grads(torch, program, run["params"], b4,
-                            QWEN3_STEP_OP, True))
-    del run, params
+    # 1. the SSD backward on the inputs and dy of layers 0 and 47 of a real
+    # 4096-token step (native OP: every layer through the stack).  The
+    # forward's calls are layers 0-47 in order; their y's hooks get dy
+    # (the remat recomputes refill the saved inputs only)
+    layers = (0, cfg.num_layers - 1)
+    seen, got, kernel = [0], {}, S_model.ssd_scan
 
-    # 6. the SSD scan refuses a gradient on the card
-    mcfg = get_smoke_config("mamba2-780m")
-    mp = tree_map(lambda t: t.requires_grad_(), api.init(mcfg, 0,
-                                                         device=dev))
-    toks = torch.zeros((1, 32), dtype=torch.long, device=dev)
-    with torch.no_grad():
-        if not bool(torch.isfinite(api.loss(mcfg, mp, {"tokens": toks,
-                                                        "labels": toks}))):
-            fail("mamba2-780m smoke: the loss without a gradient is not "
-                 "finite on the card")
+    def capture(x, dt, A, Bm, Cm, chunk, init_state=None):
+        i = seen[0]
+        seen[0] += 1
+        y, final = kernel(x, dt, A, Bm, Cm, chunk, init_state)
+        if i in layers:
+            got[i] = [t.detach() for t in (x, dt, A, Bm, Cm)]
+            y.register_hook(lambda g, i=i: got[i].append(g.detach()))
+        return y, final
+
+    S_model.ssd_scan = capture
     try:
-        api.loss(mcfg, mp, {"tokens": toks, "labels": toks})
-    except NotImplementedError as e:
-        if "the SSD scan's backward kernel" not in str(e):
-            fail(f"mamba2-780m smoke: the refusal names no backward kernel: "
-                 f"{e}")
-        print(f"mamba2-780m smoke on the card: the loss under autograd "
-              f"raises NotImplementedError: {e}")
-        out["ssd_refusal"] = str(e)
-    else:
-        fail("mamba2-780m smoke: a gradient through the SSD scan on the "
-             "card did not raise")
+        train_grads(torch, program, params, batch_of(MAMBA_DRILL_SEQ, 0),
+                    program.native_op, False)
+    finally:
+        S_model.ssd_scan = kernel
+    torch.cuda.synchronize()
+    if seen[0] != 2 * cfg.num_layers or any(len(got[i]) != 6 for i in layers):
+        fail(f"mamba2-780m drill: {seen[0]} SSD calls (the forward and its "
+             f"recompute need {2 * cfg.num_layers}), dy of layers "
+             f"{[i for i in layers if len(got[i]) == 6]}")
+    # the gradients are linear in dy: the drills take it scaled to a max of
+    # 1 (a real step's is ~1e-5), where the bound is a relative one
+    out = {"real_layer_bwd_err": {}}
+    for i in layers:
+        args, dy = got[i][:5], got[i][5] / got[i][5].abs().max()
+        out["real_layer_bwd_err"][i] = ssd_bwd_drill(
+            torch, ts, args, cfg.ssm.chunk, None, dy, None,
+            f"mamba2-780m layer {i} of a real {MAMBA_DRILL_SEQ}-token step, "
+            f"dy / max|dy|")
+        got[i][5] = dy
+    real = got[0]
+    del got
+
+    # 2. one local step on the card against the host CPU; 3. split equals
+    # native; 4. the driver and a profiled step
+    batch = batch_of(MAMBA_STEP_SEQ, 1)
+    step, _, _, _ = local_step_vs_cpu(torch, cfg, program, params, batch,
+                                      MAMBA_STEP_OP, launches,
+                                      reset_launches)
+    out.update(step)
+    out["split_vs_native"] = split_vs_native(torch, cfg, program, params,
+                                             batch, MAMBA_SPLIT_OPS)
+    out.update(driver_path(torch, cfg, program, params, dev, launches,
+                           reset_launches, batch_of, MAMBA_STEP_OP))
+    del params
     return out, real
 
 
@@ -3436,6 +3658,63 @@ def ssd_cost(B, S, H, P, N, Q):
         prod += B * (2 * pairs * N + H * (2 * pairs * P + 2 * 2 * q * N * P))
         elem += B * H * 3 * pairs
     return nbytes, prod, elem
+
+
+def ssd_bwd_cost(B, S, H, P, N, Q):
+    """Bytes and operations of the SSD scan's backward kernel for these
+    inputs: each input (x, dt, A, B, C, dy) read once and each gradient
+    written once; the products it computes, counted from its passes: the
+    forward's C.B^T (causal half) once per (batch, chunk) and its chunk
+    states per head again, then per head D = (e o dy)^T.C, dM = dy.x^T and
+    M^T.dy over the causal half, B.G^T and C.S^T, and per (batch, chunk)
+    dC and dB, each the scores' causal half and the heads' states (2 Q H P
+    N); and the elementwise ones, 9 per causal pair and head (three
+    evaluations of the decay, an exp, a difference and a product each).
+    Returns (bytes, product operations, elementwise operations)."""
+    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N + 2 * H)
+    prod, elem = 0, 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        pairs = q * (q + 1) // 2
+        prod += B * (2 * pairs * N
+                     + H * (4 * q * P * N + 2 * 2 * pairs * P
+                            + 2 * 2 * q * N * P)
+                     + 2 * (2 * pairs * N + 2 * q * H * P * N))
+        elem += B * H * 9 * pairs
+    return nbytes, prod, elem
+
+
+def time_ssd_bwd(torch, ts, real):
+    """Phase 7, the SSD scan's backward at mamba2-780m's layer 0 of a real
+    4096-token training step (B=1, S=4096, H=48, P=64, N=128, Q=128; x,
+    B and C the model's views of its projection, y's real gradient scaled
+    to a max of 1).  No PyTorch call computes the SSD scan's gradient.
+    Bounds over the products its passes compute (``ssd_bwd_cost``):
+    ``bound_ms`` (also ``bound_3xtf32_ms``) the larger of the bytes over
+    the memory rate, the products three times over the TF32 tensor-core
+    rate and the elementwise operations over the fp32 rate;
+    ``bound_fp32_ms``, every operation at the fp32 CUDA-core rate (the
+    kernel's own arithmetic but for its reused forward products and its
+    first pass, which run 3xTF32)."""
+    x, dt, A, Bm, Cm, dy = real
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes, prod, elem = ssd_bwd_cost(B, S, H, P, N, 128)
+    row = _timing_row(
+        "ssd_scan_bwd", [B, S, H, P, N, 128],
+        lambda: ts.ssd_scan_bwd(x, dt, A, Bm, Cm, 128, None, dy),
+        lambda: ts.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, 128, None, dy),
+        None, nbytes, 3 * prod, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
+    elem_ms = elem / FP32_OPS_PER_S * 1e3
+    if elem_ms > row["bound_ms"]:
+        row.update({"bound_ms": elem_ms, "bound_by": "operations"})
+    row.update({"gflop": (prod + elem) / 1e9, "computed_gflop": prod / 1e9,
+                "mbytes": nbytes / 1e6, "bound_3xtf32_ms": row["bound_ms"],
+                "bound_fp32_ms": bound_ms(nbytes, prod + elem)[0],
+                "library": None})
+    print(f"ssd_scan_bwd at mamba2-780m's layer 0: {prod / 1e9:.2f} GFLOP of "
+          f"products, {elem / 1e9:.3f} G elementwise, {nbytes / 1e6:.1f} MB")
+    return [row]
 
 
 def time_ssd(torch, ts, real):
@@ -3696,14 +3975,17 @@ def _timing_row(name, shape, fn, plain, library, nbytes, ops, reps=15,
             "library_ms": None if library is None else time_ms(library, **kw)}
 
 
-def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
+def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
+                 serving_rows):
     """Phase 7: each kernel's time beside its bound, its plain version and
     a library call where one computes the same function: ``torch.mul`` of
     the int8 codes by the scales (one kernel that promotes to fp32) for
     dequantize, ``torch.topk`` over the blocks' magnitudes for top-k,
     compiled ``flex_attention`` for flash attention with the softcap and
     ``scaled_dot_product_attention`` without it (``time_flash``).  No
-    single PyTorch call computes the rowwise absmax int8 quantizer."""
+    single PyTorch call computes the rowwise absmax int8 quantizer.
+    ``worst_rel``: the SSD backward's worst error over its bound's scale
+    (phases 3 and 5f)."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.fl.flatbuf import FlatLayout
     from repro_torch.models.vgg import init
@@ -3788,7 +4070,11 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
            "flash_attention_bwd_dkdv": (
                port + "flash_attention.cu",
                ref + "flash_attention/flash_attention.py:84"),
-           "ssd_scan": (port + "ssd_scan.cu", ref + "ssd_scan/ssd_scan.py:69")}
+           "ssd_scan": (port + "ssd_scan.cu", ref + "ssd_scan/ssd_scan.py:69"),
+           # no Pallas backward exists: the reference differentiates the jnp
+           # ssd_chunked (models/ssm.py) that the forward kernel replaces
+           "ssd_scan_bwd": (port + "ssd_scan.cu",
+                            ref + "ssd_scan/ssd_scan.py:69")}
     kernels = []
     for r in rows:
         if r["name"] in [k["name"] for k in kernels] or r["name"] not in src:
@@ -3804,6 +4090,14 @@ def time_kernels(torch, tq, tt, dev, launches, worst, serving_rows):
                         "library_ms": r["library_ms"]})
         if "bound_fp32_ms" in r:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
+        if r["name"] == "ssd_scan_bwd":
+            kernels[-1]["replaces_note"] = (
+                "no Pallas backward exists: the gradient of this line's "
+                "function, which the reference takes by autodiff of the jnp "
+                "ssd_chunked (src/repro/models/ssm.py:73)")
+            kernels[-1]["max_rel_err"] = worst_rel
+            for key in ("bound_3xtf32_ms", "computed_gflop", "library"):
+                kernels[-1][key] = r[key]
         if r["name"].startswith("flash_attention_bwd"):
             kernels[-1]["replaces_note"] = (
                 "no Pallas backward exists: the gradient of this line's "
@@ -3882,6 +4176,7 @@ def main() -> None:
         worst["flash_attention"] = check_flash(torch, tf, dev)
         record["flash_bwd_drills"] = check_flash_bwd(torch, tf, dev, worst)
         worst["ssd_scan"] = check_ssd(torch, ts, dev)
+        record["ssd_bwd_drills"] = check_ssd_bwd(torch, ts, dev)
         torch.cuda.synchronize()
 
         phase("4. federated main path: run_federated on VGG-5, full width")
@@ -3963,6 +4258,16 @@ def main() -> None:
         for e in training["real_layer_bwd_err"].values():
             add_bwd_errs(worst, e)
         free_card(torch)
+
+        phase("5f. LM training: mamba2-780m (full width and depth) through "
+              "the split path, the SSD scan's backward kernel and the driver")
+        ssm_training, ssd_bwd_real = mamba2_training_path(
+            torch, ts, dev, LAUNCHES, reset_launches)
+        record["main_path"]["train-mamba2-780m"] = ssm_training
+        worst["ssd_scan_bwd"], worst_rel_ssd_bwd = worst_ssd_bwd(
+            list(record["ssd_bwd_drills"].values())
+            + list(ssm_training["real_layer_bwd_err"].values()))
+        free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -3981,14 +4286,15 @@ def main() -> None:
             arch: small_lm_training_cpu_vs_card(torch, dev, arch)
             for arch in ("gemma2-2b", "qwen3-0.6b", "mixtral-8x22b",
                          "internvl2-2b", "recurrentgemma-9b",
-                         "whisper-base")}
+                         "whisper-base", "mamba2-780m")}
         record["small_driver"] = lm16m_driver_cpu_vs_card(torch, dev)
 
         phase("7. kernel times")
         kernels, rows = time_kernels(
-            torch, tq, tt, dev, launches, worst,
+            torch, tq, tt, dev, launches, worst, worst_rel_ssd_bwd,
             time_flash(torch, tf, real) + time_flash_bwd(torch, tf, real)
-            + time_ssd(torch, ts, ssd_real))
+            + time_ssd(torch, ts, ssd_real)
+            + time_ssd_bwd(torch, ts, ssd_bwd_real))
         record["kernels"], record["timings"] = kernels, rows
         torch.cuda.synchronize()
     except SystemExit:

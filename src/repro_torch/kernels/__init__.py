@@ -10,7 +10,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"quantize": 0, "dequantize": 0,
                             "topk_compress": 0, "flash_attention": 0,
                             "flash_attention_bwd_dq": 0,
-                            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0}
+                            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0,
+                            "ssd_scan_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,8 @@
-// Chunked SSD scan (Mamba-2 forward) for Hopper (sm_90a): a chunk-parallel
-// scan in four passes, its products on the tensor cores in 3xTF32.
+// Chunked SSD scan (Mamba-2) for Hopper (sm_90a): the forward, a
+// chunk-parallel scan in four passes, its products on the tensor cores in
+// 3xTF32; and its gradient (repro_ssd_scan_bwd, below the forward's
+// passes), which replaces no Pallas kernel: the reference has no backward
+// kernel and JAX differentiates its jnp ssd_chunked.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/ssd_scan/ssd_scan.py::ssd_scan_pallas
@@ -68,6 +71,19 @@
 // every output tile (at most N + Q = 256 terms: y's inter and intra terms
 // share them), and are added last.  A warp takes two m-tiles in one k-loop
 // so that each B fragment is split once for both.
+//
+// The backward (repro_ssd_scan_bwd; its passes are described where they
+// start, "The backward") runs the forward's passes 1-3 again, so the
+// autograd Function saves only the inputs, then six kernels.  Bound on
+// this card: operations.  At mamba2-780m's layer (B=1, S=4096, H=48, P=64,
+// N=128, Q=128) the products its passes compute come to 22.78 GFLOP: per
+// head the chunk states again, D = (e o dy)^T.C, B.G^T and C.S^T (2 Q P N
+// each), dM = dy.x^T and M^T.dy (causal halves), and per chunk dC and dB
+// (the heads' state parts, 2 Q H P N each, and the scores' causal halves).
+// At the fp32 CUDA-core rate that is 0.34 ms, in 3xTF32 0.14 ms; its bytes
+// (x, dy, dx 50 MB each) take 0.048 ms.  Its products but the reused
+// forward ones and its first pass are fp32 FMAs on the CUDA cores (a
+// first cut: simple and exact to fp32), 64 x 64 tiles of 4 x 4 a thread.
 //
 // Shared-memory strides: an operand read at (row gq, column k0 + tq) of
 // an m16n8k8 fragment has its rows 4 mod 32 floats apart, one read at
@@ -337,7 +353,11 @@ struct Cell {
 };
 
 // Pass 2: cum (in order) and the chunk's own state contribution
-// sum_j exp(cum_last - cum_j) dt_j x_j B_j^T for one P slice.
+// sum_j exp(cum_last - cum_j) dt_j x_j B_j^T for one P slice.  kGrad: the
+// backward's first pass on the same tiling, D_c = sum_i exp(cum_i) dy_i
+// C_i^T, with dy in x's place and C in B's (cum computed as here, bit for
+// bit, and not written).
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_chunk_states(const float* __restrict__ x,
                       const float* __restrict__ dt,
@@ -380,8 +400,8 @@ ssd_scan_chunk_states(const float* __restrict__ x,
   const float cum_last = cum[d.Qp - 1];
   float* cg = cum_out + (((long long)e.b * d.H + e.h) * d.nc + e.c) * d.Qp;
   for (int r = tid; r < d.Qp; r += kThreads) {
-    wts[r] = expf(cum_last - cum[r]) * dts[r];
-    if (e.p0 == 0) cg[r] = cum[r];
+    wts[r] = kGrad ? expf(cum[r]) : expf(cum_last - cum[r]) * dts[r];
+    if (!kGrad && e.p0 == 0) cg[r] = cum[r];
   }
   cp_async_wait_all();
   __syncthreads();
@@ -654,6 +674,480 @@ ssd_scan_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward.  The forward's passes 1-3 run again first (chunk scores,
+// cum, the entering states), then:
+//   B1. ssd_scan_chunk_states<true>: D_c = (e o dy)^T . C per (batch, chunk,
+//       head, P slice), into the chunk states' scratch;
+//   B2. ssd_scan_bwd_state_pass: walks the chunks from the last, G_c = the
+//       gradient of the state leaving chunk c (dfinal or 0 for the last),
+//       G_{c-1} = exp(cum_last[c]) G_c + D_c, dinit at the end;
+//   B3. ssd_scan_bwd_chunk, a CTA per (batch, chunk, head): dM = dy.x^T,
+//       dx = M^T.dy + w o (B.G^T), the head's dCB = L o dt o dM (into
+//       scratch), e and w (into scratch), d cum, its reversed prefix sum,
+//       ddt and the chunk's dA term;
+//   B4. ssd_scan_bwd_head_sum: dCB summed over the heads in order;
+//   B5. ssd_scan_bwd_bc, a CTA per (batch, chunk, 64 x 64 tile, dB or dC):
+//       dC = dCB.B + sum_h (e o dy_h).S_h, dB = dCB^T.C + sum_h (w o x_h).G_h,
+//       one k-loop over Qp + H P;
+//   B6. ssd_scan_bwd_da: dA, the chunks' terms summed in order.
+// B3 and B5 run fp32 FMAs on the CUDA cores: 64 x 64 output tiles, a
+// thread 4 x 4, k-steps of 16 staged through shared memory by loaders that
+// mask the causal half, the rows past the chunk and the columns past the
+// width.  No atomics: every sum has a fixed order, so two calls give the
+// same bits.  Every decay is exp of a difference <= 0: exp(cum_i - cum_j)
+// only for j <= i (the exponent is selected before expf above the
+// diagonal), exp(cum_last - cum_j), exp(cum_i).
+constexpr int kT = 64;          // output tile edge of the fp32 products
+constexpr int kKT = 16;         // their k-step
+constexpr int kTL = kT + 4;     // a staged k-row's stride (floats)
+
+__device__ __forceinline__ void zero44(float (&t)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i][0] = t[i][1] = t[i][2] = t[i][3] = 0.f;
+}
+
+// acc += A . B over k in [k0, k1) for the 64 x 64 tile at (m0, n0): thread
+// (tx, ty) = (tid % 16, tid / 16) owns rows m0 + 4 ty + i and columns n0 +
+// 4 tx + j.  fa(m, k) and fb(k, n) give the operands (0 outside them); kAk
+// / kBk: the operand's memory is contiguous along k (consecutive threads
+// then load consecutive k), else along m / n.  Every thread of the CTA
+// calls it: it starts with a barrier, so the staging buffers (sa, sb:
+// kKT x kTL floats each, 16-byte aligned) are free.
+template <bool kAk, bool kBk, class FA, class FB>
+__device__ __forceinline__ void tile_mm(float (&acc)[4][4], int m0, int n0,
+                                        int k0, int k1, const FA& fa,
+                                        const FB& fb, float* sa, float* sb) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int kb = k0; kb < k1; kb += kKT) {
+    __syncthreads();
+    for (int e = tid; e < kT * kKT; e += kThreads) {
+      const int am = kAk ? e / kKT : e % kT, ak = kAk ? e % kKT : e / kT;
+      const int bn = kBk ? e / kKT : e % kT, bk = kBk ? e % kKT : e / kT;
+      sa[ak * kTL + am] = kb + ak < k1 ? fa(m0 + am, kb + ak) : 0.f;
+      sb[bk * kTL + bn] = kb + bk < k1 ? fb(kb + bk, n0 + bn) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kKT; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(sa + k * kTL + 4 * ty);
+      const float4 b = *reinterpret_cast<const float4*>(sb + k * kTL + 4 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// the sum over the 16 threads of a row group (lanes tx = 0..15 of one half
+// warp), in a fixed order
+template <class T>
+__device__ __forceinline__ T row_sum16(T v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+// B2: the state gradients handed back from chunk to chunk, V consecutive
+// (batch, head, p, n) elements a thread, kG chunks' loads in flight.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_state_pass(const float* __restrict__ cum,
+                        const float* __restrict__ dfinal,
+                        const float* __restrict__ dst,
+                        float* __restrict__ gst, float* __restrict__ dinit,
+                        Dims d) {
+  constexpr int kG = 8;
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const long long hpn = (long long)d.H * d.P * d.N;
+  const long long t = ((long long)blockIdx.x * kThreads + threadIdx.x) * V;
+  if (t >= d.B * hpn) return;
+  const int b = (int)(t / hpn);
+  const long long e = t % hpn;
+  const int h = (int)(e / ((long long)d.P * d.N));
+  const float* last =
+      cum + ((long long)b * d.H + h) * d.nc * d.Qp + d.Qp - 1;
+  const long long base = (long long)b * d.nc * hpn + e;
+  float g[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) g[k] = dfinal != nullptr ? dfinal[t + k] : 0.f;
+  for (int c1 = d.nc; c1 > 0; c1 -= kG) {
+    float v[kG][V], gm[kG];
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      const int c = c1 - 1 - k;
+      if (c >= 0) {
+        const Vec w = *reinterpret_cast<const Vec*>(dst + base + c * hpn);
+        memcpy(v[k], &w, sizeof(w));
+        gm[k] = expf(last[(long long)c * d.Qp]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      const int c = c1 - 1 - k;
+      if (c >= 0) {
+        Vec w;
+        memcpy(&w, g, sizeof(w));
+        *reinterpret_cast<Vec*>(gst + base + c * hpn) = w;
+#pragma unroll
+        for (int i = 0; i < V; ++i) g[i] = gm[k] * g[i] + v[k][i];
+      }
+    }
+  }
+  if (dinit != nullptr) {
+    Vec w;
+    memcpy(&w, g, sizeof(w));
+    *reinterpret_cast<Vec*>(dinit + t) = w;
+  }
+}
+
+// shared memory of B3 (floats): the staging tiles, dM (Qp x (Qp + 1)),
+// three row vectors of doubles and seven of floats, a reduction buffer
+__host__ __device__ constexpr size_t bwd_chunk_floats(int Qp) {
+  return (size_t)2 * kKT * kTL + (size_t)Qp * (Qp + 1) + 13 * Qp + kThreads;
+}
+
+// B3: one (batch, chunk, head).  With M_ij = CB_ij L_ij dt_j (j <= i),
+// dM_ij = dy_i . x_j, U_j = G B_j, V_i = S_enter C_i:
+//   dx_j  = sum_i M_ij dy_i + w_j U_j
+//   dCB_ij (this head's part) = L_ij dt_j dM_ij
+//   dcum_i = sum_j M_ij dM_ij - sum_k M_ki dM_ki - w_i (x_i . U_i)
+//            + e_i (dy_i . V_i), and on the last row also
+//            sum_j w_j (x_j . U_j) + gamma <G, S_enter>
+//   d(dt A)_k = sum_{i >= k} dcum_i
+//   ddt_j = sum_i CB_ij L_ij dM_ij + exp(cum_last - cum_j) (x_j . U_j)
+//           + A d(dt A)_j;  the chunk's dA term sum_k d(dt A)_k dt_k.
+// The row and column sums of M o dM cancel in d cum, so they, d cum, its
+// prefix sum and the dA term are summed in double.
+// Heads vary fastest over the grid, so neighbouring CTAs share the
+// chunk's B, C and CB.
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const float* __restrict__ Cm, const float* __restrict__ dy,
+                   const float* __restrict__ cb,
+                   const float* __restrict__ cum_in,
+                   const float* __restrict__ entering,
+                   const float* __restrict__ gst, float* __restrict__ dx,
+                   float* __restrict__ ddt, float* __restrict__ dcbh,
+                   float* __restrict__ ew, float* __restrict__ dap, Dims d) {
+  const int h = blockIdx.x % d.H, bc = blockIdx.x / d.H;
+  const int b = bc / d.nc, c = bc % d.nc;
+  const int s0 = c * d.Q, qv = min(d.Q, d.S - s0);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int Qp = d.Qp, P = d.P, N = d.N, LM = Qp + 1;
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sb = sa + kKT * kTL;
+  float* dM = sb + kKT * kTL;          // Qp x LM (Qp even: 8-byte aligned)
+  double* rowT = reinterpret_cast<double*>(dM + Qp * LM);  // sum_j M_ij dM_ij
+  double* colT = rowT + Qp;            // sum_i M_ij dM_ij
+  double* dcum = colT + Qp;
+  float* cum = reinterpret_cast<float*>(dcum + Qp);
+  float* dts = cum + Qp;
+  float* ev = dts + Qp;                // exp(cum_i)
+  float* wv = ev + Qp;                 // exp(cum_last - cum_j) dt_j
+  float* colR = wv + Qp;               // sum_i CB_ij L_ij dM_ij
+  float* dw = colR + Qp;               // x_j . U_j
+  float* de = dw + Qp;                 // dy_i . V_i
+  float* red = de + Qp;                // kThreads
+
+  const long long ys = (long long)d.H * P;   // dy's and dx's row stride
+  const long long pn = (long long)P * N;
+  const float* xg = x + b * d.xb + s0 * d.xs + h * P;
+  const float* dyg = dy + ((long long)b * d.S + s0) * ys + h * P;
+  const float* bg = Bm + b * d.nb + s0 * d.ns;
+  const float* cgm = Cm + b * d.nb + s0 * d.ns;
+  const float* Sg = entering + (((long long)b * d.nc + c) * d.H + h) * pn;
+  const float* Gg = gst + (((long long)b * d.nc + c) * d.H + h) * pn;
+  const float* cbg = cb + ((long long)b * d.nc + c) * Qp * Qp;
+  float* dcbg = dcbh + (((long long)b * d.nc + c) * d.H + h) * Qp * Qp;
+  float* ewg = ew + (((long long)b * d.H + h) * d.nc + c) * 2 * Qp;
+
+  const float* cg = cum_in + (((long long)b * d.H + h) * d.nc + c) * Qp;
+  for (int r = tid; r < Qp; r += kThreads) {
+    cum[r] = cg[r];
+    dts[r] = r < qv ? dt[((long long)b * d.S + s0 + r) * d.H + h] : 0.f;
+    dw[r] = de[r] = 0.f;
+  }
+  __syncthreads();
+  const float cum_last = cum[Qp - 1];
+  for (int r = tid; r < Qp; r += kThreads) {
+    ev[r] = expf(cum[r]);
+    wv[r] = expf(cum_last - cum[r]) * dts[r];
+    ewg[r] = ev[r];
+    ewg[Qp + r] = wv[r];
+  }
+
+  // 1. dM = dy . x^T at and below the diagonal's 64 x 64 tiles
+  auto dy_ik = [&](int i, int p) {
+    return i < qv && p < P ? dyg[i * ys + p] : 0.f;
+  };
+  auto x_kj = [&](int p, int j) {
+    return j < qv && p < P ? xg[j * d.xs + p] : 0.f;
+  };
+  for (int m0 = 0; m0 < Qp; m0 += kT) {
+    for (int n0 = 0; n0 <= m0; n0 += kT) {
+      float acc[4][4];
+      zero44(acc);
+      tile_mm<true, true>(acc, m0, n0, 0, P, dy_ik, x_kj, sa, sb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = m0 + 4 * ty + i, col = n0 + 4 * tx + j;
+          if (r < Qp && col < Qp) dM[r * LM + col] = acc[i][j];
+        }
+    }
+  }
+  __syncthreads();
+
+  // 2. a warp a row: this head's dCB (zero above the diagonal) and the
+  // row sums of M o dM; a thread a column: the column sums
+  for (int r = warp; r < Qp; r += kWarps) {
+    const float cr = cum[r];
+    double t = 0.0;
+    for (int j = lane; j < Qp; j += 32) {
+      const bool in = j <= r;
+      const float v = expf(in ? cr - cum[j] : 0.f) * dts[j] * dM[r * LM + j];
+      dcbg[r * Qp + j] = in ? v : 0.f;
+      t += in ? (double)(cbg[r * Qp + j] * v) : 0.0;
+    }
+    t += __shfl_xor_sync(0xffffffffu, t, 16);
+    t = row_sum16(t);
+    if (lane == 0) rowT[r] = t;
+  }
+  for (int j = tid; j < Qp; j += kThreads) {
+    const float cj = cum[j], dj = dts[j];
+    double t = 0.0;
+    float rr = 0.f;
+    for (int i = j; i < Qp; ++i) {
+      const float L = expf(cum[i] - cj);
+      const float g = cbg[i * Qp + j];
+      const float dm = dM[i * LM + j];
+      t += (double)(g * (L * dj * dm));
+      rr += g * L * dm;
+    }
+    colT[j] = t;
+    colR[j] = rr;
+  }
+
+  // 3. dx = M^T . dy + w o (B . G^T), and x_j . (B . G^T)_j
+  auto m_jk = [&](int j, int i) {
+    const bool in = j <= i && i < qv;
+    const int ii = in ? i : 0, jj = in ? j : 0;
+    const float v = cbg[ii * Qp + jj] * expf(cum[ii] - cum[jj]) * dts[jj];
+    return in ? v : 0.f;
+  };
+  auto dy_kn = [&](int i, int p) {
+    return i < qv && p < P ? dyg[i * ys + p] : 0.f;
+  };
+  auto b_mk = [&](int j, int n) {
+    return j < qv && n < N ? bg[j * d.ns + n] : 0.f;
+  };
+  auto g_kn = [&](int n, int p) {
+    return n < N && p < P ? Gg[p * N + n] : 0.f;
+  };
+  float* dxg = dx + ((long long)b * d.S + s0) * ys + h * P;
+  for (int m0 = 0; m0 < Qp; m0 += kT) {
+    for (int n0 = 0; n0 < P; n0 += kT) {
+      float a1[4][4], a2[4][4];
+      zero44(a1);
+      zero44(a2);
+      tile_mm<false, false>(a1, m0, n0, m0, Qp, m_jk, dy_kn, sa, sb);
+      tile_mm<true, true>(a2, m0, n0, 0, N, b_mk, g_kn, sa, sb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = m0 + 4 * ty + i;
+        float part = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int p = n0 + 4 * tx + jj;
+          if (j < qv && p < P) {
+            dxg[j * ys + p] = a1[i][jj] + wv[j] * a2[i][jj];
+            part += xg[j * d.xs + p] * a2[i][jj];
+          }
+        }
+        part = row_sum16(part);
+        if (tx == 0 && j < Qp) dw[j] += part;
+      }
+    }
+  }
+
+  // 4. dy_i . (C . S_enter^T)_i
+  auto c_mk = [&](int i, int n) {
+    return i < qv && n < N ? cgm[i * d.ns + n] : 0.f;
+  };
+  auto s_kn = [&](int n, int p) {
+    return n < N && p < P ? Sg[p * N + n] : 0.f;
+  };
+  for (int m0 = 0; m0 < Qp; m0 += kT) {
+    for (int n0 = 0; n0 < P; n0 += kT) {
+      float acc[4][4];
+      zero44(acc);
+      tile_mm<true, true>(acc, m0, n0, 0, N, c_mk, s_kn, sa, sb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + 4 * ty + i;
+        float part = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int p = n0 + 4 * tx + jj;
+          if (r < qv && p < P) part += dyg[r * ys + p] * acc[i][jj];
+        }
+        part = row_sum16(part);
+        if (tx == 0 && r < Qp) de[r] += part;
+      }
+    }
+  }
+
+  // 5. <G, S_enter>
+  float part = 0.f;
+  for (long long e = tid; e < pn; e += kThreads) part += Gg[e] * Sg[e];
+  red[tid] = part;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  const float dgamma = red[0];
+
+  // 6. d cum, its reversed prefix sum d(dt A), ddt and the dA term
+  for (int r = tid; r < Qp; r += kThreads)
+    dcum[r] = rowT[r] - colT[r] - (double)(wv[r] * dw[r]) +
+              (double)(ev[r] * de[r]);
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int j = 0; j < Qp; ++j) s += (double)(wv[j] * dw[j]);
+    dcum[Qp - 1] += s + (double)(expf(cum_last) * dgamma);
+    double run = 0.0;
+    for (int k = Qp - 1; k >= 0; --k) {
+      run += dcum[k];
+      dcum[k] = run;
+    }
+    double a = 0.0;
+    for (int k = 0; k < Qp; ++k) a += dcum[k] * (double)dts[k];
+    dap[((long long)b * d.nc + c) * d.H + h] = (float)a;
+  }
+  __syncthreads();
+  const float Ah = A[h];
+  for (int r = tid; r < qv; r += kThreads)
+    ddt[((long long)b * d.S + s0 + r) * d.H + h] =
+        colR[r] + expf(cum_last - cum[r]) * dw[r] + Ah * (float)dcum[r];
+}
+
+// B4: dCB summed over the heads, in order
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_head_sum(const float* __restrict__ dcbh, float* __restrict__ dcb,
+                      Dims d) {
+  const long long qq = (long long)d.Qp * d.Qp;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)d.B * d.nc * qq) return;
+  const float* src = dcbh + (t / qq) * d.H * qq + t % qq;
+  float s = 0.f;
+  for (int h = 0; h < d.H; ++h) s += src[h * qq];
+  dcb[t] = s;
+}
+
+// B5: one 64 x 64 tile of dC (which 0) or dB (which 1) for one (batch,
+// chunk): the scores' part (k < Qp) then the heads' state parts (k = Qp +
+// h P + p, heads in order), in one accumulator.
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_bc(const float* __restrict__ x, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, const float* __restrict__ dy,
+                const float* __restrict__ dcb, const float* __restrict__ ew,
+                const float* __restrict__ entering,
+                const float* __restrict__ gst, float* __restrict__ dBm,
+                float* __restrict__ dCm, Dims d) {
+  const int ntl = (d.N + kT - 1) / kT, mtl = (d.Qp + kT - 1) / kT;
+  int idx = blockIdx.x;
+  const int which = idx % 2;
+  idx /= 2;
+  const int n0 = (idx % ntl) * kT;
+  idx /= ntl;
+  const int m0 = (idx % mtl) * kT;
+  idx /= mtl;
+  const int c = idx % d.nc, b = idx / d.nc;
+  const int s0 = c * d.Q, qv = min(d.Q, d.S - s0);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int Qp = d.Qp, P = d.P, N = d.N, HP = d.H * d.P;
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sb = sa + kKT * kTL;
+  const float* dcbc = dcb + ((long long)b * d.nc + c) * Qp * Qp;
+  const float* bg = Bm + b * d.nb + s0 * d.ns;
+  const float* cg = Cm + b * d.nb + s0 * d.ns;
+  // e (which 0) or w (which 1) of head h, row r
+  const float* ewc = ew + ((long long)b * d.H * d.nc + c) * 2 * Qp +
+                     (which ? Qp : 0);
+  const long long ewh = (long long)d.nc * 2 * Qp;
+  const float* st = (which ? gst : entering) +
+                    ((long long)b * d.nc + c) * HP * N;
+  auto st_kn = [&](int kk, int n) {
+    return kk < HP && n < N ? st[(long long)kk * N + n] : 0.f;
+  };
+  float acc[4][4];
+  zero44(acc);
+  if (which == 0) {
+    auto cb_mk = [&](int i, int j) {
+      return j <= i && i < qv ? dcbc[i * Qp + j] : 0.f;
+    };
+    auto b_kn = [&](int j, int n) {
+      return j < qv && n < N ? bg[j * d.ns + n] : 0.f;
+    };
+    const float* dyr = dy + ((long long)b * d.S + s0) * HP;
+    auto edy_mk = [&](int i, int kk) {
+      const bool in = i < qv && kk < HP;
+      const int hh = in ? kk / P : 0;
+      return in ? ewc[hh * ewh + i] * dyr[(long long)i * HP + kk] : 0.f;
+    };
+    tile_mm<true, false>(acc, m0, n0, 0, min(Qp, m0 + kT), cb_mk, b_kn, sa,
+                         sb);
+    tile_mm<true, false>(acc, m0, n0, 0, HP, edy_mk, st_kn, sa, sb);
+  } else {
+    auto cb_mk = [&](int j, int i) {
+      return j <= i && i < qv ? dcbc[i * Qp + j] : 0.f;
+    };
+    auto c_kn = [&](int i, int n) {
+      return i < qv && n < N ? cg[i * d.ns + n] : 0.f;
+    };
+    const float* xr = x + b * d.xb + s0 * d.xs;
+    auto wx_mk = [&](int j, int kk) {
+      const bool in = j < qv && kk < HP;
+      const int hh = in ? kk / P : 0;
+      return in ? ewc[hh * ewh + j] * xr[j * d.xs + kk] : 0.f;
+    };
+    tile_mm<false, false>(acc, m0, n0, m0, Qp, cb_mk, c_kn, sa, sb);
+    tile_mm<true, false>(acc, m0, n0, 0, HP, wx_mk, st_kn, sa, sb);
+  }
+  float* out = (which ? dBm : dCm) + ((long long)b * d.S + s0) * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = m0 + 4 * ty + i, n = n0 + 4 * tx + j;
+      if (r < qv && n < N) out[(long long)r * N + n] = acc[i][j];
+    }
+}
+
+// B6: dA, the (batch, chunk) terms of each head summed in order
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_da(const float* __restrict__ dap, float* __restrict__ dA,
+                Dims d) {
+  for (int h = threadIdx.x; h < d.H; h += kThreads) {
+    double s = 0.0;
+    for (int bc = 0; bc < d.B * d.nc; ++bc) s += dap[(long long)bc * d.H + h];
+    dA[h] = (float)s;
+  }
+}
+
 bool aligned(const void* p, int bytes) {
   return ((uintptr_t)p & (bytes - 1)) == 0;
 }
@@ -661,19 +1155,28 @@ bool aligned(const void* p, int bytes) {
 // The passes' scratch: one buffer, carved in this order into parts that
 // start a multiple of 256 bytes from its start: the chunk scores cb (B, nc,
 // Qp, Qp), the in-chunk cumsums cum (B, H, nc, Qp), the chunks' own states
-// and the states entering them (B, nc, H, P, N) each.  Returns its floats;
-// a null base only counts them.
+// and the states entering them (B, nc, H, P, N) each.  The backward's
+// buffer continues with the final state it does not return (B, H, P, N),
+// the state gradients G (B, nc, H, P, N), each head's dCB (B, nc, H, Qp,
+// Qp) and their sum (B, nc, Qp, Qp), e and w (B, H, nc, 2, Qp) and the
+// chunks' dA terms (B, nc, H); its first pass writes D_c over the chunk
+// states.  Returns the floats; a null base only counts them.
 struct Scratch {
   float *cb, *cum, *states, *entering;
+  float *fin, *gst, *dcbh, *dcb, *ew, *dap;
 };
-size_t carve(const Dims& d, float* base, Scratch* out) {
-  const size_t parts[4] = {
-      (size_t)d.B * d.nc * d.Qp * d.Qp, (size_t)d.B * d.H * d.nc * d.Qp,
-      (size_t)d.B * d.nc * d.H * d.P * d.N,
-      (size_t)d.B * d.nc * d.H * d.P * d.N};
-  float** to[4] = {&out->cb, &out->cum, &out->states, &out->entering};
+size_t carve(const Dims& d, float* base, Scratch* out, bool backward) {
+  const size_t st = (size_t)d.B * d.nc * d.H * d.P * d.N;
+  const size_t bcq = (size_t)d.B * d.nc * d.Qp * d.Qp;
+  const size_t parts[10] = {bcq, (size_t)d.B * d.H * d.nc * d.Qp, st, st,
+                            (size_t)d.B * d.H * d.P * d.N, st, bcq * d.H, bcq,
+                            (size_t)d.B * d.H * d.nc * 2 * d.Qp,
+                            (size_t)d.B * d.nc * d.H};
+  float** to[10] = {&out->cb,  &out->cum,  &out->states, &out->entering,
+                    &out->fin, &out->gst,  &out->dcbh,   &out->dcb,
+                    &out->ew,  &out->dap};
   size_t at = 0;
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < (backward ? 10 : 4); ++i) {
     if (base != nullptr) *to[i] = base + at;
     at += (parts[i] + 63) / 64 * 64;
   }
@@ -691,6 +1194,82 @@ Dims dims(int B, int S, int H, int P, int N, int Q) {
   return d;
 }
 
+// Opt in to the large shared memory every pass takes, once, before any
+// graph capture (warm-up calls)
+int set_attributes() {
+  static bool done = false;
+  if (done) return 0;
+  const struct {
+    const void* fn;
+    size_t floats;
+  } big[] = {
+      {(const void*)ssd_scan_chunk_scores, scores_floats(kMaxQ, kMaxN)},
+      {(const void*)ssd_scan_chunk_states<false>, states_floats(kMaxQ, kMaxN)},
+      {(const void*)ssd_scan_chunk_states<true>, states_floats(kMaxQ, kMaxN)},
+      {(const void*)ssd_scan_chunk_scan, scan_floats(kMaxQ, kMaxN)},
+      {(const void*)ssd_scan_bwd_chunk, bwd_chunk_floats(kMaxQ)}};
+  for (const auto& k : big) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(float) * k.floats));
+    if (err != cudaSuccess) return (int)err;
+  }
+  done = true;
+  return 0;
+}
+
+// The launches both entry points share: what the kernels read of the
+// layout, then passes 1-3 (chunk scores, cum and the chunk states, the
+// entering states and the final one).
+struct Plan {
+  Dims d;
+  Scratch sc;
+  bool vecx, vecn, vec_pass;
+  long long cells;
+};
+Plan plan(const void* x, const void* Bm, const void* Cm, const void* init,
+          const void* fstate, void* scratch, bool backward, int B, int S,
+          int H, int P, int N, int Q, long long xb, long long xs,
+          long long nb, long long ns) {
+  Plan p;
+  p.d = dims(B, S, H, P, N, Q);
+  p.d.xb = xb, p.d.xs = xs, p.d.nb = nb, p.d.ns = ns;
+  carve(p.d, (float*)scratch, &p.sc, backward);
+  if (!backward) p.sc.fin = (float*)fstate;
+  p.d.st2 = N % 2 == 0 && aligned(p.sc.states, 8);
+  // 16-byte copies need every row start 16-byte aligned
+  p.vecx = P % 4 == 0 && xb % 4 == 0 && xs % 4 == 0 && aligned(x, 16);
+  p.vecn = N % 4 == 0 && nb % 4 == 0 && ns % 4 == 0 && aligned(Bm, 16) &&
+           aligned(Cm, 16) && aligned(p.sc.entering, 16);
+  p.vec_pass = N % 4 == 0 && aligned(p.sc.states, 16) &&
+               aligned(p.sc.entering, 16) && aligned(p.sc.fin, 16) &&
+               (init == nullptr || aligned(init, 16));
+  p.cells = (long long)B * p.d.nc * H * ((P + kPS - 1) / kPS);
+  return p;
+}
+
+void forward_passes(const Plan& p, const float* x, const float* dt,
+                    const float* A, const float* Bm, const float* Cm,
+                    const float* init, cudaStream_t s) {
+  const Dims& d = p.d;
+  ssd_scan_chunk_scores<<<(unsigned)(4 * d.B * d.nc), kThreads,
+                          sizeof(float) * scores_floats(d.Qp, d.Np), s>>>(
+      Bm, Cm, p.sc.cb, d, p.vecn);
+  ssd_scan_chunk_states<false><<<(unsigned)p.cells, kThreads,
+                                 sizeof(float) * states_floats(d.Qp, d.Np),
+                                 s>>>(x, dt, A, Bm, p.sc.cum, p.sc.states, d,
+                                      p.vecx, p.vecn);
+  const long long elems = (long long)d.B * d.H * d.P * d.N;
+  if (p.vec_pass)
+    ssd_scan_state_pass<4>
+        <<<(unsigned)((elems / 4 + kThreads - 1) / kThreads), kThreads, 0,
+           s>>>(p.sc.cum, init, p.sc.states, p.sc.entering, p.sc.fin, d);
+  else
+    ssd_scan_state_pass<1>
+        <<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+            p.sc.cum, init, p.sc.states, p.sc.entering, p.sc.fin, d);
+}
+
 }  // namespace
 
 // The floats of scratch one call of repro_ssd_scan needs at these sizes,
@@ -702,7 +1281,18 @@ extern "C" int repro_ssd_scan_scratch(int B, int S, int H, int P, int N,
       P < 0)
     return (int)cudaErrorInvalidValue;
   Scratch unused;
-  *floats = (long long)carve(dims(B, S, H, P, N, Q), nullptr, &unused);
+  *floats = (long long)carve(dims(B, S, H, P, N, Q), nullptr, &unused, false);
+  return 0;
+}
+
+// The same for one call of repro_ssd_scan_bwd.
+extern "C" int repro_ssd_scan_bwd_scratch(int B, int S, int H, int P, int N,
+                                          int Q, long long* floats) {
+  if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || B < 0 || S < 0 || H < 0 ||
+      P < 0)
+    return (int)cudaErrorInvalidValue;
+  Scratch unused;
+  *floats = (long long)carve(dims(B, S, H, P, N, Q), nullptr, &unused, true);
   return 0;
 }
 
@@ -721,63 +1311,86 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0) return 0;
-  static bool attribute_set = false;   // once, before any graph capture
-  if (!attribute_set) {                // (warm-up calls)
-    const struct {
-      const void* fn;
-      size_t floats;
-    } big[] = {
-        {(const void*)ssd_scan_chunk_scores, scores_floats(kMaxQ, kMaxN)},
-        {(const void*)ssd_scan_chunk_states, states_floats(kMaxQ, kMaxN)},
-        {(const void*)ssd_scan_chunk_scan, scan_floats(kMaxQ, kMaxN)}};
-    for (const auto& k : big) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)(sizeof(float) * k.floats));
-      if (err != cudaSuccess) return (int)err;
-    }
-    attribute_set = true;
-  }
-  Dims d = dims(B, S, H, P, N, Q);
-  d.xb = xb, d.xs = xs, d.nb = nb, d.ns = ns;
-  Scratch sc;
-  carve(d, (float*)scratch, &sc);
-  d.st2 = N % 2 == 0 && aligned(sc.states, 8);
-  d.y2 = P % 2 == 0 && aligned(y, 8);
-  // 16-byte copies need every row start 16-byte aligned
-  const bool vecx =
-      P % 4 == 0 && xb % 4 == 0 && xs % 4 == 0 && aligned(x, 16);
-  const bool vecn = N % 4 == 0 && nb % 4 == 0 && ns % 4 == 0 &&
-                    aligned(Bm, 16) && aligned(Cm, 16) &&
-                    aligned(sc.entering, 16);
-  const bool vec_pass = N % 4 == 0 && aligned(sc.states, 16) &&
-                        aligned(sc.entering, 16) && aligned(fstate, 16) &&
-                        (init == nullptr || aligned(init, 16));
+  const int err = set_attributes();
+  if (err != 0) return err;
+  Plan p = plan(x, Bm, Cm, init, fstate, scratch, false, B, S, H, P, N, Q,
+                xb, xs, nb, ns);
+  p.d.y2 = P % 2 == 0 && aligned(y, 8);
   cudaStream_t s = (cudaStream_t)stream;
-  const long long cells =
-      (long long)B * d.nc * H * ((P + kPS - 1) / kPS);
+  forward_passes(p, (const float*)x, (const float*)dt, (const float*)A,
+                 (const float*)Bm, (const float*)Cm, (const float*)init, s);
+  ssd_scan_chunk_scan<<<(unsigned)p.cells, kThreads,
+                        sizeof(float) * scan_floats(p.d.Qp, p.d.Np), s>>>(
+      (const float*)x, (const float*)dt, (const float*)Cm, p.sc.cb, p.sc.cum,
+      p.sc.entering, (float*)y, p.d, p.vecx, p.vecn);
+  return (int)cudaGetLastError();
+}
 
-  ssd_scan_chunk_scores<<<(unsigned)(4 * B * d.nc), kThreads,
-                          sizeof(float) * scores_floats(d.Qp, d.Np), s>>>(
-      (const float*)Bm, (const float*)Cm, sc.cb, d, vecn);
-  ssd_scan_chunk_states<<<(unsigned)cells, kThreads,
-                          sizeof(float) * states_floats(d.Qp, d.Np), s>>>(
-      (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      sc.cum, sc.states, d, vecx, vecn);
+// The gradient of repro_ssd_scan: inputs as there, dy (B, S, H, P) and
+// dfinal (B, H, P, N, or null: no gradient on the final state) contiguous;
+// outputs dx (B, S, H, P), ddt (B, S, H), dA (H,), dBm, dCm (B, S, N) and
+// dinit (B, H, P, N; null to skip it), contiguous; scratch of the floats
+// repro_ssd_scan_bwd_scratch gives.
+extern "C" int repro_ssd_scan_bwd(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* init, const void* dy, const void* dfinal,
+    void* dx, void* ddt, void* dA, void* dBm, void* dCm, void* dinit,
+    void* scratch, int B, int S, int H, int P, int N, int Q, long long xb,
+    long long xs, long long nb, long long ns, void* stream) {
+  if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0)
+    return H > 0 ? (int)cudaMemsetAsync(dA, 0, sizeof(float) * H, s) : 0;
+  const int err = set_attributes();
+  if (err != 0) return err;
+  Plan p = plan(x, Bm, Cm, init, nullptr, scratch, true, B, S, H, P, N, Q,
+                xb, xs, nb, ns);
+  const Dims& d = p.d;
+  const float *fx = (const float*)x, *fdt = (const float*)dt,
+              *fA = (const float*)A, *fB = (const float*)Bm,
+              *fC = (const float*)Cm, *fdy = (const float*)dy;
+  forward_passes(p, fx, fdt, fA, fB, fC, (const float*)init, s);
+  // B1: dy in x's place (its own strides), C in B's
+  Dims dd = d;
+  dd.xb = (long long)S * H * P, dd.xs = (long long)H * P;
+  ssd_scan_chunk_states<true><<<(unsigned)p.cells, kThreads,
+                                sizeof(float) * states_floats(d.Qp, d.Np),
+                                s>>>(fdy, fdt, fA, fC, p.sc.cum, p.sc.states,
+                                     dd, P % 4 == 0 && aligned(dy, 16),
+                                     p.vecn);
+  // B2
   const long long elems = (long long)B * H * P * N;
-  if (vec_pass)
-    ssd_scan_state_pass<4>
+  const bool vec = N % 4 == 0 && aligned(p.sc.states, 16) &&
+                   aligned(p.sc.gst, 16) &&
+                   (dfinal == nullptr || aligned(dfinal, 16)) &&
+                   (dinit == nullptr || aligned(dinit, 16));
+  if (vec)
+    ssd_scan_bwd_state_pass<4>
         <<<(unsigned)((elems / 4 + kThreads - 1) / kThreads), kThreads, 0,
-           s>>>(sc.cum, (const float*)init, sc.states, sc.entering,
-                (float*)fstate, d);
+           s>>>(p.sc.cum, (const float*)dfinal, p.sc.states, p.sc.gst,
+                (float*)dinit, d);
   else
-    ssd_scan_state_pass<1>
+    ssd_scan_bwd_state_pass<1>
         <<<(unsigned)((elems + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            sc.cum, (const float*)init, sc.states, sc.entering,
-            (float*)fstate, d);
-  ssd_scan_chunk_scan<<<(unsigned)cells, kThreads,
-                        sizeof(float) * scan_floats(d.Qp, d.Np), s>>>(
-      (const float*)x, (const float*)dt, (const float*)Cm, sc.cb, sc.cum,
-      sc.entering, (float*)y, d, vecx, vecn);
+            p.sc.cum, (const float*)dfinal, p.sc.states, p.sc.gst,
+            (float*)dinit, d);
+  // B3
+  ssd_scan_bwd_chunk<<<(unsigned)(B * d.nc * H), kThreads,
+                       sizeof(float) * bwd_chunk_floats(d.Qp), s>>>(
+      fx, fdt, fA, fB, fC, fdy, p.sc.cb, p.sc.cum, p.sc.entering, p.sc.gst,
+      (float*)dx, (float*)ddt, p.sc.dcbh, p.sc.ew, p.sc.dap, d);
+  // B4
+  const long long qq = (long long)B * d.nc * d.Qp * d.Qp;
+  ssd_scan_bwd_head_sum<<<(unsigned)((qq + kThreads - 1) / kThreads),
+                          kThreads, 0, s>>>(p.sc.dcbh, p.sc.dcb, d);
+  // B5
+  const int tiles = ((d.Qp + kT - 1) / kT) * ((N + kT - 1) / kT);
+  ssd_scan_bwd_bc<<<(unsigned)(B * d.nc * tiles * 2), kThreads,
+                    sizeof(float) * 2 * kKT * kTL, s>>>(
+      fx, fB, fC, fdy, p.sc.dcb, p.sc.ew, p.sc.entering, p.sc.gst,
+      (float*)dBm, (float*)dCm, d);
+  // B6
+  ssd_scan_bwd_da<<<1, kThreads, 0, s>>>(p.sc.dap, (float*)dA, d);
   return (int)cudaGetLastError();
 }

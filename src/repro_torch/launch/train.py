@@ -7,7 +7,7 @@ round, split execution through the ``SplitProgram`` API (optionally int8
 smashed data), FedAvg of the client deltas, straggler deadlines, failure
 injection and checkpoint/resume.  Any registered ``SplitProgram`` family
 trains through it (``--arch mamba2-780m-smoke`` runs the attention-free SSM
-family, on the CPU: the SSD scan's backward kernel is not ported)::
+family, its SSD scan's gradient a hand-written kernel on the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch lm16m \\
         --rounds 40 --local-steps 5 --batch 2 --seq 64 --ckpt-dir /tmp/lm

@@ -14,9 +14,9 @@ state the prefill caches.  Decode (``ssd_decode_step`` and the conv
 window) stays plain PyTorch, as the reference computes it outside any
 Pallas kernel.  ``loss_fn`` is the training loss (the chunked
 cross-entropy of the final hidden states), each layer rematerialised in
-the backward when ``cfg.remat``.  On the card the SSD scan has no backward
-kernel yet: a gradient through it raises (``kernels.ssd_scan``); on the
-CPU its plain version is differentiable.
+the backward when ``cfg.remat``; the SSD scan's gradient is its own
+backward (``kernels.ssd_scan._SSDScan``: the hand-written kernel on the
+card, its plain passes on the CPU).
 """
 from __future__ import annotations
 
