@@ -48,8 +48,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (MQA of 256, window 2048 at S = 2100) shapes and inputs 4 bytes off a
    16-byte boundary: out, dq, dk, dv each within 1e-5 x max(1,
    max|want|).  The SSD scan's backward (the forward's first three passes
-   again, then six kernels: fp32 FMAs on the CUDA cores, its first pass in
-   3xTF32) against ``ssd_scan_bwd_plain`` on every ``SSD_CASES`` shape
+   again, then six kernels, every product in 3xTF32 on the tensor cores)
+   against ``ssd_scan_bwd_plain`` on every ``SSD_CASES`` shape
    with an entering state and a final-state gradient and with neither:
    dx, ddt, dBm, dCm, dinit within 1e-5 x max(1, max|want|), dA within
    1e-4 x max(1, max|want|) (``SSD_BWD_DA_REL``), two calls bitwise
@@ -439,6 +439,9 @@ SSD_CASES = [
     # odd widths (4-byte copies, scalar stores), chunks of 7 and of 1 row
     (2, 37, 3, 5, 3, 7, True),
     (1, 20, 2, 8, 4, 1, False),
+    # five heads: the backward's dB / dC pass sums the heads four a group
+    # at P = 64, so its last group has one
+    (1, 300, 5, 64, 128, 128, True),
 ]
 # the reference's own kernel tolerance (tests/test_kernels.py): the kernel's
 # in-chunk prefix sum and fp32 sums run in another order than the plain
@@ -452,8 +455,8 @@ SSD_REL = 1e-5
 # phase 3's SSD backward drills: each SSD_CASES shape with an entering
 # state and a final-state gradient, and with neither.  dx, ddt, dBm, dCm
 # and dinit within SSD_BWD_REL * max(1, max|want|): kernel and plain
-# version both sum in fp32 (the kernel's recomputed forward products and
-# its first pass in 3xTF32, the rest fp32 FMAs), in other orders.  dA is
+# version both sum in fp32 (the kernel's products in 3xTF32, each output
+# tile over at most 256 terms), in other orders.  dA is
 # one sum a head over the B S rows of d(dt A)_s dt_s, each a reversed
 # prefix sum of d cum, whose row and column sums of M o dM cancel: fp32
 # rounding in any order leaves more of itself in dA, relative to its
@@ -3693,9 +3696,7 @@ def time_ssd_bwd(torch, ts, real):
     ``bound_ms`` (also ``bound_3xtf32_ms``) the larger of the bytes over
     the memory rate, the products three times over the TF32 tensor-core
     rate and the elementwise operations over the fp32 rate;
-    ``bound_fp32_ms``, every operation at the fp32 CUDA-core rate (the
-    kernel's own arithmetic but for its reused forward products and its
-    first pass, which run 3xTF32)."""
+    ``bound_fp32_ms``, every operation at the fp32 CUDA-core rate."""
     x, dt, A, Bm, Cm, dy = real
     B, S, H, P = x.shape
     N = Bm.shape[-1]

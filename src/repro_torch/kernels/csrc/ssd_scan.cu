@@ -81,9 +81,10 @@
 // each), dM = dy.x^T and M^T.dy (causal halves), and per chunk dC and dB
 // (the heads' state parts, 2 Q H P N each, and the scores' causal halves).
 // At the fp32 CUDA-core rate that is 0.34 ms, in 3xTF32 0.14 ms; its bytes
-// (x, dy, dx 50 MB each) take 0.048 ms.  Its products but the reused
-// forward ones and its first pass are fp32 FMAs on the CUDA cores (a
-// first cut: simple and exact to fp32), 64 x 64 tiles of 4 x 4 a thread.
+// (x, dy, dx 50 MB each) take 0.048 ms, but its scratch moves more: the
+// heads' dCB (100 MB at these widths) written and summed, the states and
+// their gradients read again.  Every product runs 3xTF32 on the tensor
+// cores as the forward's do.
 //
 // Shared-memory strides: an operand read at (row gq, column k0 + tq) of
 // an m16n8k8 fragment has its rows 4 mod 32 floats apart, one read at
@@ -683,75 +684,70 @@ ssd_scan_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
 //       gradient of the state leaving chunk c (dfinal or 0 for the last),
 //       G_{c-1} = exp(cum_last[c]) G_c + D_c, dinit at the end;
 //   B3. ssd_scan_bwd_chunk, a CTA per (batch, chunk, head): dM = dy.x^T,
-//       dx = M^T.dy + w o (B.G^T), the head's dCB = L o dt o dM (into
-//       scratch), e and w (into scratch), d cum, its reversed prefix sum,
-//       ddt and the chunk's dA term;
-//   B4. ssd_scan_bwd_head_sum: dCB summed over the heads in order;
-//   B5. ssd_scan_bwd_bc, a CTA per (batch, chunk, 64 x 64 tile, dB or dC):
-//       dC = dCB.B + sum_h (e o dy_h).S_h, dB = dCB^T.C + sum_h (w o x_h).G_h,
-//       one k-loop over Qp + H P;
-//   B6. ssd_scan_bwd_da: dA, the chunks' terms summed in order.
-// B3 and B5 run fp32 FMAs on the CUDA cores: 64 x 64 output tiles, a
-// thread 4 x 4, k-steps of 16 staged through shared memory by loaders that
-// mask the causal half, the rows past the chunk and the columns past the
-// width.  No atomics: every sum has a fixed order, so two calls give the
-// same bits.  Every decay is exp of a difference <= 0: exp(cum_i - cum_j)
-// only for j <= i (the exponent is selected before expf above the
-// diagonal), exp(cum_last - cum_j), exp(cum_i).
-constexpr int kT = 64;          // output tile edge of the fp32 products
-constexpr int kKT = 16;         // their k-step
-constexpr int kTL = kT + 4;     // a staged k-row's stride (floats)
+//       M = CB o L o dt built once in shared memory, dx = M^T.dy + w o
+//       (B.G^T), the head's dCB = L o dt o dM (into scratch), e and w (into
+//       scratch), d cum, its reversed prefix sum, ddt and the chunk's dA
+//       term;
+//   B4. ssd_scan_bwd_head_sum: dCB summed over the heads in order (0 above
+//       the diagonal, which B3 leaves unwritten);
+//   B5. ssd_scan_bwd_bc, a CTA per (batch, chunk, group, dC or dB, 64
+//       columns of N): group 0 the scores' part, dC = dCB.B or dB =
+//       dCB^T.C; group g >= 1 the heads' state parts, sum_h (e o dy_h).S_h
+//       or (w o x_h).G_h, over its kGroupChunks k-chunks of at most 64
+//       terms of one head each (4 heads at P = 64); a partial per group,
+//       into scratch;
+//   B6. ssd_scan_bwd_sum: dC and dB, the groups' partials summed in order;
+//       its last CTA dA, the chunks' terms summed in order.
+// Every product of B3 and B5 runs 3xTF32 mma.sync m16n8k8 as the forward's
+// passes do (FragA / FragB / mma3: each operand split once a fragment and
+// reused across n-tiles, small and large products in separate
+// accumulators), each output tile summed in fresh accumulators over at
+// most 256 terms (the tensor cores' fp32 accumulation truncates): B5 cuts
+// the heads' k-range of H P terms into groups for that, which also
+// launches more CTAs than the card has SMs.  Operands come in through
+// cp.async, the streamed ones double-buffered, rows past the chunk and
+// columns past the width zero-filled (the source of a masked copy is the
+// tile's first, valid address); the row scales e_i and w_j are applied as a
+// fragment is split.  No atomics: every sum has a fixed order, so two calls
+// give the same bits.  Every decay is exp of a difference <= 0:
+// exp(cum_i - cum_j) only for j <= i (the exponent is selected before expf
+// above the diagonal), exp(cum_last - cum_j), exp(cum_i).
+constexpr int kPB = 64;           // P columns of a B3 chunk; k terms of a B5 one
+constexpr int kNC = 32;           // k terms (columns of N) of B3's streamed chunks
+constexpr int kGroupChunks = 4;   // B5: k-chunks a CTA sums fresh (<= 256 terms)
 
-__device__ __forceinline__ void zero44(float (&t)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) t[i][0] = t[i][1] = t[i][2] = t[i][3] = 0.f;
+// wait until every committed group but the last has landed: the tile about
+// to be used is in while the next one's copies stay in flight
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// acc += A . B over k in [k0, k1) for the 64 x 64 tile at (m0, n0): thread
-// (tx, ty) = (tid % 16, tid / 16) owns rows m0 + 4 ty + i and columns n0 +
-// 4 tx + j.  fa(m, k) and fb(k, n) give the operands (0 outside them); kAk
-// / kBk: the operand's memory is contiguous along k (consecutive threads
-// then load consecutive k), else along m / n.  Every thread of the CTA
-// calls it: it starts with a barrier, so the staging buffers (sa, sb:
-// kKT x kTL floats each, 16-byte aligned) are free.
-template <bool kAk, bool kBk, class FA, class FB>
-__device__ __forceinline__ void tile_mm(float (&acc)[4][4], int m0, int n0,
-                                        int k0, int k1, const FA& fa,
-                                        const FB& fb, float* sa, float* sb) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int kb = k0; kb < k1; kb += kKT) {
-    __syncthreads();
-    for (int e = tid; e < kT * kKT; e += kThreads) {
-      const int am = kAk ? e / kKT : e % kT, ak = kAk ? e % kKT : e / kT;
-      const int bn = kBk ? e / kKT : e % kT, bk = kBk ? e % kKT : e / kT;
-      sa[ak * kTL + am] = kb + ak < k1 ? fa(m0 + am, kb + ak) : 0.f;
-      sb[bk * kTL + bn] = kb + bk < k1 ? fb(kb + bk, n0 + bn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kKT; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(sa + k * kTL + 4 * ty);
-      const float4 b = *reinterpret_cast<const float4*>(sb + k * kTL + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-// the sum over the 16 threads of a row group (lanes tx = 0..15 of one half
-// warp), in a fixed order
+// sums over the 4 lanes of an mma row (the tq of one gq) and over the 8
+// lanes of an mma column (the gq of one tq), in a fixed order
 template <class T>
-__device__ __forceinline__ T row_sum16(T v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
+__device__ __forceinline__ T sum_tq(T v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
 }
+template <class T>
+__device__ __forceinline__ T sum_gq(T v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+__device__ __forceinline__ double sum_warp(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// what the backward's kernels may copy 16 bytes at a time (x, dy, B and C,
+// the entering states and their gradients) and whether dx's rows take
+// 8-byte stores
+struct BwdFlags {
+  bool vecx, vecy, vecn, vecs, dx2;
+};
 
 // B2: the state gradients handed back from chunk to chunk, V consecutive
 // (batch, head, p, n) elements a thread, kG chunks' loads in flight.
@@ -806,27 +802,47 @@ ssd_scan_bwd_state_pass(const float* __restrict__ cum,
   }
 }
 
-// shared memory of B3 (floats): the staging tiles, dM (Qp x (Qp + 1)),
-// three row vectors of doubles and seven of floats, a reduction buffer
+// B3's shared memory (floats): dy and x (Qp x 64 each), M (Qp x Qp), two
+// stages of the streamed chunks (B or C, Qp x 32, and G or S, 64 x 32),
+// the row and column sums of R (doubles, 4 and 8 x Qp), d cum (doubles,
+// Qp), eleven row vectors and a reduction buffer: 209.5 KB at Qp = 128,
+// one CTA an SM
 __host__ __device__ constexpr size_t bwd_chunk_floats(int Qp) {
-  return (size_t)2 * kKT * kTL + (size_t)Qp * (Qp + 1) + 13 * Qp + kThreads;
+  return (size_t)2 * Qp * stride4(kPB) + (size_t)Qp * stride8(Qp) +
+         (size_t)2 * (Qp + kPB) * stride4(kNC) + (size_t)2 * 13 * Qp +
+         (size_t)11 * Qp + kThreads;
 }
 
 // B3: one (batch, chunk, head).  With M_ij = CB_ij L_ij dt_j (j <= i),
-// dM_ij = dy_i . x_j, U_j = G B_j, V_i = S_enter C_i:
+// dM_ij = dy_i . x_j, U_j = G B_j, V_i = S_enter C_i, R_ij = CB_ij L_ij
+// dM_ij (so M_ij dM_ij = R_ij dt_j):
 //   dx_j  = sum_i M_ij dy_i + w_j U_j
 //   dCB_ij (this head's part) = L_ij dt_j dM_ij
-//   dcum_i = sum_j M_ij dM_ij - sum_k M_ki dM_ki - w_i (x_i . U_i)
+//   dcum_i = sum_j R_ij dt_j - dt_i sum_k R_ki - w_i (x_i . U_i)
 //            + e_i (dy_i . V_i), and on the last row also
 //            sum_j w_j (x_j . U_j) + gamma <G, S_enter>
 //   d(dt A)_k = sum_{i >= k} dcum_i
-//   ddt_j = sum_i CB_ij L_ij dM_ij + exp(cum_last - cum_j) (x_j . U_j)
-//           + A d(dt A)_j;  the chunk's dA term sum_k d(dt A)_k dt_k.
-// The row and column sums of M o dM cancel in d cum, so they, d cum, its
-// prefix sum and the dA term are summed in double.
-// Heads vary fastest over the grid, so neighbouring CTAs share the
-// chunk's B, C and CB.
-__global__ void __launch_bounds__(kThreads, 2)
+//   ddt_j = sum_i R_ij + exp(cum_last - cum_j) (x_j . U_j) + A d(dt A)_j;
+//   the chunk's dA term sum_k d(dt A)_k dt_k.
+// The row and column sums of R cancel in d cum, so they, d cum, its prefix
+// sum and the dA term are summed in double.  In order:
+//   1. dM by jobs of a 16-row m-tile and 32 columns at or below the
+//      diagonal (20 at Qp = 128; a warp the jobs warp, warp + 8, warp + 16),
+//      each P chunk of 64 terms summed fresh into a running sum;
+//   2. from the jobs' registers: M into shared memory, dCB into scratch,
+//      the row and column sums of R by lanes with shuffles, a part a job;
+//   3. per P slice of 64 columns: M^T.dy (warps own the m-tiles a and 7 - a,
+//      equal causal work), then B.G^T and C.S^T over N in chunks of 32
+//      streamed through two stages, their epilogues taking dx, x_j . U_j
+//      and dy_i . V_i;
+//   4. <G, S_enter>, d cum, its reversed prefix sum (a warp scan), the dA
+//      term and ddt.
+// One CTA of 8 warps an SM, each thread holding its jobs' dM and its dx
+// tile in registers (228 of them): two CTAs an SM (M over dy and x, dy
+// streamed) or 16 warps a CTA meet the 128-register cap, spill and run
+// slower.  Heads vary fastest over the grid, so neighbouring CTAs share
+// the chunk's B, C and CB in L2.
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const float* __restrict__ Bm,
                    const float* __restrict__ Cm, const float* __restrict__ dy,
@@ -835,28 +851,33 @@ ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ entering,
                    const float* __restrict__ gst, float* __restrict__ dx,
                    float* __restrict__ ddt, float* __restrict__ dcbh,
-                   float* __restrict__ ew, float* __restrict__ dap, Dims d) {
+                   float* __restrict__ ew, float* __restrict__ dap, Dims d,
+                   BwdFlags f) {
   const int h = blockIdx.x % d.H, bc = blockIdx.x / d.H;
   const int b = bc / d.nc, c = bc % d.nc;
   const int s0 = c * d.Q, qv = min(d.Q, d.S - s0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int Qp = d.Qp, P = d.P, N = d.N, LM = Qp + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int Qp = d.Qp, P = d.P, N = d.N, Mt = Qp / 16;
+  const int YS = stride4(kPB), MS = stride8(Qp), RS = stride4(kNC);
   extern __shared__ float4 smem4[];
-  float* sa = reinterpret_cast<float*>(smem4);
-  float* sb = sa + kKT * kTL;
-  float* dM = sb + kKT * kTL;          // Qp x LM (Qp even: 8-byte aligned)
-  double* rowT = reinterpret_cast<double*>(dM + Qp * LM);  // sum_j M_ij dM_ij
-  double* colT = rowT + Qp;            // sum_i M_ij dM_ij
-  double* dcum = colT + Qp;
+  float* Ys = reinterpret_cast<float*>(smem4);   // Qp x YS: dy
+  float* Xs = Ys + Qp * YS;                      // Qp x YS: x
+  float* Ms = Xs + Qp * YS;                      // Qp x MS: M
+  float* ring = Ms + Qp * MS;                    // 2 x (Qp + kPB) x RS
+  double* rowp = reinterpret_cast<double*>(ring + 2 * (Qp + kPB) * RS);
+  double* colp = rowp + 4 * Qp;   // rowp[q][i]: sum over column block q
+  double* dcum = colp + 8 * Qp;   // colp[t][j]: sum over m-tile t
   float* cum = reinterpret_cast<float*>(dcum + Qp);
   float* dts = cum + Qp;
-  float* ev = dts + Qp;                // exp(cum_i)
-  float* wv = ev + Qp;                 // exp(cum_last - cum_j) dt_j
-  float* colR = wv + Qp;               // sum_i CB_ij L_ij dM_ij
-  float* dw = colR + Qp;               // x_j . U_j
-  float* de = dw + Qp;                 // dy_i . V_i
-  float* red = de + Qp;                // kThreads
+  float* ev = dts + Qp;           // exp(cum_i)
+  float* wv = ev + Qp;            // exp(cum_last - cum_j) dt_j
+  float* colR = wv + Qp;          // sum_i R_ij
+  float* dw = colR + Qp;          // x_j . U_j
+  float* de = dw + Qp;            // dy_i . V_i
+  float* dwp = de + Qp;           // 2 x Qp: dw's parts by column half
+  float* dep = dwp + 2 * Qp;      // 2 x Qp
+  float* red = dep + 2 * Qp;      // kThreads
 
   const long long ys = (long long)d.H * P;   // dy's and dx's row stride
   const long long pn = (long long)P * N;
@@ -869,6 +890,23 @@ ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
   const float* cbg = cb + ((long long)b * d.nc + c) * Qp * Qp;
   float* dcbg = dcbh + (((long long)b * d.nc + c) * d.H + h) * Qp * Qp;
   float* ewg = ew + (((long long)b * d.H + h) * d.nc + c) * 2 * Qp;
+  float* dxg = dx + ((long long)b * d.S + s0) * ys + h * P;
+
+  // the streamed products' k-chunks of 32 columns of N, for the P slice at
+  // p0 (pv rows of G and S): steps 0 .. nr - 1 stage B and G, steps nr ..
+  // 2 nr - 1 C and S, into stage step % 2
+  const int nr = (d.Np + kNC - 1) / kNC;
+  auto stream = [&](int step, int p0, int pv) {
+    float* st = ring + (step & 1) * (Qp + kPB) * RS;
+    const bool u = step < nr;
+    const int n0 = (u ? step : step - nr) * kNC, nw = min(kNC, N - n0);
+    load_tile(st, RS, (u ? bg : cgm) + n0, d.ns, Qp, qv, kNC, nw, f.vecn);
+    load_tile(st + Qp * RS, RS, (u ? Gg : Sg) + (long long)p0 * N + n0, N,
+              kPB, pv, kNC, nw, f.vecs);
+    cp_async_commit();
+  };
+  const int np = (P + kPB - 1) / kPB;   // P chunks (dM's k), P slices (dx's)
+  stream(0, 0, min(kPB, P));            // in flight through steps 1-2
 
   const float* cg = cum_in + (((long long)b * d.H + h) * d.nc + c) * Qp;
   for (int r = tid; r < Qp; r += kThreads) {
@@ -885,131 +923,272 @@ ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
     ewg[Qp + r] = wv[r];
   }
 
-  // 1. dM = dy . x^T at and below the diagonal's 64 x 64 tiles
-  auto dy_ik = [&](int i, int p) {
-    return i < qv && p < P ? dyg[i * ys + p] : 0.f;
-  };
-  auto x_kj = [&](int p, int j) {
-    return j < qv && p < P ? xg[j * d.xs + p] : 0.f;
-  };
-  for (int m0 = 0; m0 < Qp; m0 += kT) {
-    for (int n0 = 0; n0 <= m0; n0 += kT) {
-      float acc[4][4];
-      zero44(acc);
-      tile_mm<true, true>(acc, m0, n0, 0, P, dy_ik, x_kj, sa, sb);
+  // 1. dM = dy . x^T: this warp's jobs (m-tile jt, 32-column block jq)
+  int jt[3] = {-1, -1, -1}, jq[3] = {0, 0, 0};
+  for (int t = 0, idx = 0; t < Mt; ++t)
+    for (int q = 0; q <= t / 2; ++q, ++idx)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int s = 0; s < 3; ++s)
+        if (idx == warp + kWarps * s) jt[s] = t, jq[s] = q;
+  // the jobs' chunk scores (step 2's), in flight with dy's and x's copies
+  float2 cbv[3][4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = m0 + 4 * ty + i, col = n0 + 4 * tx + j;
-          if (r < Qp && col < Qp) dM[r * LM + col] = acc[i][j];
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * jt[s] + gq + 8 * hf, j = 32 * jq[s] + 8 * nt + 2 * tq;
+        cbv[s][nt][hf] =
+            jt[s] >= 0 && j < Qp
+                ? *reinterpret_cast<const float2*>(cbg + (long long)i * Qp + j)
+                : make_float2(0.f, 0.f);
+      }
+  float run[3][4][4];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) zero(run[s]);
+  for (int pc = 0; pc < np; ++pc) {
+    const int p0 = pc * kPB, pw = min(kPB, P - p0);
+    if (pc > 0) __syncthreads();   // every warp is done with the last chunk
+    load_tile(Ys, YS, dyg + p0, ys, Qp, qv, kPB, pw, f.vecy);
+    load_tile(Xs, YS, xg + p0, d.xs, Qp, qv, kPB, pw, f.vecx);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int kend = round_up(pw, 8);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      if (jt[s] < 0) continue;
+      const int i0 = 16 * jt[s], j0 = 32 * jq[s];
+      float sl[4][4], sh[4][4];
+      zero(sl);
+      zero(sh);
+      for (int k0 = 0; k0 < kend; k0 += 8) {
+        const float* ya = Ys + (i0 + gq) * YS + k0 + tq;
+        FragA fa;
+        fa.set(ya[0], ya[8 * YS], ya[4], ya[8 * YS + 4]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (j0 + 8 * nt < Qp) {
+            const float* xb = Xs + (j0 + 8 * nt + gq) * YS + k0 + tq;
+            FragB bf;
+            bf.set(xb[0], xb[4]);
+            mma3(sl[nt], sh[nt], fa, bf);
+          }
         }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[s][nt][e] += sl[nt][e] + sh[nt][e];
     }
+  }
+
+  // 2. M, this head's dCB (its jobs' tiles; 0 above the diagonal) and the
+  // sums of R, one expf a pair: R dt by rows (rowp[jq][i]), R by columns
+  // (colp[jt][j])
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    if (jt[s] < 0) continue;
+    const int i0 = 16 * jt[s], j0 = 32 * jq[s];
+    double racc[2] = {0.0, 0.0}, cacc[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      cacc[nt][0] = cacc[nt][1] = 0.0;
+      if (j0 + 8 * nt >= Qp) continue;
+      const int j = j0 + 8 * nt + 2 * tq;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = i0 + gq + 8 * hf;
+        const float gv[2] = {cbv[s][nt][hf].x, cbv[s][nt][hf].y};
+        float m[2], dc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = j + e <= i && i < qv;
+          const float L = expf(in ? cum[i] - cum[j + e] : 0.f);
+          const float a = in ? L * dts[j + e] : 0.f;
+          const float g = in ? gv[e] : 0.f;
+          const float v = run[s][nt][2 * hf + e];
+          m[e] = g * a;
+          dc[e] = a * v;
+          const float r = g * L * v;
+          racc[hf] += (double)r * (double)dts[j + e];
+          cacc[nt][e] += (double)r;
+        }
+        *reinterpret_cast<float2*>(Ms + i * MS + j) = make_float2(m[0], m[1]);
+        *reinterpret_cast<float2*>(dcbg + (long long)i * Qp + j) =
+            make_float2(dc[0], dc[1]);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const double r = sum_tq(racc[hf]);
+      if (tq == 0) rowp[jq[s] * Qp + i0 + gq + 8 * hf] = r;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const double v = sum_gq(cacc[nt][e]);
+        if (gq == 0 && j0 + 8 * nt < Qp)
+          colp[jt[s] * Qp + j0 + 8 * nt + 2 * tq + e] = v;
+      }
   }
   __syncthreads();
 
-  // 2. a warp a row: this head's dCB (zero above the diagonal) and the
-  // row sums of M o dM; a thread a column: the column sums
-  for (int r = warp; r < Qp; r += kWarps) {
-    const float cr = cum[r];
-    double t = 0.0;
-    for (int j = lane; j < Qp; j += 32) {
-      const bool in = j <= r;
-      const float v = expf(in ? cr - cum[j] : 0.f) * dts[j] * dM[r * LM + j];
-      dcbg[r * Qp + j] = in ? v : 0.f;
-      t += in ? (double)(cbg[r * Qp + j] * v) : 0.0;
+  // 3. per P slice: warp w owns the m-tiles a = w % 4 and 7 - a of the
+  // Qp rows and the 32 columns 32 (w / 4) of the slice
+  const int n0 = 32 * (warp >> 2);
+  const int mt[2] = {warp & 3, 7 - (warp & 3)};
+  for (int ps = 0; ps < np; ++ps) {
+    const int p0 = ps * kPB, pv = min(kPB, P - p0);
+    if (np > 1) {   // dy and x hold dM's last k-chunk: this slice's instead
+      load_tile(Ys, YS, dyg + p0, ys, Qp, qv, kPB, pv, f.vecy);
+      load_tile(Xs, YS, xg + p0, d.xs, Qp, qv, kPB, pv, f.vecx);
+      cp_async_commit();
     }
-    t += __shfl_xor_sync(0xffffffffu, t, 16);
-    t = row_sum16(t);
-    if (lane == 0) rowT[r] = t;
-  }
-  for (int j = tid; j < Qp; j += kThreads) {
-    const float cj = cum[j], dj = dts[j];
-    double t = 0.0;
-    float rr = 0.f;
-    for (int i = j; i < Qp; ++i) {
-      const float L = expf(cum[i] - cj);
-      const float g = cbg[i * Qp + j];
-      const float dm = dM[i * LM + j];
-      t += (double)(g * (L * dj * dm));
-      rr += g * L * dm;
+    if (ps > 0) stream(0, p0, pv);
+    cp_async_wait_all();
+    __syncthreads();
+    const bool on = mt[0] < Mt && n0 < pv;
+    float ox[2][4][4], sl[2][4][4], sh[2][4][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      zero(sl[s]);
+      zero(sh[s]);
     }
-    colT[j] = t;
-    colR[j] = rr;
-  }
-
-  // 3. dx = M^T . dy + w o (B . G^T), and x_j . (B . G^T)_j
-  auto m_jk = [&](int j, int i) {
-    const bool in = j <= i && i < qv;
-    const int ii = in ? i : 0, jj = in ? j : 0;
-    const float v = cbg[ii * Qp + jj] * expf(cum[ii] - cum[jj]) * dts[jj];
-    return in ? v : 0.f;
-  };
-  auto dy_kn = [&](int i, int p) {
-    return i < qv && p < P ? dyg[i * ys + p] : 0.f;
-  };
-  auto b_mk = [&](int j, int n) {
-    return j < qv && n < N ? bg[j * d.ns + n] : 0.f;
-  };
-  auto g_kn = [&](int n, int p) {
-    return n < N && p < P ? Gg[p * N + n] : 0.f;
-  };
-  float* dxg = dx + ((long long)b * d.S + s0) * ys + h * P;
-  for (int m0 = 0; m0 < Qp; m0 += kT) {
-    for (int n0 = 0; n0 < P; n0 += kT) {
-      float a1[4][4], a2[4][4];
-      zero44(a1);
-      zero44(a2);
-      tile_mm<false, false>(a1, m0, n0, m0, Qp, m_jk, dy_kn, sa, sb);
-      tile_mm<true, true>(a2, m0, n0, 0, N, b_mk, g_kn, sa, sb);
+    if (on) {   // M^T . dy: m-tile s's k-range starts at its first row
+      const int kend = round_up(qv, 8);
+      for (int k0 = 16 * mt[0]; k0 < kend; k0 += 8) {
+        bool go[2];
+        FragA fa[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = m0 + 4 * ty + i;
-        float part = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int p = n0 + 4 * tx + jj;
-          if (j < qv && p < P) {
-            dxg[j * ys + p] = a1[i][jj] + wv[j] * a2[i][jj];
-            part += xg[j * d.xs + p] * a2[i][jj];
+        for (int s = 0; s < 2; ++s) {
+          go[s] = mt[s] < Mt && k0 >= 16 * mt[s];
+          if (go[s]) {
+            const float* ma = Ms + (k0 + tq) * MS + 16 * mt[s] + gq;
+            fa[s].set(ma[0], ma[8], ma[4 * MS], ma[4 * MS + 8]);
           }
         }
-        part = row_sum16(part);
-        if (tx == 0 && j < Qp) dw[j] += part;
-      }
-    }
-  }
-
-  // 4. dy_i . (C . S_enter^T)_i
-  auto c_mk = [&](int i, int n) {
-    return i < qv && n < N ? cgm[i * d.ns + n] : 0.f;
-  };
-  auto s_kn = [&](int n, int p) {
-    return n < N && p < P ? Sg[p * N + n] : 0.f;
-  };
-  for (int m0 = 0; m0 < Qp; m0 += kT) {
-    for (int n0 = 0; n0 < P; n0 += kT) {
-      float acc[4][4];
-      zero44(acc);
-      tile_mm<true, true>(acc, m0, n0, 0, N, c_mk, s_kn, sa, sb);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = m0 + 4 * ty + i;
-        float part = 0.f;
+        for (int nt = 0; nt < 4; ++nt) {
+          if (n0 + 8 * nt >= pv) continue;
+          const float* yb = Ys + (k0 + tq) * YS + n0 + 8 * nt + gq;
+          FragB bf;
+          bf.set(yb[0], yb[4 * YS]);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int p = n0 + 4 * tx + jj;
-          if (r < qv && p < P) part += dyg[r * ys + p] * acc[i][jj];
+          for (int s = 0; s < 2; ++s)
+            if (go[s]) mma3(sl[s][nt], sh[s][nt], fa[s], bf);
         }
-        part = row_sum16(part);
-        if (tx == 0 && r < Qp) de[r] += part;
       }
     }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ox[s][nt][e] = sl[s][nt][e] + sh[s][nt][e];
+          sl[s][nt][e] = sh[s][nt][e] = 0.f;
+        }
+
+    // U = B . G^T (steps 0 .. nr - 1), then V = C . S^T
+    for (int step = 0; step < 2 * nr; ++step) {
+      if (step + 1 < 2 * nr) {
+        stream(step + 1, p0, pv);
+        cp_async_wait_prev();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      const float* As = ring + (step & 1) * (Qp + kPB) * RS;
+      const float* Bs = As + Qp * RS;
+      const int kw = min(kNC, d.Np - (step < nr ? step : step - nr) * kNC);
+      if (on) {
+        for (int k0 = 0; k0 < kw; k0 += 8) {
+          FragA fa[2];
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            if (mt[s] < Mt) {
+              const float* aa = As + (16 * mt[s] + gq) * RS + k0 + tq;
+              fa[s].set(aa[0], aa[8 * RS], aa[4], aa[8 * RS + 4]);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (n0 + 8 * nt >= pv) continue;
+            const float* bb = Bs + (n0 + 8 * nt + gq) * RS + k0 + tq;
+            FragB bf;
+            bf.set(bb[0], bb[4]);
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+              if (mt[s] < Mt) mma3(sl[s][nt], sh[s][nt], fa[s], bf);
+          }
+        }
+      }
+      const bool u_done = step == nr - 1, v_done = step == 2 * nr - 1;
+      if (on && (u_done || v_done)) {
+        // U: dx = M^T.dy + w o U and the row sums of x o U; V: of dy o V
+        const float* rows = u_done ? Xs : Ys;
+        float* parts = (u_done ? dwp : dep) + (warp >> 2) * Qp;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (mt[s] >= Mt) continue;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int j = 16 * mt[s] + gq + 8 * hf;
+            float part = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int p = n0 + 8 * nt + 2 * tq;
+              const float u0 = sl[s][nt][2 * hf] + sh[s][nt][2 * hf];
+              const float u1 = sl[s][nt][2 * hf + 1] + sh[s][nt][2 * hf + 1];
+              part += rows[j * YS + p] * u0 + rows[j * YS + p + 1] * u1;
+              if (u_done && j < qv)
+                store2(dxg + (long long)j * ys + p0 + p, p, pv, f.dx2,
+                       ox[s][nt][2 * hf] + wv[j] * u0,
+                       ox[s][nt][2 * hf + 1] + wv[j] * u1);
+            }
+            part = sum_tq(part);
+            if (tq == 0) parts[j] = part;
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          zero(sl[s]);
+          zero(sh[s]);
+        }
+      }
+      __syncthreads();   // the stage is free for the copies of step + 2
+    }
+    for (int r = tid; r < Qp; r += kThreads) {
+      dw[r] += dwp[r] + (pv > 32 ? dwp[Qp + r] : 0.f);
+      de[r] += dep[r] + (pv > 32 ? dep[Qp + r] : 0.f);
+    }
+    __syncthreads();
   }
 
-  // 5. <G, S_enter>
+  // 4. <G, S_enter>, a thread's loads in flight together
   float part = 0.f;
-  for (long long e = tid; e < pn; e += kThreads) part += Gg[e] * Sg[e];
+  if (f.vecs) {
+    const float4* g4 = reinterpret_cast<const float4*>(Gg);
+    const float4* s4 = reinterpret_cast<const float4*>(Sg);
+    for (long long e0 = tid; e0 < pn / 4; e0 += 8 * kThreads) {
+      float4 gv[8], sv[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const long long e = e0 + u * kThreads;
+        gv[u] = e < pn / 4 ? g4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+        sv[u] = e < pn / 4 ? s4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        part += gv[u].x * sv[u].x + gv[u].y * sv[u].y + gv[u].z * sv[u].z +
+                gv[u].w * sv[u].w;
+    }
+  } else {
+    for (long long e = tid; e < pn; e += kThreads) part += Gg[e] * Sg[e];
+  }
   red[tid] = part;
   __syncthreads();
   for (int s = kThreads / 2; s > 0; s >>= 1) {
@@ -1018,23 +1197,60 @@ ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
   }
   const float dgamma = red[0];
 
-  // 6. d cum, its reversed prefix sum d(dt A), ddt and the dA term
-  for (int r = tid; r < Qp; r += kThreads)
-    dcum[r] = rowT[r] - colT[r] - (double)(wv[r] * dw[r]) +
+  // d cum (every row's parts exist: row i's column blocks q <= i / 32,
+  // column j's m-tiles t >= j / 16 are jobs), then warp 0: its reversed
+  // prefix sum d(dt A) (4 rows a lane, then a suffix scan over the lanes),
+  // the dA term
+  for (int r = tid; r < Qp; r += kThreads) {
+    double rt = 0.0, cs = 0.0;
+    for (int q = 0; q <= r / 32; ++q) rt += rowp[q * Qp + r];
+    for (int t = r / 16; t < Mt; ++t) cs += colp[t * Qp + r];
+    colR[r] = (float)cs;
+    dcum[r] = rt - (double)dts[r] * cs - (double)(wv[r] * dw[r]) +
               (double)(ev[r] * de[r]);
+  }
   __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-    for (int j = 0; j < Qp; ++j) s += (double)(wv[j] * dw[j]);
-    dcum[Qp - 1] += s + (double)(expf(cum_last) * dgamma);
-    double run = 0.0;
-    for (int k = Qp - 1; k >= 0; --k) {
-      run += dcum[k];
-      dcum[k] = run;
+  if (warp == 0) {
+    constexpr int kE = kMaxQ / 32;
+    const int E = (Qp + 31) / 32;
+    double v[kE], ww = 0.0;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int k = lane * E + e;
+      const bool in = e < E && k < Qp;
+      v[e] = in ? dcum[k] : 0.0;
+      ww += in ? (double)(wv[k] * dw[k]) : 0.0;
     }
+    ww = sum_warp(ww);
+    const double last = ww + (double)(expf(cum_last) * dgamma);
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      if (e < E && lane * E + e == Qp - 1) v[e] += last;
+    double tot = 0.0;
+#pragma unroll
+    for (int e = kE - 1; e >= 0; --e) {
+      tot += v[e];
+      v[e] = tot;
+    }
+    double inc = tot;   // the sum over this lane and those above it
+    for (int o = 1; o < 32; o <<= 1) {
+      const double up = __shfl_down_sync(0xffffffffu, inc, o);
+      if (lane + o < 32) inc += up;
+    }
+    double above = __shfl_down_sync(0xffffffffu, inc, 1);
+    if (lane == 31) above = 0.0;
     double a = 0.0;
-    for (int k = 0; k < Qp; ++k) a += dcum[k] * (double)dts[k];
-    dap[((long long)b * d.nc + c) * d.H + h] = (float)a;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int k = lane * E + e;
+      if (e < E && k < Qp) {
+        const double dk = v[e] + above;
+        dcum[k] = dk;
+        a += dk * (double)dts[k];
+      }
+    }
+    a = sum_warp(a);
+    if (lane == 0) dap[((long long)b * d.nc + c) * d.H + h] = (float)a;
   }
   __syncthreads();
   const float Ah = A[h];
@@ -1043,109 +1259,232 @@ ssd_scan_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
         colR[r] + expf(cum_last - cum[r]) * dw[r] + Ah * (float)dcum[r];
 }
 
-// B4: dCB summed over the heads, in order
+// B4: dCB summed over the heads, in order; 0 above the diagonal
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_bwd_head_sum(const float* __restrict__ dcbh, float* __restrict__ dcb,
                       Dims d) {
   const long long qq = (long long)d.Qp * d.Qp;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)d.B * d.nc * qq) return;
-  const float* src = dcbh + (t / qq) * d.H * qq + t % qq;
+  const int ij = (int)(t % qq);
   float s = 0.f;
-  for (int h = 0; h < d.H; ++h) s += src[h * qq];
+  if (ij % d.Qp <= ij / d.Qp) {
+    const float* src = dcbh + (t / qq) * d.H * qq + ij;
+    for (int h = 0; h < d.H; ++h) s += src[h * qq];
+  }
   dcb[t] = s;
 }
 
-// B5: one 64 x 64 tile of dC (which 0) or dB (which 1) for one (batch,
-// chunk): the scores' part (k < Qp) then the heads' state parts (k = Qp +
-// h P + p, heads in order), in one accumulator.
-__global__ void __launch_bounds__(kThreads)
+// B5's shared memory (floats): two stages of an A tile (Qp x 64, or 64 x
+// Qp for dCB^T) and a B tile (64 x 64): 104 KB at Qp = 128, two CTAs an SM
+__host__ __device__ constexpr size_t bc_a_floats(int Qp) {
+  return (size_t)Qp * stride4(kPB) > (size_t)kPB * stride8(Qp)
+             ? (size_t)Qp * stride4(kPB)
+             : (size_t)kPB * stride8(Qp);
+}
+__host__ __device__ constexpr size_t bwd_bc_floats(int Qp) {
+  return 2 * (bc_a_floats(Qp) + (size_t)kPB * stride8(kPB));
+}
+// B5's head groups: the heads' k-range in chunks of at most 64 terms of one
+// head, kGroupChunks chunks a group (the last one ragged)
+__host__ __device__ constexpr int bc_groups(int H, int P) {
+  return (H * ((P + kPB - 1) / kPB) + kGroupChunks - 1) / kGroupChunks;
+}
+
+// one k-chunk of B5 into the accumulators: A from As at stride AS (kKM:
+// its rows are k, as dCB^T's; else they are m, each scaled by sc as its
+// fragment is split), B from Bs (rows k, 64 columns)
+template <bool kKM>
+__device__ __forceinline__ void bc_chunk(float (&sl)[2][4][4],
+                                         float (&sh)[2][4][4],
+                                         const float* As, int AS,
+                                         const float* Bs, int kw,
+                                         const int (&mt)[2],
+                                         const bool (&on)[2], int n0, int nw,
+                                         const float (&sc)[2][2]) {
+  const int lane = threadIdx.x % 32, gq = lane >> 2, tq = lane & 3;
+  const int BS = stride8(kPB);
+  for (int k0 = 0; k0 < kw; k0 += 8) {
+    FragA fa[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (!on[s]) continue;
+      if (kKM) {
+        const float* a = As + (k0 + tq) * AS + 16 * mt[s] + gq;
+        fa[s].set(a[0], a[8], a[4 * AS], a[4 * AS + 8]);
+      } else {
+        const float* a = As + (16 * mt[s] + gq) * AS + k0 + tq;
+        fa[s].set(a[0] * sc[s][0], a[8 * AS] * sc[s][1], a[4] * sc[s][0],
+                  a[8 * AS + 4] * sc[s][1]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (n0 + 8 * nt >= nw) continue;
+      const float* bb = Bs + (k0 + tq) * BS + n0 + 8 * nt + gq;
+      FragB bf;
+      bf.set(bb[0], bb[4 * BS]);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        if (on[s]) mma3(sl[s][nt], sh[s][nt], fa[s], bf);
+    }
+  }
+}
+
+// B5: one (batch, chunk, group, dC (which 0) or dB (which 1), 64 columns of
+// N), its Qp rows: group 0 dCB.B or dCB^T.C (dCB is 0 above the diagonal),
+// group g >= 1 the state parts of its k-chunks, (e o dy_h).S_h or
+// (w o x_h).G_h, each chunk staged through two stages while the last one is
+// summed; a partial into part[g][which] (B, S, N).  Warp w owns the m-tiles
+// w % 4 and w % 4 + 4 and the 32 columns 32 (w / 4) of the tile.  Columns
+// of N vary fastest over the grid, then dC / dB: the CTAs that share an A
+// tile run together.
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_bwd_bc(const float* __restrict__ x, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ dy,
                 const float* __restrict__ dcb, const float* __restrict__ ew,
                 const float* __restrict__ entering,
-                const float* __restrict__ gst, float* __restrict__ dBm,
-                float* __restrict__ dCm, Dims d) {
-  const int ntl = (d.N + kT - 1) / kT, mtl = (d.Qp + kT - 1) / kT;
+                const float* __restrict__ gst, float* __restrict__ part,
+                Dims d, BwdFlags f) {
+  const int nh = (d.Np + kPB - 1) / kPB, G = 1 + bc_groups(d.H, d.P);
   int idx = blockIdx.x;
+  const int nb0 = (idx % nh) * kPB;
+  idx /= nh;
   const int which = idx % 2;
   idx /= 2;
-  const int n0 = (idx % ntl) * kT;
-  idx /= ntl;
-  const int m0 = (idx % mtl) * kT;
-  idx /= mtl;
+  const int g = idx % G;
+  idx /= G;
   const int c = idx % d.nc, b = idx / d.nc;
   const int s0 = c * d.Q, qv = min(d.Q, d.S - s0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int Qp = d.Qp, P = d.P, N = d.N, HP = d.H * d.P;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int Qp = d.Qp, P = d.P, N = d.N, HP = d.H * d.P, Mt = Qp / 16;
+  const int YS = stride4(kPB), MS = stride8(Qp), BS = stride8(kPB);
+  const int nw = min(kPB, d.Np - nb0), nv = min(kPB, N - nb0);
+  const int cph = (P + kPB - 1) / kPB, u0 = (g - 1) * kGroupChunks;
+  const int nk = g == 0 ? (Qp + kPB - 1) / kPB
+                        : min(kGroupChunks, d.H * cph - u0);
   extern __shared__ float4 smem4[];
-  float* sa = reinterpret_cast<float*>(smem4);
-  float* sb = sa + kKT * kTL;
+  float* buf = reinterpret_cast<float*>(smem4);
+  const size_t stage = bc_a_floats(Qp) + (size_t)kPB * BS;
   const float* dcbc = dcb + ((long long)b * d.nc + c) * Qp * Qp;
-  const float* bg = Bm + b * d.nb + s0 * d.ns;
-  const float* cg = Cm + b * d.nb + s0 * d.ns;
-  // e (which 0) or w (which 1) of head h, row r
-  const float* ewc = ew + ((long long)b * d.H * d.nc + c) * 2 * Qp +
-                     (which ? Qp : 0);
+  const float* bcm = (which ? Cm : Bm) + b * d.nb + s0 * d.ns + nb0;
+  const float* rows = which ? x + b * d.xb + s0 * d.xs
+                            : dy + ((long long)b * d.S + s0) * HP;
+  const long long rs = which ? d.xs : HP;
+  const float* st =
+      (which ? gst : entering) + ((long long)b * d.nc + c) * HP * N + nb0;
+  // e (which 0) or w (which 1) of head h, row r: ewc[h * ewh + r]
+  const float* ewc =
+      ew + ((long long)b * d.H * d.nc + c) * 2 * Qp + (which ? Qp : 0);
   const long long ewh = (long long)d.nc * 2 * Qp;
-  const float* st = (which ? gst : entering) +
-                    ((long long)b * d.nc + c) * HP * N;
-  auto st_kn = [&](int kk, int n) {
-    return kk < HP && n < N ? st[(long long)kk * N + n] : 0.f;
-  };
-  float acc[4][4];
-  zero44(acc);
-  if (which == 0) {
-    auto cb_mk = [&](int i, int j) {
-      return j <= i && i < qv ? dcbc[i * Qp + j] : 0.f;
-    };
-    auto b_kn = [&](int j, int n) {
-      return j < qv && n < N ? bg[j * d.ns + n] : 0.f;
-    };
-    const float* dyr = dy + ((long long)b * d.S + s0) * HP;
-    auto edy_mk = [&](int i, int kk) {
-      const bool in = i < qv && kk < HP;
-      const int hh = in ? kk / P : 0;
-      return in ? ewc[hh * ewh + i] * dyr[(long long)i * HP + kk] : 0.f;
-    };
-    tile_mm<true, false>(acc, m0, n0, 0, min(Qp, m0 + kT), cb_mk, b_kn, sa,
-                         sb);
-    tile_mm<true, false>(acc, m0, n0, 0, HP, edy_mk, st_kn, sa, sb);
-  } else {
-    auto cb_mk = [&](int j, int i) {
-      return j <= i && i < qv ? dcbc[i * Qp + j] : 0.f;
-    };
-    auto c_kn = [&](int i, int n) {
-      return i < qv && n < N ? cg[i * d.ns + n] : 0.f;
-    };
-    const float* xr = x + b * d.xb + s0 * d.xs;
-    auto wx_mk = [&](int j, int kk) {
-      const bool in = j < qv && kk < HP;
-      const int hh = in ? kk / P : 0;
-      return in ? ewc[hh * ewh + j] * xr[j * d.xs + kk] : 0.f;
-    };
-    tile_mm<false, false>(acc, m0, n0, m0, Qp, cb_mk, c_kn, sa, sb);
-    tile_mm<true, false>(acc, m0, n0, 0, HP, wx_mk, st_kn, sa, sb);
-  }
-  float* out = (which ? dBm : dCm) + ((long long)b * d.S + s0) * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + 4 * ty + i, n = n0 + 4 * tx + j;
-      if (r < qv && n < N) out[(long long)r * N + n] = acc[i][j];
+
+  auto load = [&](int k, float* sb) {
+    float* As = sb;
+    float* Bs = sb + bc_a_floats(Qp);
+    if (g == 0) {
+      const int k0 = k * kPB, kw = min(kPB, Qp - k0);
+      if (which == 0)   // dCB's rows i, its columns j in [k0, k0 + kw)
+        load_tile(As, YS, dcbc + k0, Qp, Qp, Qp, kPB, kw, true);
+      else              // dCB's rows i in [k0, k0 + kw), every column
+        load_tile(As, MS, dcbc + (long long)k0 * Qp, Qp, kPB, kw, Qp, Qp,
+                  true);
+      load_tile(Bs, BS, k0 < qv ? bcm + (long long)k0 * d.ns : bcm, d.ns,
+                kPB, qv - k0, kPB, nv, f.vecn);
+    } else {
+      const int u = u0 + k, hh = u / cph, p0 = (u % cph) * kPB;
+      const int kw = min(kPB, P - p0);
+      load_tile(As, YS, rows + hh * P + p0, rs, Qp, qv, kPB, kw,
+                which ? f.vecx : f.vecy);
+      load_tile(Bs, BS, st + ((long long)hh * P + p0) * N, N, kPB, kw, kPB,
+                nv, f.vecs);
     }
+    cp_async_commit();
+  };
+
+  const int mt[2] = {warp & 3, (warp & 3) + 4};
+  const int n0 = 32 * (warp >> 2);
+  const bool on[2] = {mt[0] < Mt && n0 < nw, mt[1] < Mt && n0 < nw};
+  float sl[2][4][4], sh[2][4][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    zero(sl[s]);
+    zero(sh[s]);
+  }
+  load(0, buf);
+  for (int k = 0; k < nk; ++k) {
+    if (k + 1 < nk) {
+      load(k + 1, buf + ((k + 1) & 1) * stage);
+      cp_async_wait_prev();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    const float* As = buf + (k & 1) * stage;
+    const float* Bs = As + bc_a_floats(Qp);
+    float sc[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
+    int kw = min(kPB, Qp - k * kPB);
+    if (g > 0) {
+      const int u = u0 + k, hh = u / cph;
+      kw = round_up(min(kPB, P - (u % cph) * kPB), 8);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          sc[s][hf] = on[s] ? ewc[hh * ewh + 16 * mt[s] + gq + 8 * hf] : 0.f;
+    }
+    if (on[0]) {
+      if (g == 0 && which == 1)
+        bc_chunk<true>(sl, sh, As, MS, Bs, kw, mt, on, n0, nw, sc);
+      else
+        bc_chunk<false>(sl, sh, As, YS, Bs, kw, mt, on, n0, nw, sc);
+    }
+    __syncthreads();   // the stage is free for the copies of chunk k + 2
+  }
+  if (!on[0]) return;
+  float* out = part + (((long long)g * 2 + which) * d.B * d.S +
+                       (long long)b * d.S + s0) * N + nb0;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (!on[s]) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + 8 * nt + 2 * tq;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * mt[s] + gq + 8 * hf;
+        if (i < qv)
+          store2(out + (long long)i * N + n, n, nv, N % 2 == 0,
+                 sl[s][nt][2 * hf] + sh[s][nt][2 * hf],
+                 sl[s][nt][2 * hf + 1] + sh[s][nt][2 * hf + 1]);
+      }
+    }
+  }
 }
 
-// B6: dA, the (batch, chunk) terms of each head summed in order
+// B6: dC and dB, the partials of the groups summed in order (group 0, the
+// scores' part, first); the last CTA dA, the (batch, chunk) terms of each
+// head summed in order
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_bwd_da(const float* __restrict__ dap, float* __restrict__ dA,
-                Dims d) {
-  for (int h = threadIdx.x; h < d.H; h += kThreads) {
-    double s = 0.0;
-    for (int bc = 0; bc < d.B * d.nc; ++bc) s += dap[(long long)bc * d.H + h];
-    dA[h] = (float)s;
+ssd_scan_bwd_sum(const float* __restrict__ part, const float* __restrict__ dap,
+                 float* __restrict__ dBm, float* __restrict__ dCm,
+                 float* __restrict__ dA, Dims d) {
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int h = threadIdx.x; h < d.H; h += kThreads) {
+      double s = 0.0;
+      for (int bc = 0; bc < d.B * d.nc; ++bc)
+        s += dap[(long long)bc * d.H + h];
+      dA[h] = (float)s;
+    }
+    return;
   }
+  const long long E = (long long)d.B * d.S * d.N;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= 2 * E) return;
+  const int G = 1 + bc_groups(d.H, d.P);
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += part[(long long)g * 2 * E + t];
+  (t < E ? dCm : dBm)[t % E] = s;
 }
 
 bool aligned(const void* p, int bytes) {
@@ -1158,25 +1497,28 @@ bool aligned(const void* p, int bytes) {
 // and the states entering them (B, nc, H, P, N) each.  The backward's
 // buffer continues with the final state it does not return (B, H, P, N),
 // the state gradients G (B, nc, H, P, N), each head's dCB (B, nc, H, Qp,
-// Qp) and their sum (B, nc, Qp, Qp), e and w (B, H, nc, 2, Qp) and the
-// chunks' dA terms (B, nc, H); its first pass writes D_c over the chunk
-// states.  Returns the floats; a null base only counts them.
+// Qp) and their sum (B, nc, Qp, Qp), e and w (B, H, nc, 2, Qp), the
+// chunks' dA terms (B, nc, H) and B5's partials of dC and dB (groups, 2, B,
+// S, N); its first pass writes D_c over the chunk states.  Returns the
+// floats; a null base only counts them.
 struct Scratch {
   float *cb, *cum, *states, *entering;
-  float *fin, *gst, *dcbh, *dcb, *ew, *dap;
+  float *fin, *gst, *dcbh, *dcb, *ew, *dap, *part;
 };
 size_t carve(const Dims& d, float* base, Scratch* out, bool backward) {
   const size_t st = (size_t)d.B * d.nc * d.H * d.P * d.N;
   const size_t bcq = (size_t)d.B * d.nc * d.Qp * d.Qp;
-  const size_t parts[10] = {bcq, (size_t)d.B * d.H * d.nc * d.Qp, st, st,
+  const size_t parts[11] = {bcq, (size_t)d.B * d.H * d.nc * d.Qp, st, st,
                             (size_t)d.B * d.H * d.P * d.N, st, bcq * d.H, bcq,
                             (size_t)d.B * d.H * d.nc * 2 * d.Qp,
-                            (size_t)d.B * d.nc * d.H};
-  float** to[10] = {&out->cb,  &out->cum,  &out->states, &out->entering,
+                            (size_t)d.B * d.nc * d.H,
+                            (size_t)(1 + bc_groups(d.H, d.P)) * 2 * d.B *
+                                d.S * d.N};
+  float** to[11] = {&out->cb,  &out->cum,  &out->states, &out->entering,
                     &out->fin, &out->gst,  &out->dcbh,   &out->dcb,
-                    &out->ew,  &out->dap};
+                    &out->ew,  &out->dap,  &out->part};
   size_t at = 0;
-  for (int i = 0; i < (backward ? 10 : 4); ++i) {
+  for (int i = 0; i < (backward ? 11 : 4); ++i) {
     if (base != nullptr) *to[i] = base + at;
     at += (parts[i] + 63) / 64 * 64;
   }
@@ -1207,7 +1549,8 @@ int set_attributes() {
       {(const void*)ssd_scan_chunk_states<false>, states_floats(kMaxQ, kMaxN)},
       {(const void*)ssd_scan_chunk_states<true>, states_floats(kMaxQ, kMaxN)},
       {(const void*)ssd_scan_chunk_scan, scan_floats(kMaxQ, kMaxN)},
-      {(const void*)ssd_scan_bwd_chunk, bwd_chunk_floats(kMaxQ)}};
+      {(const void*)ssd_scan_bwd_chunk, bwd_chunk_floats(kMaxQ)},
+      {(const void*)ssd_scan_bwd_bc, bwd_bc_floats(kMaxQ)}};
   for (const auto& k : big) {
     const cudaError_t err = cudaFuncSetAttribute(
         k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1376,21 +1719,31 @@ extern "C" int repro_ssd_scan_bwd(
             p.sc.cum, (const float*)dfinal, p.sc.states, p.sc.gst,
             (float*)dinit, d);
   // B3
+  BwdFlags f;
+  f.vecx = p.vecx;
+  f.vecy = P % 4 == 0 && aligned(dy, 16);
+  f.vecn = p.vecn;
+  f.vecs = N % 4 == 0 && aligned(p.sc.entering, 16) && aligned(p.sc.gst, 16);
+  f.dx2 = P % 2 == 0 && aligned(dx, 8);
   ssd_scan_bwd_chunk<<<(unsigned)(B * d.nc * H), kThreads,
                        sizeof(float) * bwd_chunk_floats(d.Qp), s>>>(
       fx, fdt, fA, fB, fC, fdy, p.sc.cb, p.sc.cum, p.sc.entering, p.sc.gst,
-      (float*)dx, (float*)ddt, p.sc.dcbh, p.sc.ew, p.sc.dap, d);
+      (float*)dx, (float*)ddt, p.sc.dcbh, p.sc.ew, p.sc.dap, d, f);
   // B4
   const long long qq = (long long)B * d.nc * d.Qp * d.Qp;
   ssd_scan_bwd_head_sum<<<(unsigned)((qq + kThreads - 1) / kThreads),
                           kThreads, 0, s>>>(p.sc.dcbh, p.sc.dcb, d);
-  // B5
-  const int tiles = ((d.Qp + kT - 1) / kT) * ((N + kT - 1) / kT);
-  ssd_scan_bwd_bc<<<(unsigned)(B * d.nc * tiles * 2), kThreads,
-                    sizeof(float) * 2 * kKT * kTL, s>>>(
+  // B5: (batch, chunk, group, dC / dB, 64 columns of N)
+  const long long ctas = (long long)B * d.nc * (1 + bc_groups(H, P)) * 2 *
+                         ((d.Np + kPB - 1) / kPB);
+  ssd_scan_bwd_bc<<<(unsigned)ctas, kThreads,
+                    sizeof(float) * bwd_bc_floats(d.Qp), s>>>(
       fx, fB, fC, fdy, p.sc.dcb, p.sc.ew, p.sc.entering, p.sc.gst,
-      (float*)dBm, (float*)dCm, d);
-  // B6
-  ssd_scan_bwd_da<<<1, kThreads, 0, s>>>(p.sc.dap, (float*)dA, d);
+      p.sc.part, d, f);
+  // B6: dC and dB from the partials, then (the last CTA) dA
+  const long long e2 = 2LL * B * S * N;
+  ssd_scan_bwd_sum<<<(unsigned)((e2 + kThreads - 1) / kThreads + 1),
+                     kThreads, 0, s>>>(p.sc.part, p.sc.dap, (float*)dBm,
+                                       (float*)dCm, (float*)dA, d);
   return (int)cudaGetLastError();
 }

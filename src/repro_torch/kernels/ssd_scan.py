@@ -369,7 +369,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dinit = None if init is None else torch.empty((Bsz, H, P, N), **f32)
     # the forward passes' scratch, then the backward's: the chunks' state
     # gradients, the per-head score gradients and their sum over heads, the
-    # rows' e and w, the per-chunk dA terms
+    # rows' e and w, the per-chunk dA terms, the head groups' dB and dC
     scratch = torch.empty(_scratch_floats("repro_ssd_scan_bwd_scratch", Bsz,
                                           S, H, P, N, Q), **f32)
 

@@ -22,11 +22,12 @@ NaN: its ``where`` after ``exp`` gives inf * 0 above the diagonal
 (ROADMAP queue 3).  There the port is held against ``jax.vjp`` of
 ``ref.ssd_sequential``, the recurrence itself, at the same bound.
 
-The kernel's own arithmetic differs from the plain passes where it reuses
-the forward's tensor-core products (the chunk scores, the chunk states and
-its first pass, D = (e o dy)^T . C, all in 3xTF32) and where it takes cum
-in order: ``_ssd_bwd_passes`` emulates those and is held to the same
-bound at mamba2-780m's widths (H cut to 4).
+The kernel's own arithmetic differs from the plain passes: every product
+runs 3xTF32 on the tensor cores, each output tile summed over at most 256
+terms (the heads' part of dB and dC as partials of head groups, added in
+order), and it takes cum in order: ``_ssd_bwd_passes`` emulates that and
+is held to the same bound at mamba2-780m's widths (H cut to 4 and 5),
+and one TF32 product in place of three breaks it.
 """
 import functools
 
@@ -36,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 from test_kernels import SSD_CASES
-from tf32_emulation import tf32_rna
+from tf32_emulation import tf32_dot
 
 from repro.configs import registry as R
 from repro.kernels.ssd_scan.ref import ssd_sequential
@@ -243,24 +244,27 @@ def test_plain_fp32_against_float64(B, S, H, P, N, chunk):
 # =============================================================================
 # the kernel's passes, emulated on the CPU
 # =============================================================================
-def _dot3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A 3xTF32 product as the kernel's passes take it: lo.hi + hi.lo in
-    one accumulator, hi.hi in another, added last."""
-    ah, bh = tf32_rna(a), tf32_rna(b)
-    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
-    return ((torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
-            + torch.einsum(eq, ah, bh))
+# the kernel's k-chunks: B3 sums dM over P in chunks of 64 terms, B5 cuts
+# the heads' k-range into chunks of at most 64 terms of one head and sums
+# GROUP_CHUNKS of them a CTA (csrc/ssd_scan.cu kPB, kGroupChunks)
+CHUNK_TERMS, GROUP_CHUNKS = 64, 4
 
 
-def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
-    """The CUDA backward's passes in plain PyTorch: the forward's passes
-    again (C.B^T and the chunk states in 3xTF32, cum in order, the state
-    pass with exp(cum_last)); B1, D_c = (e o dy)^T . C in 3xTF32; B2, the
-    reversed state pass; B3, the chunk gradients in fp32 (dM, dx, this
-    head's dCB, d cum and its reversed prefix sum taken row by row, the
-    chunk's dA term); B4, dCB summed over heads in order; B5, dB and dC
-    as the scores' part then each head's state part in order; B6, dA over
-    the chunks in order.  Test code: no path of the package runs it."""
+def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal,
+                    split_b3=True, split_b5=True):
+    """The CUDA backward's passes in plain PyTorch, every product through
+    ``tf32_dot`` (3xTF32; ``split_b3`` / ``split_b5`` False: B3's or B5's
+    products as one TF32 product): the forward's passes again (C.B^T and
+    the chunk states, cum in order, the state pass with exp(cum_last)); B1,
+    D_c = (e o dy)^T . C; B2, the reversed state pass; B3, dM = dy.x^T
+    (each P chunk of 64 terms fresh, into a running sum), M = CB o (L o dt),
+    this head's dCB = (L o dt) o dM and R = CB o L o dM, whose row sums of R
+    dt and column sums are taken in double, dx = M^T.dy + w o (B.G^T), d cum
+    in double and its reversed prefix sum, the chunk's dA term; B4, dCB
+    summed over heads in order; B5, dC and dB as partials (group 0 the
+    scores' part, each later group GROUP_CHUNKS k-chunks of the heads'
+    state parts in one product) summed in order; B6, dA over the chunks in
+    double.  Test code: no path of the package runs it."""
     F = torch.nn.functional
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -272,6 +276,9 @@ def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
         t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
         return t.reshape(Bsz, nc, Q, *t.shape[2:])
     xc, dtc, Bc, Cc, dyc = map(rows, (x, dt, Bm, Cm, dy))
+
+    def dot(eq, a, b, split=True):
+        return tf32_dot(eq, a, b, split)
     dtA = dtc * A
     run, cums = torch.zeros_like(dtA[:, :, 0]), []
     for r in range(Q):
@@ -279,7 +286,7 @@ def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
         cums.append(run)
     cum = torch.stack(cums, dim=2)                     # (B, nc, Q, H)
     last = cum[:, :, -1:]
-    CB = _dot3("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    CB = dot("bcin,bcjn->bcij", Cc, Bc)[..., None]
     causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :,
                                                        None]
     L = torch.where(causal, torch.exp(torch.where(
@@ -287,50 +294,56 @@ def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
     w = torch.exp(last - cum) * dtc
     e = torch.exp(cum)
     gamma = torch.exp(last[:, :, 0])
-    states = _dot3("bcjhp,bcjn->bchpn", xc * w[..., None], Bc)
+    states = dot("bcjhp,bcjn->bchpn", xc * w[..., None], Bc)
     s = init_state if init_state is not None else torch.zeros(Bsz, H, P, N)
     entering = []
     for c in range(nc):
         entering.append(s)
         s = gamma[:, c, :, None, None] * s + states[:, c]
     S_in = torch.stack(entering, dim=1)
-    D = _dot3("bcihp,bcin->bchpn", dyc * e[..., None], Cc)      # B1
+    D = dot("bcihp,bcin->bchpn", dyc * e[..., None], Cc)        # B1
     g = dfinal if dfinal is not None else torch.zeros(Bsz, H, P, N)
     leaving = [None] * nc
     for c in reversed(range(nc)):                               # B2
         leaving[c] = g
         g = gamma[:, c, :, None, None] * g + D[:, c]
     G = torch.stack(leaving, dim=1)
-    dM = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)            # B3
-    v = L * dtc[:, :, None] * dM                                # dCB, a head
-    T = CB * v
-    U = torch.einsum("bcjn,bchpn->bcjhp", Bc, G)
-    dx = torch.einsum("bcijh,bcihp->bcjhp", CB * L * dtc[:, :, None],
-                      dyc) + w[..., None] * U
+    dM = torch.zeros(Bsz, nc, Q, Q, H)                          # B3
+    for p0 in range(0, P, CHUNK_TERMS):
+        dM = dM + dot("bcihp,bcjhp->bcijh", dyc[..., p0:p0 + CHUNK_TERMS],
+                      xc[..., p0:p0 + CHUNK_TERMS], split_b3)
+    a = L * dtc[:, :, None]                                     # L o dt
+    M = CB * a
+    dcbh = a * dM                                               # a head's dCB
+    R = CB * L * dM
+    row = (R.double() * dtc[:, :, None].double()).sum(3)        # (B, nc, i, H)
+    col = R.double().sum(2)                                     # (B, nc, j, H)
+    U = dot("bcjn,bchpn->bcjhp", Bc, G, split_b3)
+    dx = dot("bcijh,bcihp->bcjhp", M, dyc, split_b3) + w[..., None] * U
     dw = (xc * U).sum(-1)
-    de = (dyc * torch.einsum("bcin,bchpn->bcihp", Cc, S_in)).sum(-1)
-    dcum = T.sum(3) - T.sum(2) - w * dw + e * de
-    dcum[:, :, -1] += (w * dw).sum(2) + gamma * (G * S_in).sum((-2, -1))
-    run, das = torch.zeros_like(dcum[:, :, 0]), [None] * Q
-    for k in reversed(range(Q)):
-        run = run + dcum[:, :, k]
-        das[k] = run
-    da = torch.stack(das, dim=2)
-    ddt = (CB * L * dM).sum(2) + torch.exp(last - cum) * dw + A * da
-    dap = (da * dtc).sum(2)                                     # (B, nc, H)
-    dcb = v[..., 0]
+    de = (dyc * dot("bcin,bchpn->bcihp", Cc, S_in, split_b3)).sum(-1)
+    dcum = (row - dtc.double() * col - (w * dw).double()
+            + (e * de).double())
+    dcum[:, :, -1] += (w * dw).double().sum(2) + (
+        gamma * (G * S_in).sum((-2, -1))).double()
+    da = dcum.flip(2).cumsum(2).flip(2)
+    ddt = col.float() + torch.exp(last - cum) * dw + A * da.float()
+    dap = (da * dtc.double()).sum(2).float()                    # (B, nc, H)
+    dcb = dcbh[..., 0]
     for h in range(1, H):                                       # B4
-        dcb = dcb + v[..., h]
-    dC = torch.einsum("bcij,bcjn->bcin", dcb, Bc)               # B5
-    dB = torch.einsum("bcij,bcin->bcjn", dcb, Cc)
-    for h in range(H):
-        dC = dC + torch.einsum("bci,bcip,bcpn->bcin", e[..., h],
-                               dyc[..., h, :], S_in[:, :, h])
-        dB = dB + torch.einsum("bcj,bcjp,bcpn->bcjn", w[..., h],
-                               xc[..., h, :], G[:, :, h])
-    dA = torch.zeros(H)
-    for bc in dap.reshape(-1, H):                               # B6
-        dA = dA + bc
+        dcb = dcb + dcbh[..., h]
+    dC = dot("bcij,bcjn->bcin", dcb, Bc, split_b5)              # B5
+    dB = dot("bcij,bcin->bcjn", dcb, Cc, split_b5)
+    chunks = [(h, p0) for h in range(H) for p0 in range(0, P, CHUNK_TERMS)]
+    for g0 in range(0, len(chunks), GROUP_CHUNKS):
+        ks = [(h, p) for h, p0 in chunks[g0:g0 + GROUP_CHUNKS]
+              for p in range(p0, min(P, p0 + CHUNK_TERMS))]
+        hs, ps = (torch.tensor(v) for v in zip(*ks))
+        dC = dC + dot("bcik,bckn->bcin", e[..., hs] * dyc[..., hs, ps],
+                      S_in[:, :, hs, ps], split_b5)
+        dB = dB + dot("bcjk,bckn->bcjn", w[..., hs] * xc[..., hs, ps],
+                      G[:, :, hs, ps], split_b5)
+    dA = dap.double().reshape(-1, H).sum(0).float()             # B6
 
     def out(t):
         return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :S]
@@ -342,25 +355,23 @@ def _ssd_bwd_passes(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
 # with the real layers' dt range (up to 0.1: decay spans past the
 # overflow, so the sequential reference is the yardstick), and whole
 # chunks (384) with an entering state and dt up to 0.02 (spans below the
-# overflow, so the chunked reference takes the state); a chunk of 40 (not
-# a multiple of the 16-row tiles) and P over 64 with odd widths, dt a
-# softplus of normals: B, S, H, P, N, chunk, init, dfinal, dt range
+# overflow, so the chunked reference takes the state); five heads (two B5
+# groups, the second of one head); a chunk of 40 (not a multiple of the
+# 16-row tiles) and P over 64 with odd widths, dt a softplus of normals:
+# B, S, H, P, N, chunk, init, dfinal, dt range
 PASS_CASES = [
     (1, 300, 4, 64, 128, 128, False, False, (0.001, 0.1)),
     (1, 384, 4, 64, 128, 128, True, True, (0.001, 0.02)),
+    (1, 256, 5, 64, 128, 128, True, False, (0.001, 0.02)),
     (2, 70, 3, 40, 12, 40, True, True, None),
     (1, 100, 2, 65, 20, 64, True, False, None),
 ]
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk,init,dfin,dt_range", PASS_CASES)
-def test_kernel_passes_match_reference(B, S, H, P, N, chunk, init, dfin,
-                                       dt_range):
-    """The backward kernel's design before any chip time: its passes, with
-    the forward's 3xTF32 products and its own first pass in 3xTF32, against
-    ``jax.vjp`` of the reference (``ssd_chunked`` with an entering state,
-    ``ssd_sequential`` without), within REL of each gradient's largest
-    value."""
+def _pass_case(B, S, H, P, N, chunk, init, dfin, dt_range):
+    """A PASS_CASES case's inputs (torch, or None) and ``jax.vjp`` of the
+    reference (``ssd_chunked`` with an entering state, ``ssd_sequential``
+    without)."""
     x, dt, A, Bm, Cm, s0, dy, dfinal = _inputs(
         B, S, H, P, N, seed=S + P, dt_range=dt_range,
         A=-np.linspace(1.0, 16.0, H) if N == 128 else None)
@@ -371,10 +382,35 @@ def test_kernel_passes_match_reference(B, S, H, P, N, chunk, init, dfin,
     else:
         want = _vjp("sequential", 0, (x, dt, A, Bm, Cm), dy, None)
     assert all(np.isfinite(w).all() for w in want)
-    got = _ssd_bwd_passes(*map(_t, (x, dt, A, Bm, Cm)), chunk, _t(s0),
-                          _t(dy), _t(dfinal))
+    return [_t(a) for a in (x, dt, A, Bm, Cm, s0, dy, dfinal)], want
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init,dfin,dt_range", PASS_CASES)
+def test_kernel_passes_match_reference(B, S, H, P, N, chunk, init, dfin,
+                                       dt_range):
+    """The backward kernel's design before any chip time: its passes, every
+    product in 3xTF32, against ``jax.vjp`` of the reference within REL of
+    each gradient's largest value."""
+    args, want = _pass_case(B, S, H, P, N, chunk, init, dfin, dt_range)
+    got = _ssd_bwd_passes(*args[:5], chunk, *args[5:])
     for name, g, w in zip(NAMES, got, want):
         _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("one_tf32", ["B3", "B5"])
+def test_one_tf32_product_breaks_the_bound(one_tf32):
+    """Why the kernel takes three products: with B3's or B5's products as
+    one TF32 product (10-bit mantissas), some gradient misses REL by more
+    than 10x at mamba2's widths."""
+    case = PASS_CASES[1]
+    args, want = _pass_case(*case)
+    got = _ssd_bwd_passes(*args[:5], case[5], *args[5:],
+                          split_b3=one_tf32 != "B3",
+                          split_b5=one_tf32 != "B5")
+    worst = max(float(np.abs(g.numpy() - w).max())
+                / (REL * max(1.0, float(np.abs(w).max())))
+                for g, w in zip(got, want))
+    assert worst > 10, worst
 
 
 # =============================================================================

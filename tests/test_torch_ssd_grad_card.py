@@ -23,7 +23,8 @@ NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dinit")
 # B, S, H, P, N, chunk, init_state, dfinal: the reference's sweep
 # (tests/test_kernels.py SSD_CASES, copied: this file imports no JAX) with
 # neither and with both, a ragged chunk of 7 rows, mamba2-780m's widths
-# (ragged) and the kernel's tiling edges
+# (ragged) and the kernel's tiling edges: five heads leave the backward's
+# last group of heads (four a group at P = 64) with one
 CASES = [
     (2, 64, 4, 16, 16, 16, False, False),
     (1, 128, 2, 32, 32, 32, False, False),
@@ -40,6 +41,7 @@ CASES = [
     (1, 300, 4, 64, 128, 40, True, False),       # Q = 40
     (1, 200, 3, 65, 16, 64, True, True),         # odd P over 64
     (1, 200, 2, 130, 20, 64, False, True),       # P over two slices
+    (1, 300, 5, 64, 128, 128, True, True),       # a ragged head group
 ]
 
 
