@@ -230,6 +230,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    below the native OP, flash attention and top-k never).  Printed:
    seconds per local step, tokens/s, peak memory, one step under
    ``torch.profiler`` with the SSD backward's kernels by name and share.
+5g. federated LM training through ``run_federated`` (the paper's loop:
+   planner, ``Transport``-timed communication, the fused server step):
+   qwen3-0.6b at full width and depth drawn on the card from a seed, K = 3
+   clients of ``token_dataset`` rows of 4096 tokens, batch 1, 2 local
+   iterations, 2 rounds, sfl at OP 14, the int8 cut, top-k 0.1 with error
+   feedback and int8 deltas, the sequential engine, the paper testbed's
+   first three devices and links; round 1's server step recomputed on the
+   card from the run's own deltas and EF rows with the plain versions
+   (``topk_blocks_plain``, ``quantize_rows_plain``,
+   ``dequantize_rows_plain``) beside the kernels: kept values, int8 codes
+   and scales, the new EF rows and the new global bitwise.  Then the same
+   set-up for 1 round with widths (1.0, 0.5, 0.25) and two edges (top-k
+   dropped: with it the run would not fit the card): the width-0.25
+   client's params exactly 0 outside its mask, and with the width-1.0
+   client left out of a recomputed step every uncovered coordinate keeps
+   its value bit for bit.  Then mamba2-780m at full width, 12 of 48
+   layers, 1 round at OP 6 with the int8 cut.  Each run: OPs, modelled
+   round and comm times, drops and ``edge_time`` equal to a CPU replay of
+   the planner and ``RoundClock``; the -CE eval metric finite every round;
+   launches exactly what its history needs (the mixer's forward twice a
+   layer and local step plus once a layer for each round's eval pass, its
+   backward once a layer and step; the int8 pair once a step below the
+   native OP plus once per surviving client row for the delta wire; top-k
+   once per surviving client row).  Printed with the card's name and power
+   limit: wall seconds a round, the server step's seconds, peak memory,
+   the flat buffer's lanes.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -245,9 +271,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    internvl2, recurrentgemma, whisper and mamba2 smoke configs (the loss
    within 1e-5 relative, every leaf within 1e-4 of its max); the lm16m
    driver for 2 rounds from the same initial params and agent noise (OPs
-   and times exact, each round's loss within 1e-5 relative).
+   and times exact, each round's loss within 1e-5 relative); lm16m through
+   ``run_federated`` with each engine (sfl at OP 3, the int8 cut, top-k 0.5
+   and int8 deltas: OPs and times exact, the metric and params within the
+   discrete-step bounds) and plain through the sequential engine, and
+   mamba2's smoke config through the batched engine (the metric within
+   1e-5 relative, the params within 1e-4 of each leaf's max).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
-   int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf)
+   int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf,
+   both also at one qwen3-0.6b flat row of phase 5g: top-k over (1,
+   596050944) at density 0.1, the int8 pair over its (582081, 1024) rows)
    beside its bound (flash attention and the SSD scan: the 3xTF32 tensor-core
    bound, and the fp32 CUDA-core bound as ``bound_fp32_ms``), its plain
    version and a library call computing the same function where PyTorch
@@ -272,8 +305,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    scan's backward at mamba2-780m's layer 0 of a real 4096-token step
    (its y's gradient scaled to a max of 1) beside its plain version and
    the 3xTF32 and fp32 bounds of the products its passes compute (no
-   PyTorch call computes the SSD scan's gradient); then print the
-   kernels' JSON line and the result line.
+   PyTorch call computes the SSD scan's gradient); then print the whole
+   run's seconds (the build included) with the card's name and power
+   limit, the kernels' JSON line and the result line.
 
 TF32 is switched off for convolutions and matrix products throughout, so
 every comparison is in full fp32.  The full record goes to
@@ -293,6 +327,7 @@ import time
 import traceback
 from pathlib import Path
 
+START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
@@ -553,6 +588,39 @@ CUT_FLIP_REL = 1e-3
 MAMBA_DRILL_SEQ = 4096
 MAMBA_STEP_OP, MAMBA_STEP_SEQ = 24, 1024
 MAMBA_SPLIT_OPS = (0, 24, 48)
+# phase 5g, federated LM training through run_federated: qwen3-0.6b at full
+# width and depth (drawn on the card from seed 0), K = 3 clients of
+# token_dataset rows of 4096 tokens (4 rows each: 2 rounds x 2 local
+# iterations at batch 1), a test set of 2 rows (the -CE eval at the native
+# OP, one no_grad pass a round), sfl at OP 14, the int8 cut, top-k 0.1 with
+# error feedback, int8 deltas, the fused server step, the sequential
+# engine; the paper testbed's first three devices and links (its Eq. 1
+# cluster over the LM's workload, a Transport over their bandwidths)
+FED_K, FED_SEQ, FED_ROWS, FED_TEST_ROWS = 3, 4096, 4, 2
+FED_OP, FED_LR = 14, 0.01
+# the width run: the same set-up for 1 round with widths (1.0, 0.5, 0.25)
+# and two edges behind EDGE_BPS.  Its predicted peak is ~58 GiB without
+# top-k and ~78 GiB with it (PERF.md, phase 5g): past ~70 GiB, so this run
+# drops top-k (density 1.0, the int8 deltas kept) and keeps the widths
+FED_WIDTHS = (1.0, 0.5, 0.25)
+# then mamba2-780m at full width with its depth cut to 12 of 48 layers: 1
+# sync round at OP 6 with the int8 cut
+FED_MAMBA_LAYERS, FED_MAMBA_OP = 12, 6
+# phase 6's lm16m runs through run_federated, card against CPU: a plain
+# fp32 run within TRAIN_LOSS_REL (the metric) and TRAIN_GRAD_REL (every
+# param leaf, of its max); the runs with the int8 cut, top-k and int8
+# deltas with the metric within FED_DISCRETE_METRIC_REL and the params
+# lane by lane: an int8 code or a top-k near-tie that the two devices'
+# fp32 sums send different ways is a discrete step (1/127 of a row's
+# absmax; a top-k flip moves one coordinate by its whole local delta),
+# which later steps carry on, so at most FED_TREE_SHARE of the lanes may
+# lie beyond FED_LANE_REL of their leaf's max and none beyond
+# FED_DISCRETE_PARAMS_REL.  On the CPU against the reference, sound runs
+# stayed within 2.68% and 0.130, and runs with training off or one local
+# iteration of two read at least 49.2% and 0.770 (tests/torch_fl_cases.py
+# holds the same bounds)
+FED_DISCRETE_METRIC_REL, FED_DISCRETE_PARAMS_REL = 5e-4, 0.25
+FED_LANE_REL, FED_TREE_SHARE = 1e-4, 0.05
 
 
 def fail(msg: str) -> None:
@@ -3486,6 +3554,380 @@ def mamba2_training_path(torch, ts, dev, launches, reset_launches):
     return out, real
 
 
+def fed_lm_launches(cfg, h, fl, native_op, K):
+    """Each kernel's launches in a ``run_federated`` run over an LM from
+    its history (no failures, no deadline): every local step runs the
+    sequence mixer's forward twice a layer (the forward and its remat
+    recompute) and its backward once; each round's eval pass (the whole
+    test set at the native OP under ``no_grad``) runs the forward once a
+    layer; the int8 pair once a step below the native OP and once per
+    surviving client row for the delta wire; top-k once per surviving
+    client row."""
+    rounds = len(h["ops"])
+    steps = fl.local_iters * K * rounds
+    cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
+                                   for op in row))
+    kept = int(sum(K - int(d) for d in h["dropped"]))
+    L = cfg.num_layers
+    ssm = cfg.family == "ssm"
+    mixer = {"fwd": 2 * L * steps + L * rounds, "bwd": L * steps}
+    wire = kept if fl.quantize_deltas else 0
+    return {"quantize": cut + wire, "dequantize": cut + wire,
+            "topk_compress": kept if fl.delta_density < 1.0 else 0,
+            "flash_attention": 0 if ssm else mixer["fwd"],
+            "flash_attention_bwd_dq": 0 if ssm else mixer["bwd"],
+            "flash_attention_bwd_dkdv": 0 if ssm else mixer["bwd"],
+            "ssd_scan": mixer["fwd"] if ssm else 0,
+            "ssd_scan_bwd": mixer["bwd"] if ssm else 0}
+
+
+def fed_lm_setup(cfg, fl, K):
+    """The run's program and data (token rows of FED_SEQ tokens, seeded),
+    ``links()``: a fresh Eq. 1 cluster over the paper testbed's first K
+    devices and the LM's workload, its Transport (and the edges' for a
+    two-tier run), and ``replay(params)``: the CPU replay of the run's
+    control plane, the planner and ``RoundClock`` over the same cluster and
+    links with no model (``params`` only sizes the weight sync)."""
+    import numpy as np
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.env import SimulatedCluster
+    from repro_torch.core.testbed import paper_testbed
+    from repro_torch.data import split_clients, token_dataset
+    from repro_torch.fl.comm import (Transport, device_bandwidths,
+                                     indexed_bandwidths)
+    from repro_torch.fl.hierarchy import assign_edges
+    from repro_torch.fl.loop import RoundClock, _resolve_planner
+    from repro_torch.models.split_program import get_split_program
+    program = get_split_program(cfg)
+    _, devices, c_srv, _ = paper_testbed(VGG5)
+    workload = cm.program_workload(program, fl.batch_size, FED_SEQ)
+
+    def links():
+        sim = SimulatedCluster(workload, devices[:K], c_srv,
+                               program.op_candidates(),
+                               iterations=fl.local_iters, jitter=0.05,
+                               seed=3)
+        edges = (Transport(indexed_bandwidths(EDGE_BPS))
+                 if fl.num_edges > 0 else None)
+        return sim, Transport(device_bandwidths(devices[:K])), edges
+
+    clients = split_clients(token_dataset(K * FED_ROWS, FED_SEQ,
+                                          cfg.vocab_size, seed=0), K)
+    test = token_dataset(FED_TEST_ROWS, FED_SEQ, cfg.vocab_size, seed=9)
+
+    def replay(params):
+        sim, transport, edges = links()
+        scale = (np.asarray([w * w for w in fl.client_widths], np.float64)
+                 if fl.client_widths is not None else None)
+        clock = RoundClock(program, fl, K, params, sim=sim,
+                           transport=transport, compute_scale=scale,
+                           edge_transport=edges, seq=FED_SEQ)
+        native = program.native_op
+        times, _ = clock.times([native] * K, 0)
+        plan = _resolve_planner(fl, native, None, None, sim)
+        plan.begin(times)
+        out = {k: [] for k in ("ops", "times", "round_time", "comm_time",
+                               "dropped", "edge_time")}
+        for r in range(fl.rounds):
+            ops = plan.plan(r, times, sim.bandwidths(r))
+            times, comm = clock.times(ops, r)
+            edge = 0.0
+            if fl.num_edges > 0 and edges is not None:
+                used = len(assign_edges(K, fl.num_edges))
+                edge = float(np.max(clock.edge_hop_times(used, r)))
+            out["ops"].append(list(ops))
+            out["times"].append(times.copy())
+            out["round_time"].append(float(np.max(times)) + edge)
+            out["comm_time"].append(comm.copy())
+            out["dropped"].append(0)
+            out["edge_time"].append(edge)
+            plan.feedback(times)
+        return {k: np.asarray(v) for k, v in out.items()}
+    return program, clients, test, links, replay
+
+
+def fed_lm_run(torch, cfg, fl, K, dev, launches, reset_launches, what,
+               wrap):
+    """One ``run_federated`` run of phase 5g on the card, its params drawn
+    by the run itself (``program.init(seed)`` on the card): its launches
+    exactly what its history needs, its OPs, modelled round and comm
+    times, drops and ``edge_time`` equal to the CPU replay, the -CE metric
+    finite every round.  ``wrap()`` is the run's server-step probe (a
+    context manager whose value is its record).  Returns the record."""
+    import numpy as np
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.fl.loop import run_federated
+    free_card(torch)
+    program, clients, test, links, replay = fed_lm_setup(cfg, fl, K)
+    sim, transport, edges = links()
+    reset_launches()
+    t0 = time.perf_counter()
+    with wrap() as probe:
+        h = run_federated(cfg, clients, test, fl, sim=sim,
+                          transport=transport, edge_transport=edges,
+                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    n = count_params(h["params"])
+    layout = FlatLayout(h["params"])
+    want = fed_lm_launches(cfg, h, fl, program.native_op, K)
+    print(f"fed-{what}: {n:,} fp32 params ({n * 4 / 2**30:.2f} GiB), the "
+          f"flat buffer {layout.padded:,} lanes ({layout.padded // 1024:,} "
+          f"blocks of 1024); launches {counts} (expected from its history: "
+          f"{want})", flush=True)
+    if counts != want:
+        fail(f"fed-{what}: launches {counts}, its history needs {want}")
+    rep = replay(h["params"])
+    for key in ("ops", "times", "round_time", "comm_time", "dropped",
+                "edge_time"):
+        if not np_equal(h[key], rep[key]):
+            fail(f"fed-{what}: {key} {h[key]} vs the CPU replay's "
+                 f"{rep[key]}")
+    if not np.all(np.isfinite(h["accuracy"])):
+        fail(f"fed-{what}: eval metric {h['accuracy']}")
+    out = {"launches": counts, "ops": h["ops"].tolist(),
+           "metric": h["accuracy"].tolist(),
+           "round_time_model_s": h["round_time"].tolist(),
+           "comm_time_model_s": h["comm_time"].tolist(),
+           "edge_time_model_s": h["edge_time"].tolist(),
+           "round_wall_s": h["wall_s"].tolist(), "wall_s": wall,
+           "params": n, "flat_lanes": layout.padded,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out.update(probe)
+    print(f"fed-{what}: OPs {h['ops'].tolist()}, modelled round times "
+          f"{[round(float(t), 3) for t in h['round_time']]} s (comm, drops "
+          f"and edge_time too) equal to the CPU replay; -CE metric "
+          f"{[round(float(m), 5) for m in h['accuracy']]}", flush=True)
+    del h
+    return out
+
+
+def quiet_launches(fn):
+    """``fn()`` with the launch counts restored after it: the checks'
+    kernel calls compare a kernel with its plain version and do not count
+    as the main path's."""
+    from repro_torch.kernels import LAUNCHES
+    saved = dict(LAUNCHES)
+    try:
+        return fn()
+    finally:
+        LAUNCHES.update(saved)
+
+
+def topk_plain_chunked(torch, tt, row, meta, block, chunk=1 << 15):
+    """``topk_blocks_plain`` over one flat row, ``chunk`` blocks at a time
+    (its sort's index buffers at a whole LM row would take ~20 GB)."""
+    xb = row.view(-1, block)
+    return torch.cat([tt.topk_blocks_plain(xb[i:i + chunk],
+                                           meta[i:i + chunk])
+                      for i in range(0, xb.shape[0], chunk)]).view(-1)
+
+
+def server_step_check(torch, step, g, deltas, weights, errors, new_g,
+                      new_err):
+    """Round 1's server step recomputed on the card from the run's own
+    deltas and EF rows, with the plain versions called directly
+    (``topk_blocks_plain``, ``quantize_rows_plain``,
+    ``dequantize_rows_plain``) and the kernels beside them: each client
+    row's kept values and int8 codes and scales bitwise equal, its new EF
+    row and the new global bitwise equal to the run's.  The bound on the
+    global is 0: with the same kept values and codes, the recompute runs
+    ``ServerStep``'s own elementwise fp32 operations (carry, subtract,
+    ``acc + w_i * sent``, ``g + acc``) in the same order on the same
+    device, and nothing in it reduces across lanes."""
+    from repro_torch.fl.flatbuf import _normalized_f64
+    from repro_torch.kernels import quant_transfer as tq
+    from repro_torch.kernels import topk_compress as tt
+    block = step.layout.block
+    meta = step._meta.to(g.device)
+    w = _normalized_f64(weights, g.device)
+    acc = torch.zeros_like(g)
+    kept = 0
+    for i in range(deltas.shape[0]):
+        carried = deltas[i] + errors[i]
+        comp = topk_plain_chunked(torch, tt, carried, meta, block)
+        comp_k = quiet_launches(lambda: tt.topk_compress_flat(
+            carried[None], meta, block)[0])
+        if not torch.equal(comp, comp_k):
+            fail(f"server step check, client {i}: the top-k kernel keeps "
+                 f"{int((comp != comp_k).sum())} lanes otherwise than "
+                 f"topk_blocks_plain")
+        kept += int((comp != 0).sum())
+        q, s = tq.quantize_rows_plain(comp.view(-1, block))
+        q_k, s_k = quiet_launches(lambda: tq.quantize_rows(
+            comp.view(-1, block)))
+        if not (torch.equal(q, q_k) and torch.equal(s, s_k)):
+            fail(f"server step check, client {i}: int8 codes or scales of "
+                 f"the kernel differ from quantize_rows_plain")
+        sent = tq.dequantize_rows_plain(q, s).view(-1)
+        if not torch.equal(sent, quiet_launches(
+                lambda: tq.dequantize_rows(q, s).view(-1))):
+            fail(f"server step check, client {i}: dequantize kernel vs "
+                 f"dequantize_rows_plain")
+        if not torch.equal(carried - sent, new_err[i]):
+            fail(f"server step check, client {i}: new EF row differs")
+        acc = acc + w[i] * sent
+        del carried, comp, comp_k, q, s, q_k, s_k, sent
+    diff = float((g + acc - new_g).abs().max())
+    if diff != 0.0:
+        fail(f"server step check: the new global differs from the plain "
+             f"recompute by {diff} (bound 0)")
+    print(f"server step check (round 1): top-k keep masks ({kept:,} lanes "
+          f"kept of {deltas.numel():,}), int8 codes and scales bitwise "
+          f"equal to the plain versions over {deltas.shape[0]} client "
+          f"rows; the new EF rows and the new global bitwise the run's",
+          flush=True)
+    return {"kept_lanes": kept, "new_global_max_abs_diff": diff}
+
+
+class ServerStepProbe:
+    """Wraps ``ServerStep.__call__`` for one run: each call's seconds (a
+    sync before and after) and, with ``check``, round 1's step (the
+    second, with nonzero EF rows) checked by ``server_step_check``, its
+    seconds kept apart."""
+
+    def __init__(self, torch, check=True):
+        self.torch, self.check = torch, check
+        self.rec = {"server_step_s": [], "check_s": None}
+
+    def __enter__(self):
+        from repro_torch.fl import flatbuf
+        torch, rec, orig = self.torch, self.rec, flatbuf.ServerStep.__call__
+        self.orig, self.cls = orig, flatbuf.ServerStep
+
+        def call(step, g, deltas, weights, errors=None, masks=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_g, new_err = orig(step, g, deltas, weights, errors, masks)
+            torch.cuda.synchronize()
+            rec["server_step_s"].append(time.perf_counter() - t0)
+            if self.check and len(rec["server_step_s"]) == 2:
+                t1 = time.perf_counter()
+                rec["check"] = server_step_check(torch, step, g, deltas,
+                                                 weights, errors, new_g,
+                                                 new_err)
+                rec["check_s"] = time.perf_counter() - t1
+            return new_g, new_err
+        flatbuf.ServerStep.__call__ = call
+        return rec
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+        return False
+
+
+class WidthProbe:
+    """Wraps the loop's ``hierarchical_apply`` for the width run: its
+    seconds, then on the run's own rows: the width-0.25 client's params
+    are exactly 0 outside its mask (its delta is exactly -g there, so it
+    never left its subnetwork), and a step over the two narrower clients
+    alone (nobody covers what lies outside the width-0.5 mask) keeps every
+    uncovered coordinate of the global bit for bit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rec = {"server_step_s": [], "check_s": None}
+
+    def __enter__(self):
+        from repro_torch.fl import loop
+        torch, rec, orig = self.torch, self.rec, loop.hierarchical_apply
+        self.orig, self.mod = orig, loop
+
+        def call(step, root, g, deltas, weights, errors=None, masks=None,
+                 num_edges=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(step, root, g, deltas, weights, errors, masks,
+                       num_edges=num_edges)
+            torch.cuda.synchronize()
+            rec["server_step_s"].append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            narrow = masks[2] == 0
+            outside = int(narrow.sum())
+            if not bool(((deltas[2] + g)[narrow] == 0).all()):
+                fail("width run: the width-0.25 client's params are not 0 "
+                     "outside its mask")
+            uncovered = masks[1] == 0
+            sub = quiet_launches(lambda: step(g, deltas[1:3], weights[1:3],
+                                              None if errors is None
+                                              else errors[1:3],
+                                              masks=masks[1:3])[0])
+            if not torch.equal(sub[uncovered], g[uncovered]):
+                fail("width run: a coordinate that no client covers moved")
+            moved = int((sub[~uncovered] != g[~uncovered]).sum())
+            # in the run a width-1.0 client covers every true lane: what
+            # no mask covers is the padding between leaves
+            none = int(((masks == 0).all(0)).sum())
+            padding = step.layout.padded - step.layout.size
+            if none != padding:
+                fail(f"width run: {none} lanes uncovered, the padding is "
+                     f"{padding}")
+            rec["width_check"] = {
+                "outside_narrow_mask": outside,
+                "uncovered_by_narrow_clients": int(uncovered.sum()),
+                "covered_moved": moved, "uncovered_in_run": none}
+            rec["check_s"] = time.perf_counter() - t1
+            print(f"width run: the width-0.25 client's params exactly 0 on "
+                  f"the {outside:,} lanes outside its mask; with the "
+                  f"width-1.0 client left out, the {int(uncovered.sum()):,} "
+                  f"uncovered lanes keep the global bit for bit ({moved:,} "
+                  f"covered lanes moved); in the run itself only the "
+                  f"{none:,} padding lanes are uncovered", flush=True)
+            del sub
+            return out
+        loop.hierarchical_apply = call
+        return rec
+
+    def __exit__(self, *exc):
+        self.mod.hierarchical_apply = self.orig
+        return False
+
+
+def federated_lm_path(torch, dev, launches, reset_launches, card=""):
+    """Phase 5g: ``run_federated`` over qwen3-0.6b at full width and depth
+    (sfl at OP 14, the int8 cut, top-k 0.1 EF, int8 deltas, the fused
+    server step, round 1's step checked against the plain versions), the
+    same set-up with widths and two edges for one round, then mamba2-780m
+    at full width, 12 of 48 layers, one round at OP 6 with the int8 cut.
+    ``card`` (the card's name and power limit) goes on each summary line.
+    Returns the records by path name."""
+    import dataclasses
+    from repro_torch.configs.mamba2_780m import CONFIG as mamba_cfg
+    from repro_torch.configs.qwen3_0_6b import CONFIG as qwen_cfg
+    from repro_torch.fl.loop import FLConfig
+    fl = FLConfig(rounds=2, local_iters=2, batch_size=1, lr=FED_LR,
+                  augment=False, mode="sfl", static_op=FED_OP,
+                  quantize_transfer=True, delta_density=0.1,
+                  quantize_deltas=True, seed=0)
+    out = {}
+    out["fed-qwen3-0.6b"] = fed_lm_run(
+        torch, qwen_cfg, fl, FED_K, dev, launches, reset_launches,
+        "qwen3-0.6b", wrap=lambda: ServerStepProbe(torch))
+    wide = dataclasses.replace(fl, rounds=1, client_widths=FED_WIDTHS,
+                               num_edges=2, delta_density=1.0)
+    out["fed-qwen3-0.6b-widths"] = fed_lm_run(
+        torch, qwen_cfg, wide, FED_K, dev, launches, reset_launches,
+        "qwen3-0.6b-widths", wrap=lambda: WidthProbe(torch))
+    cfg = dataclasses.replace(mamba_cfg, num_layers=FED_MAMBA_LAYERS)
+    out["fed-mamba2-780m"] = fed_lm_run(
+        torch, cfg, dataclasses.replace(
+            fl, rounds=1, static_op=FED_MAMBA_OP, delta_density=1.0,
+            quantize_deltas=False), FED_K, dev, launches, reset_launches,
+        f"mamba2-780m ({FED_MAMBA_LAYERS} of 48 layers)",
+        wrap=lambda: ServerStepProbe(torch, check=False))
+    for name, r in out.items():
+        walls = [round(t, 3) for t in r["round_wall_s"]]
+        check = (f" (the last includes the {r['check_s']:.2f} s check)"
+                 if r["check_s"] is not None else "")
+        print(f"{name} ({card}): wall per round {walls} s{check}, server "
+              f"step {[round(t, 3) for t in r['server_step_s']]} s, peak "
+              f"{r['peak_memory_gib']:.2f} GiB, {r['flat_lanes']:,} "
+              f"flat-buffer lanes", flush=True)
+    return out
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
     return bool(np.array_equal(np.asarray(a), np.asarray(b)))
@@ -3642,6 +4084,73 @@ def lm16m_driver_cpu_vs_card(torch, dev):
           f"{rel:.3g} relative (<= {TRAIN_LOSS_REL})", flush=True)
     return {"ops": a["ops"], "loss_card": a["loss"], "loss_cpu": b["loss"],
             "loss_rel": rel}
+
+
+def small_federated_lm_cpu_vs_card(torch, dev):
+    """Phase 6, federated LM training: ``run_federated`` on the CPU and on
+    the card from the same initial params: lm16m in sfl at OP 3 with the
+    int8 cut, top-k 0.5 and int8 deltas through each engine (OPs, modelled
+    round and comm times, drops and ``edge_time`` exact; the -CE metric
+    and the final params within FED_DISCRETE_METRIC_REL, FED_TREE_SHARE
+    and FED_DISCRETE_PARAMS_REL), lm16m plain through the sequential engine
+    and mamba2's smoke config plain through the batched engine (the same
+    exact keys; the metric within TRAIN_LOSS_REL, every param leaf within
+    TRAIN_GRAD_REL of its max)."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.lm_small import LM16M
+    from repro_torch.data import split_clients, token_dataset
+    from repro_torch.fl.loop import FLConfig, run_federated
+    from repro_torch.models.split_program import get_split_program
+    from repro_torch.tree import tree_leaves
+    discrete = dict(quantize_transfer=True, delta_density=0.5,
+                    quantize_deltas=True)
+    runs = {"lm16m-sequential-int8-topk": (LM16M, "sequential", 3, discrete),
+            "lm16m-batched-int8-topk": (LM16M, "batched", 3, discrete),
+            "lm16m-sequential": (LM16M, "sequential", 3, {}),
+            "mamba2-smoke-batched": (get_smoke_config("mamba2-780m"),
+                                     "batched", 1, {})}
+    out = {}
+    for name, (cfg, engine, op, kw) in runs.items():
+        clients = split_clients(token_dataset(16, 32, cfg.vocab_size,
+                                              seed=0), 2)
+        test = token_dataset(4, 32, cfg.vocab_size, seed=9)
+        init = get_split_program(cfg).init(0, "cpu")
+        fl = FLConfig(rounds=2, local_iters=2, batch_size=2, lr=0.1,
+                      augment=False, mode="sfl", static_op=op,
+                      engine=engine, **kw)
+        a, b = (run_federated(cfg, clients, test, fl, init_params=init,
+                              device=d) for d in ("cpu", dev))
+        for key in ("ops", "times", "round_time", "comm_time", "dropped",
+                    "edge_time"):
+            if not np_equal(a[key], b[key]):
+                fail(f"small {name}: {key} cpu {a[key]} vs card {b[key]}")
+        metric = float(np.max(np.abs(b["accuracy"] - a["accuracy"])
+                              / np.abs(a["accuracy"])))
+        errs = [(x.cpu() - y).abs().reshape(-1)
+                / max(float(y.abs().max()), 1e-3)
+                for x, y in zip(tree_leaves(b["params"]),
+                                tree_leaves(a["params"]))]
+        gap = max(float(e.max()) for e in errs)
+        share = (sum(int((e > FED_LANE_REL).sum()) for e in errs)
+                 / sum(e.numel() for e in errs))
+        m_tol, p_tol, s_tol = ((FED_DISCRETE_METRIC_REL,
+                                FED_DISCRETE_PARAMS_REL, FED_TREE_SHARE)
+                               if kw else (TRAIN_LOSS_REL, TRAIN_GRAD_REL,
+                                           0.0))
+        if not (metric <= m_tol and gap <= p_tol and share <= s_tol):
+            fail(f"small {name}: metric {metric:.3g} relative (<= {m_tol}?), "
+                 f"params {gap:.3g} of a leaf's max (<= {p_tol}?), "
+                 f"{share:.3g} of the lanes beyond {FED_LANE_REL} "
+                 f"(<= {s_tol}?)")
+        out[name] = {"metric_rel": metric, "params_rel": gap,
+                     "lane_share": share, "bounds": [m_tol, p_tol, s_tol],
+                     "ops": b["ops"].tolist()}
+        print(f"small {name}: cpu == card (ops, times, comm, drops), metric "
+              f"{metric:.3g} relative (<= {m_tol}), params {gap:.3g} of a "
+              f"leaf's max (<= {p_tol}), {share:.3g} of the lanes beyond "
+              f"{FED_LANE_REL} (<= {s_tol})", flush=True)
+    return out
 
 
 def ssd_cost(B, S, H, P, N, Q):
@@ -3976,8 +4485,40 @@ def _timing_row(name, shape, fn, plain, library, nbytes, ops, reps=15,
             "library_ms": None if library is None else time_ms(library, **kw)}
 
 
+def lm_row_timings(torch, tq, tt, dev, gen, n):
+    """Phase 7's rows at one LM flat row (phase 5g: qwen3-0.6b's ``n``
+    lanes): top-k at density 0.1 over ``(1, n)`` and the int8 pair over
+    its ``(n / 1024, 1024)`` rows, each beside its byte bound, its plain
+    version and ``torch.topk`` / ``torch.mul``.  Fewer repetitions than
+    the small rows: the plain top-k sorts the whole row."""
+    nb = n // 1024
+    meta = torch.from_numpy(tt.density_block_meta(n, 1024, 0.1)).to(
+        torch.int32).to(dev)
+    buf = torch.randn((1, n), generator=gen).to(dev)
+    kmax = int(meta[:, 1].max())
+    mag = buf.view(nb, 1024).abs()
+    rows = [_timing_row(
+        "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
+        lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
+        lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n,
+        reps=3, inner=2)]
+    del mag
+    x = buf.view(nb, 1024)
+    q, s = tq.quantize_rows(x)
+    for name, fn, plain, library, nbytes, ops in [
+            ("quantize", lambda: tq.quantize_rows(x),
+             lambda: tq.quantize_rows_plain(x), None,
+             n * 4 + n + nb * 4, 5 * n),
+            ("dequantize", lambda: tq.dequantize_rows(q, s),
+             lambda: tq.dequantize_rows_plain(q, s),
+             lambda: torch.mul(q, s[:, None]), n + nb * 4 + n * 4, n)]:
+        rows.append(_timing_row(name, [nb, 1024], fn, plain, library,
+                                nbytes, ops, reps=5, inner=4))
+    return rows
+
+
 def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
-                 serving_rows):
+                 serving_rows, lm_lanes):
     """Phase 7: each kernel's time beside its bound, its plain version and
     a library call where one computes the same function: ``torch.mul`` of
     the int8 codes by the scales (one kernel that promotes to fp32) for
@@ -3986,7 +4527,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
     ``scaled_dot_product_attention`` without it (``time_flash``).  No
     single PyTorch call computes the rowwise absmax int8 quantizer.
     ``worst_rel``: the SSD backward's worst error over its bound's scale
-    (phases 3 and 5f)."""
+    (phases 3 and 5f).  ``lm_lanes``: phase 5g's qwen3-0.6b flat-buffer
+    length, where top-k and the int8 pair run once per client row."""
     from repro_torch.configs.vgg import VGG5
     from repro_torch.fl.flatbuf import FlatLayout
     from repro_torch.models.vgg import init
@@ -4036,6 +4578,7 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
         lambda: tt.topk_blocks_plain(leaf.view(nb, 1024), leaf_meta),
         lambda: torch.topk(leaf_mag, leaf_k, dim=1), 2 * 4 * n + 8 * nb,
         4 * n))
+    rows += lm_row_timings(torch, tq, tt, dev, gen, lm_lanes)
     rows += serving_rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -4269,6 +4812,13 @@ def main() -> None:
             list(record["ssd_bwd_drills"].values())
             + list(ssm_training["real_layer_bwd_err"].values()))
         free_card(torch)
+
+        phase("5g. federated LM training: run_federated over qwen3-0.6b "
+              "(full width and depth; then widths and two edges) and "
+              "mamba2-780m (12 of 48 layers)")
+        record["main_path"].update(federated_lm_path(
+            torch, dev, LAUNCHES, reset_launches, card))
+        free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -4289,13 +4839,16 @@ def main() -> None:
                          "internvl2-2b", "recurrentgemma-9b",
                          "whisper-base", "mamba2-780m")}
         record["small_driver"] = lm16m_driver_cpu_vs_card(torch, dev)
+        record["small_federated_lm"] = small_federated_lm_cpu_vs_card(
+            torch, dev)
 
         phase("7. kernel times")
         kernels, rows = time_kernels(
             torch, tq, tt, dev, launches, worst, worst_rel_ssd_bwd,
             time_flash(torch, tf, real) + time_flash_bwd(torch, tf, real)
             + time_ssd(torch, ts, ssd_real)
-            + time_ssd_bwd(torch, ts, ssd_bwd_real))
+            + time_ssd_bwd(torch, ts, ssd_bwd_real),
+            record["main_path"]["fed-qwen3-0.6b"]["flat_lanes"])
         record["kernels"], record["timings"] = kernels, rows
         torch.cuda.synchronize()
     except SystemExit:
@@ -4305,7 +4858,10 @@ def main() -> None:
         fail("a phase raised")
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    record["whole_run_s"] = time.perf_counter() - START
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(f"whole run: {record['whole_run_s']:.1f} s, the kernels' build "
+          f"included ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ from typing import Any, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_unflatten
+
 Tree = Any
 _STEP_RE = re.compile(r"ckpt_(\d+)\.npz$")
 
@@ -40,19 +42,6 @@ def _walk(tree: Tree, prefix: Tuple[str, ...] = ()
             yield from _walk(t, prefix + (str(i),))
     else:
         yield "/".join(prefix), tree
-
-
-def _rebuild(tree: Tree, leaves: Iterator[Any]) -> Tree:
-    """``tree``'s structure with its leaves taken, in order, from
-    ``leaves``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(t, leaves) for t in tree)
-    return next(leaves)
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -103,7 +92,7 @@ def restore_tree(path: str, template: Tree) -> Tree:
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs template {shape}")
         leaves.append(_like(arr, leaf))
-    return _rebuild(template, iter(leaves))
+    return tree_unflatten(template, leaves)
 
 
 def leaf_shapes(path: str) -> dict:

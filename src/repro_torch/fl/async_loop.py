@@ -73,6 +73,7 @@ from repro_torch.fl.loop import (
     _resolve_planner,
     _restore_controller,
     _restore_errors,
+    _seq_len,
 )
 from repro_torch.fl.planner import Planner
 from repro_torch.fl.state import async_state_tree, ef_template_len
@@ -116,9 +117,10 @@ def run_federated_async(
     device=None,
     edge_transport: Optional[Transport] = None,
 ) -> Dict[str, np.ndarray]:
-    """Train ``cfg`` (a ``VGGConfig``) through the async virtual-clock
-    runtime: one history row per server aggregation, ``fl.rounds`` of them
-    at most.
+    """Train ``cfg`` (a ``VGGConfig``, or any ``ModelConfig`` with a
+    split program on token batches, as ``run_federated``) through the
+    async virtual-clock runtime: one history row per server aggregation,
+    ``fl.rounds`` of them at most.
 
     Besides ``run_federated``'s columns the history holds ``virtual_time``
     (the clock at each aggregation), ``staleness`` (mean staleness of the
@@ -183,7 +185,8 @@ def run_federated_async(
     clock = RoundClock(program, fl, K, params, sim=sim, transport=transport,
                        compute_scale=(hetero.compute_scale
                                       if hetero is not None else None),
-                       edge_transport=edge_transport)
+                       edge_transport=edge_transport,
+                       seq=_seq_len(clients_data))
 
     mgr = CheckpointManager(fl.checkpoint_dir) if fl.checkpoint_dir else None
     version = 0            # server params version == aggregations so far

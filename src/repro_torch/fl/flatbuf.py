@@ -1,13 +1,16 @@
 """Flat-buffer server step (counterpart of ``repro/fl/flatbuf.py``, single
 device): aggregate the clients' weight deltas into the global model.
 
-* ``FlatLayout`` lays every parameter leaf into one contiguous fp32 buffer
-  in the reference's leaf order (layer index, then the layer's keys sorted:
-  ``b``, ``bn_bias``, ``bn_scale``, ``w``), each leaf row-major in its
-  reference shape and padded to a block boundary.  No compression block
-  straddles two leaves, so each block's ``(valid, k)`` budget comes from its
-  leaf's true size and every keep decision matches the reference's.
-  ``flatten`` / ``unflatten`` are exact inverses.
+* ``FlatLayout`` lays every parameter leaf of any params tree (VGG's
+  per-layer list of dicts, an LM's nested dicts of stacked layers, the
+  hybrid's lists of slots) into one contiguous fp32 buffer in the
+  reference's leaf order (dict keys sorted, lists in order: for VGG the
+  layer index, then ``b``, ``bn_bias``, ``bn_scale``, ``w``), each leaf
+  row-major in its reference shape and padded to a block boundary.  No
+  compression block straddles two leaves, so each block's ``(valid, k)``
+  budget comes from its leaf's true size and every keep decision matches
+  the reference's.  ``flatten`` / ``unflatten`` are exact inverses (the
+  tree's nesting and each leaf's dtype come back).
 * ``ServerStep`` applies one round: plain averaging is one ``w @ deltas``;
   with top-k error feedback (``density < 1``) or the int8 wire format
   (``quantize``) the client rows stream through the kernels one by one, in
@@ -32,7 +35,7 @@ device): aggregate the clients' weight deltas into the global model.
 from __future__ import annotations
 
 import weakref
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,24 +48,30 @@ from repro_torch.kernels.topk_compress import (
     density_block_meta,
     topk_compress_flat,
 )
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (
+    tree_leaves,
+    tree_map,
+    tree_structure,
+    tree_unflatten,
+)
 
-Params = List[Dict[str, torch.Tensor]]
+Params = Any
 
 
 class FlatLayout:
-    """Per-leaf (shape, offset, size) for one parameter structure, offsets
-    aligned to ``block``."""
+    """Per-leaf (shape, dtype, offset, size) for one parameter structure,
+    offsets aligned to ``block``."""
 
     def __init__(self, params: Params, block: int = 1024):
         self.block = int(block)
-        self.keys = tuple(tuple(sorted(layer)) for layer in params)
+        self.structure = tree_structure(params)
         leaves = tree_leaves(params)
         self.shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+        self.dtypes = tuple(leaf.dtype for leaf in leaves)
         # fp32 params round-trip through the flat buffer without rounding:
         # the async loop checkpoints in-flight deltas as flat rows, which
         # is bitwise only then
-        self.exact_fp32 = all(leaf.dtype == torch.float32 for leaf in leaves)
+        self.exact_fp32 = all(d == torch.float32 for d in self.dtypes)
         self.sizes = tuple(int(np.prod(s)) if s else 1 for s in self.shapes)
         self.segs = tuple(-(-sz // self.block) * self.block
                           for sz in self.sizes)
@@ -71,20 +80,28 @@ class FlatLayout:
         self.size = int(sum(self.sizes))      # true element count
         self.padded = int(sum(self.segs))     # buffer length (block-aligned)
 
-    def flatten(self, params: Params) -> torch.Tensor:
-        """Params -> contiguous fp32 ``(padded,)`` buffer on their device."""
+    def flatten(self, params: Params,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Params -> contiguous fp32 ``(padded,)`` buffer on their device;
+        with ``out`` (a zeroed ``(padded,)`` fp32 row) the leaves are
+        written into it in place and ``out`` is returned."""
+        leaves = tree_leaves(params)
+        if out is not None:
+            for leaf, off, sz in zip(leaves, self.offsets, self.sizes):
+                out[off:off + sz] = leaf.detach().reshape(-1)
+            return out
         parts = [F.pad(leaf.detach().reshape(-1).to(torch.float32),
                        (0, seg - sz))
-                 for leaf, sz, seg in zip(tree_leaves(params), self.sizes,
-                                          self.segs)]
+                 for leaf, sz, seg in zip(leaves, self.sizes, self.segs)]
         return torch.cat(parts)
 
     def unflatten(self, buf: torch.Tensor) -> Params:
-        """Exact inverse of ``flatten`` (padding dropped; fresh tensors)."""
-        leaves = iter(buf[off:off + sz].reshape(shape).clone()
-                      for off, sz, shape in
-                      zip(self.offsets, self.sizes, self.shapes))
-        return [{k: next(leaves) for k in keys} for keys in self.keys]
+        """Exact inverse of ``flatten`` (padding dropped, dtypes restored;
+        fresh tensors in the params' nesting)."""
+        return tree_unflatten(self.structure, (
+            buf[off:off + sz].reshape(shape).to(dtype, copy=True)
+            for off, sz, shape, dtype in
+            zip(self.offsets, self.sizes, self.shapes, self.dtypes)))
 
     def flatten_stacked(self, tree: Params) -> torch.Tensor:
         """A tree whose leaves carry a leading client axis ``(K, ...)`` ->
@@ -98,10 +115,16 @@ class FlatLayout:
     def rows_to_deltas(self, rows, g_flat: torch.Tensor) -> torch.Tensor:
         """Client parameter rows (the sequential engine's list, or the
         batched engine's ``StackedRows``) -> stacked fp32 deltas
-        ``(R, padded)``."""
+        ``(R, padded)``, each row flattened into its place and the global
+        subtracted in place (no second ``(R, padded)`` buffer: at an LM's
+        size each row is the whole model)."""
         if isinstance(rows, list):
-            return torch.stack([self.flatten(r) for r in rows]) - g_flat[None]
-        return self.flatten_stacked(rows.tree) - g_flat[None]
+            out = torch.zeros((len(rows), self.padded), dtype=torch.float32,
+                              device=g_flat.device)
+            for i, r in enumerate(rows):
+                self.flatten(r, out=out[i])
+            return out.sub_(g_flat[None])
+        return self.flatten_stacked(rows.tree).sub_(g_flat[None])
 
     def block_meta(self, density: float) -> np.ndarray:
         """Per-block ``(valid, k)`` rows over the whole buffer, each leaf's

@@ -21,6 +21,17 @@ engine then groups by ``(OP, width)``, in the order the clients first
 appear; a chunk shares one mask, which broadcasts over the client axis
 like the params.  ``hetero=None`` is the homogeneous step, bit for bit.
 
+Both train VGG on image batches and every LM family on token batches
+(the VLM's patches and encdec's frames ride in the batch like any other
+key; only images are flipped).  Under the batched engine's ``vmap`` an
+LM's layers are not rematerialised (``models.layers.remat``), the
+flash-attention Functions fold the clients into their kernels' batch
+axis, and the SSD scan's run once a client (each client holds its own
+``A``, and a kernel call takes one); the MoE family is refused (its
+dispatch one-hots the routing choices, a host read, and scatters in
+place, neither of which vmap runs) and trains through the sequential
+engine.
+
 Both return ``(idxs, rows)``: the trained clients and their parameters, a
 list of per-client trees (sequential) or one ``StackedRows`` tree whose
 leaves carry a leading client axis (batched).  ``take_rows`` and
@@ -36,6 +47,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch.data.loader import FleetLoader
 from repro_torch.fl.flatbuf import Params
 from repro_torch.models.split_program import SplitProgram
@@ -65,13 +77,15 @@ class SequentialEngine:
         self.device = device
 
     def _batch(self, loader: FleetLoader, k: int, round_idx: int, it: int):
+        """Client ``k``'s next batch on the device, every key of it (VGG's
+        images and labels; an LM's tokens and labels, with the VLM's
+        patches or encdec's frames); only images are flipped."""
         batch = loader.next_batch(k)
-        images = batch["images"]
-        if self.augment:
-            images = flip_augment(images, self.seed, round_idx, k, it)
-        return {"images": torch.from_numpy(np.ascontiguousarray(images)
-                                           ).to(self.device),
-                "labels": torch.from_numpy(batch["labels"]).to(self.device)}
+        if self.augment and "images" in batch:
+            batch["images"] = flip_augment(batch["images"], self.seed,
+                                           round_idx, k, it)
+        return {key: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for key, v in batch.items()}
 
     def run_round(self, params: Params, loader: FleetLoader,
                   ops: Sequence[int], alive_idx: Sequence[int],
@@ -83,8 +97,8 @@ class SequentialEngine:
         for k in alive_idx:
             # each client trains its own copy, updated in place
             start = hetero.apply(params, k) if hetero is not None else params
-            p_k = [{n: v.detach().clone().requires_grad_()
-                    for n, v in layer.items()} for layer in start]
+            p_k = tree_map(lambda v: v.detach().clone().requires_grad_(),
+                           start)
             leaves = tree_leaves(p_k)
             masks = (tree_leaves(hetero.mask_tree(k)) if hetero is not None
                      else None)
@@ -98,8 +112,7 @@ class SequentialEngine:
                 with torch.no_grad():
                     for p, g in zip(leaves, grads):
                         p.sub_(lr_t * g)
-            out.append([{n: v.detach() for n, v in layer.items()}
-                        for layer in p_k])
+            out.append(tree_map(lambda v: v.detach(), p_k))
         return list(alive_idx), out
 
 
@@ -128,6 +141,13 @@ class BatchedEngine:
     def __init__(self, program: SplitProgram, local_iters: int, seed: int,
                  augment: bool, quantize: bool, device: torch.device,
                  max_group: int = 8):
+        if getattr(program.cfg, "moe", None) is not None:
+            # the MoE dispatch (models/layers.py moe_dispatch) one-hots the
+            # routing choices, which reads them on the host, and scatters
+            # into a fresh buffer in place: neither runs under vmap.  The
+            # sequential engine runs the family
+            raise not_ported("the batched fleet engine over the MoE family",
+                             "batched MoE")
         self.program = program
         self.local_iters = local_iters
         self.seed = seed
@@ -155,7 +175,7 @@ class BatchedEngine:
         per_iter = []
         for it in range(self.local_iters):
             nb = loader.next_batches(ks, pad_to=pad_to)       # (C, B, ...)
-            if self.augment:
+            if self.augment and "images" in nb:
                 imgs = np.stack([flip_augment(nb["images"][i], self.seed,
                                               round_idx, k, it)
                                  for i, k in enumerate(ks)])

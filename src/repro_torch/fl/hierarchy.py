@@ -88,22 +88,21 @@ def hierarchical_apply(
         # one edge reduces and applies through the flat step itself
         new_g, new_err = step(g_flat, deltas, weights, errors, masks=masks)
         return new_g, new_err, 1
+    # the parts are contiguous slices in survivor order: each edge reads
+    # views of the stacked rows (no copy of an LM-sized row)
     updates = []
     for e, pos in enumerate(parts):
-        idx = torch.as_tensor(pos, dtype=torch.int64, device=deltas.device)
+        sl = slice(int(pos[0]), int(pos[-1]) + 1)
         updates.append(EdgeAggregator(e, step).aggregate(
-            deltas[idx], [weights[i] for i in pos],
-            errors[idx] if errors is not None else None,
-            masks[idx] if masks is not None else None))
+            deltas[sl], [weights[i] for i in pos],
+            errors[sl] if errors is not None else None,
+            masks[sl] if masks is not None else None))
     dens = (torch.stack([u.den for u in updates])
             if updates[0].den is not None else None)
     new_g = root(g_flat, torch.stack([u.num for u in updates]),
                  [u.weight for u in updates], dens)
     new_err = None
     if updates[0].new_err is not None:
-        order = np.concatenate(parts)
-        inv = np.empty(len(order), np.int64)
-        inv[order] = np.arange(len(order))
-        new_err = torch.cat([u.new_err for u in updates])[
-            torch.as_tensor(inv, device=deltas.device)]
+        # the edges' rows, concatenated, are in survivor order
+        new_err = torch.cat([u.new_err for u in updates])
     return new_g, new_err, len(parts)

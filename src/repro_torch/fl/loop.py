@@ -172,16 +172,20 @@ class RoundClock:
     sync (``model_bytes * delta_density`` up, a quarter of that as int8,
     the full model down).  ``compute_scale`` (HeteroFL ``width**2`` a
     client) scales the compute and never the communication;
-    ``edge_transport`` charges the two-tier server's edge->root hop."""
+    ``edge_transport`` charges the two-tier server's edge->root hop.
+    ``seq`` is an LM's sequence length, which sizes its cut (None for
+    VGG)."""
 
     def __init__(self, program, fl: FLConfig, K: int, params,
                  sim: Optional[SimulatedCluster] = None,
                  transport: Optional[Transport] = None,
                  compute_scale: Optional[np.ndarray] = None,
-                 edge_transport: Optional[Transport] = None):
+                 edge_transport: Optional[Transport] = None,
+                 seq: Optional[int] = None):
         self.program = program
         self.fl = fl
         self.K = K
+        self.seq = seq
         self.sim = sim
         self.transport = transport
         self.edge_transport = edge_transport
@@ -197,9 +201,9 @@ class RoundClock:
         for k, op in enumerate(ops):
             t = 0.0
             if op < self.native_op:
-                up = self.program.cut_bytes(op, fl.batch_size,
+                up = self.program.cut_bytes(op, fl.batch_size, self.seq,
                                             quantize=fl.quantize_transfer)
-                down = self.program.cut_bytes(op, fl.batch_size)
+                down = self.program.cut_bytes(op, fl.batch_size, self.seq)
                 t += iters * self.transport.round_comm_time(
                     up, down, round_idx, k)
             up = self.model_bytes * fl.delta_density
@@ -245,14 +249,22 @@ class RoundClock:
 
 
 def _initial_params(program, fl: FLConfig, init_params, device):
-    """The run's starting weights on ``device``: ``init_params`` (numpy or
-    tensors) as fp32 copies, else drawn from the seed's generator."""
+    """The run's starting weights on ``device``: ``init_params`` (any
+    nested tree of numpy arrays or tensors, each container kept as its own
+    type) as fp32 copies, else ``program.init(seed, device)``."""
     if init_params is None:
-        return program.init(torch.Generator().manual_seed(fl.seed), device)
-    return [{k: (v.detach().to(device, torch.float32).clone()
-                 if isinstance(v, torch.Tensor) else
-                 torch.tensor(np.asarray(v, np.float32), device=device))
-             for k, v in layer.items()} for layer in init_params]
+        return program.init(fl.seed, device)
+    return tree_map(lambda v: (
+        v.detach().to(device, torch.float32).clone()
+        if isinstance(v, torch.Tensor) else
+        torch.tensor(np.asarray(v, np.float32), device=device)), init_params)
+
+
+def _seq_len(clients_data) -> Optional[int]:
+    """An LM fleet's sequence length (its clients' token rows); None for
+    VGG."""
+    first = clients_data[0]
+    return int(first["tokens"].shape[1]) if "tokens" in first else None
 
 
 def _error_state(fl: FLConfig, cohort: Optional[CohortSampler], K: int,
@@ -299,13 +311,20 @@ def run_federated(
     device=None,
     edge_transport: Optional[Transport] = None,
 ) -> Dict[str, np.ndarray]:
-    """Train ``cfg`` (a ``VGGConfig``) federated with per-round offloading.
+    """Train ``cfg`` federated with per-round offloading: a ``VGGConfig``
+    on image batches, or any ``ModelConfig`` with a split program on token
+    batches (``clients_data`` rows of ``tokens`` and ``labels``, plus the
+    VLM's ``patches`` or encdec's ``frames``; their sequence length sizes
+    the cut's bytes).
 
     ``device=None`` runs on the card and raises if none is visible; pass
-    ``device="cpu"`` for the CPU.  ``init_params`` (the reference's per-layer
-    list of dicts, numpy or tensors) starts the run from given weights;
-    by default they are drawn from ``torch.Generator().manual_seed(seed)``.
-    Returns the history: per-round accuracy, modelled round and comm times,
+    ``device="cpu"`` for the CPU.  ``init_params`` (the reference's params
+    tree, numpy or tensors) starts the run from given weights; by default
+    they are ``program.init(seed)`` (VGG's drawn from
+    ``torch.Generator().manual_seed(seed)``).
+    Returns the history: per-round eval metric (``accuracy``: accuracy for
+    VGG, the -CE loss at the native OP over the whole test set for an LM),
+    modelled round and comm times,
     per-device OPs and drop counts (clients outside the round's cohort
     count as dropped), the two-tier server's edge->root hop (``edge_time``,
     charged through ``edge_transport`` and added to ``round_time``; 0.0
@@ -365,7 +384,8 @@ def run_federated(
     clock = RoundClock(program, fl, K, params, sim=sim, transport=transport,
                        compute_scale=(hetero.compute_scale
                                       if hetero is not None else None),
-                       edge_transport=edge_transport)
+                       edge_transport=edge_transport,
+                       seq=_seq_len(clients_data))
     step = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
             if fused else None)
     root = get_root_step(layout) if fl.num_edges > 0 else None
@@ -429,6 +449,9 @@ def run_federated(
             if fused:
                 deltas = layout.rows_to_deltas(take_rows(rows, kept_pos),
                                                g_flat)
+                # the clients' params are in the deltas now: free them
+                # before the step
+                rows = None
                 if fl.num_edges > 0:
                     # the two-tier server: per-edge reduce, root apply
                     g_flat, new_err, edges_used = hierarchical_apply(

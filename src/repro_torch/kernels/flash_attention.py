@@ -16,8 +16,12 @@ comes out 0).
 With grad enabled and an input that requires it, the call goes through
 ``_FlashAttention``: the forward also keeps each row's log-sum-exp, and the
 backward is ``flash_attention_bwd`` (two kernels on the card, dq then
-dk/dv; ``attention_bwd_plain`` on the CPU), fp32 only.  The reference has
-no backward kernel: JAX differentiates its jnp attention.
+dk/dv; ``attention_bwd_plain`` on the CPU), fp32 only, called through a
+Function of its own (``_FlashAttentionBwd``).  Both Functions run under
+``torch.func`` (``vmap(grad(...))``, the batched fleet engine): each has a
+``vmap`` rule that folds the clients into the batch axis B, so one launch
+serves every client.  The reference has no backward kernel: JAX
+differentiates its jnp attention.
 """
 from __future__ import annotations
 
@@ -218,22 +222,81 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, causal, window, softcap, want_lse=True)
 
 
+def _fold(t: torch.Tensor, dim, n: int) -> torch.Tensor:
+    """A vmapped operand ``t`` (``dim``: its vmapped axis, None when it is
+    not batched) as one plain tensor whose axis 0 is the ``n`` examples'
+    batch axes laid end to end: ``(n * B, ...)``."""
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``_fold``'s inverse on a result: ``(n * B, ...)`` -> ``(n, B,
+    ...)``, the vmapped axis first."""
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Attention with its gradient: saves q, k, v, the output and the
-    rows' log-sum-exp; the backward is ``flash_attention_bwd``."""
+    """Attention with its gradient: returns the output and the rows'
+    log-sum-exp (not differentiable), saves q, k, v and both; the backward
+    is ``_FlashAttentionBwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        out, lse = _forward(q, k, v, causal, window, softcap, want_lse=True)
+    def forward(q, k, v, causal, window, softcap):
+        return _forward(q, k, v, causal, window, softcap, want_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, softcap)
-        return out
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.args)
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, do,
+                                              *ctx.args)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        """The vmapped clients folded into B: one call over ``(n * B, S,
+        H, D)``."""
+        n = info.batch_size
+        q, k, v = (_fold(t, d, n) for t, d in zip((q, k, v),
+                                                       in_dims[:3]))
+        out, lse = _FlashAttention.apply(q, k, v, causal, window, softcap)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """``flash_attention_bwd`` as a Function, so that ``torch.func`` runs
+    it through its ``vmap`` rule (the clients folded into B) rather than
+    batching the kernels' raw pointers.  No second derivative."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, softcap):
+        return flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                   softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no second "
+                                  "derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, softcap):
+        n = info.batch_size
+        args = [_fold(t, d, n)
+                for t, d in zip((q, k, v, o, lse, do), in_dims[:6])]
+        grads = _FlashAttentionBwd.apply(*args, causal, window, softcap)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -249,7 +312,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: the gradient is float32 "
                              f"only (training in this repo is fp32); got "
                              f"{q.dtype}")
-        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)[0]
     return _forward(q, k, v, causal, window, softcap, want_lse=False)[0]
 
 

@@ -19,8 +19,14 @@ With grad enabled and an input that requires it, ``ssd_scan`` goes
 through ``_SSDScan``, whose backward is ``ssd_scan_bwd``: on a CUDA tensor
 the hand-written backward in the same source (``LAUNCHES["ssd_scan_bwd"]``
 counts its call once), on a CPU tensor ``ssd_scan_bwd_plain``, the same
-passes in torch ops.  The gradient is float32 only, as the forward.  The
-reference has no backward kernel: JAX differentiates its jnp
+passes in torch ops, called through a Function of its own
+(``_SSDScanBwd``).  The gradient is float32 only, as the forward.  Both
+Functions run under ``torch.func`` (``vmap(grad(...))``, the batched fleet
+engine) through ``vmap`` rules that call the Function once per vmapped
+client: a kernel call takes one ``A`` for its whole batch and sums ``dA``
+over it, while each client holds its own ``A`` (a parameter) and needs its
+own ``dA``, so the clients cannot share a call as flash attention's do.
+The reference has no backward kernel: JAX differentiates its jnp
 ``ssd_chunked``.
 """
 from __future__ import annotations
@@ -290,28 +296,71 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state):
     return y, final
 
 
+def _per_example(fn, n, in_dims, args):
+    """``fn`` once per vmapped example ``i`` of ``args`` (a tensor's
+    ``select(dim, i)``, an unbatched one or a non-tensor as it is), the
+    results stacked on a new axis 0 (a None result stays None)."""
+    outs = [fn(*[a if d is None else a.select(d, i)
+                 for a, d in zip(args, in_dims)]) for i in range(n)]
+    res = tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
+    return res, tuple(None if r is None else 0 for r in res)
+
+
 class _SSDScan(torch.autograd.Function):
     """The SSD scan with its gradient: saves the inputs alone (the
     backward recomputes the chunk scores, cumsums and entering states, so
-    a remat layer keeps nothing more); the backward is ``ssd_scan_bwd``,
+    a remat layer keeps nothing more); the backward is ``_SSDScanBwd``,
     its ``dfinal`` None when the final state is unused."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, chunk, init_state):
+    def forward(x, dt, A, Bm, Cm, chunk, init_state):
+        return _forward(x, dt, A, Bm, Cm, chunk, init_state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, Bm, Cm, chunk, init_state = inputs
         ctx.set_materialize_grads(False)
-        y, final = _forward(x, dt, A, Bm, Cm, chunk, init_state)
         ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
         ctx.chunk = chunk
-        return y, final
 
     @staticmethod
     def backward(ctx, dy, dfinal):
         x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, ddt, dA, dBm, dCm, dinit = ssd_scan_bwd(
+        dx, ddt, dA, dBm, dCm, dinit = _SSDScanBwd.apply(
             x, dt, A, Bm, Cm, ctx.chunk, init_state, dy, dfinal)
         return dx, ddt, dA, dBm, dCm, None, dinit
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        """One call a vmapped client: each holds its own ``A`` (a
+        parameter), and a kernel call takes one ``A`` for its batch."""
+        return _per_example(_SSDScan.apply, info.batch_size, in_dims, args)
+
+
+class _SSDScanBwd(torch.autograd.Function):
+    """``ssd_scan_bwd`` as a Function, so that ``torch.func`` runs it
+    through its ``vmap`` rule (one call a client: each needs its own
+    ``dA``) rather than batching the kernel's raw pointers.  No second
+    derivative."""
+
+    @staticmethod
+    def forward(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
+        return ssd_scan_bwd(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the SSD scan has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_example(_SSDScanBwd.apply, info.batch_size, in_dims,
+                            args)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

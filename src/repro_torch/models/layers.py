@@ -436,8 +436,13 @@ def moe_aux_loss(cfg: ModelConfig, p: Params, x: torch.Tensor
 def remat(enabled: bool, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward instead of
     kept (``torch.utils.checkpoint``, non-reentrant) when ``enabled`` and
-    autograd is recording; else a plain call (serving, and ``no_grad``)."""
-    if enabled and torch.is_grad_enabled():
+    autograd is recording; else a plain call (serving, and ``no_grad``).
+    Under a ``torch.func`` transform (the batched fleet engine's
+    ``vmap(grad(...))``) it is a plain call too: ``torch.func`` refuses the
+    saved-tensor hooks that checkpointing runs on.  That keeps the
+    activations (memory), and computes the same values."""
+    if enabled and torch.is_grad_enabled() and \
+            not torch._C._are_functorch_transforms_active():
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
     return fn(*args)

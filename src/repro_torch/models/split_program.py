@@ -20,9 +20,11 @@ straight-through gradient.  An LM's stages rematerialise their layers in
 the backward when ``cfg.remat``.
 
 ``width_mask(params, w)`` is a HeteroFL client's static 0/1 subnetwork
-(``fl/hetero.py``): for VGG the first ``ceil(w * C)`` channels of every
-hidden layer, as tensors on the params' device with their dtypes.  The
-generic masks of the LM families are not ported.
+(``fl/hetero.py``), as tensors on the params' device with their dtypes:
+for VGG the first ``ceil(w * C)`` channels of every hidden layer; for the
+LM families the first ``ceil(w * n)`` entries of every axis whose size is
+one of the family's ``width_dims`` (the reference's rule, quirks
+included).
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.vgg import VGGConfig
 from repro_torch.core import costmodel as cm
@@ -58,8 +59,8 @@ class SplitProgram:
         self.cfg = cfg
 
     def init(self, generator=None, device=None) -> Params:
-        """Random params on ``device`` (``None``: the card), from a
-        ``torch.Generator`` (VGG) or an integer seed (the LM families)."""
+        """Random params on ``device`` (``None``: the card) from an integer
+        seed (VGG also takes a ``torch.Generator``)."""
         raise NotImplementedError
 
     def client_forward(self, params: Params, batch: Dict, op: int):
@@ -112,21 +113,58 @@ class SplitProgram:
         return max(1, int(math.ceil(float(width) * n)))
 
     def width_dims(self) -> frozenset:
-        """Axis sizes the generic width mask slices (the reference's LM
-        families)."""
-        raise not_ported("width_dims (generic width masks)", "LM families")
+        """Axis sizes that scale with the model's width (hidden dims): any
+        param axis whose length is in this set is sliced by
+        ``width_mask``.  Each family says which."""
+        raise NotImplementedError
 
     def width_mask(self, params: Params, width: float) -> Params:
         """The static 0/1 mask tree of a ``width``-fraction client, nested
-        across widths (a narrower mask is a subset of a wider one).  The
-        generic version over ``width_dims`` is the LM families'."""
-        raise not_ported("width_mask (generic width masks)", "LM families")
+        across widths (a narrower mask is a subset of a wider one), in the
+        params' structure, each mask a tensor of its leaf's dtype on its
+        device.  Every axis whose size is in ``width_dims()`` keeps its
+        first ``ceil(width * n)`` entries, whatever the axis means (an
+        axis that merely has a hidden dim's size is sliced too, as in the
+        reference), except axis 0 of a leaf under a dict key containing
+        ``"layers"`` (the stacked layer axis: ``layers``, ``enc_layers``,
+        the hybrid's ``layers.slots``; the hybrid's ``rem`` list holds
+        unstacked layers, so its axis 0 is sliced).  ``width=1.0`` gives
+        all ones."""
+        if not 0.0 < width <= 1.0:
+            raise ValueError(f"width={width} outside (0, 1]")
+        dims = self.width_dims()
+
+        def one(leaf, stacked):
+            m = np.ones(tuple(leaf.shape), np.float32)
+            for ax in range(1 if stacked else 0, leaf.dim()):
+                n = leaf.shape[ax]
+                if n in dims:
+                    keep = self._width_keep(n, width)
+                    if keep < n:
+                        sl = [slice(None)] * leaf.dim()
+                        sl[ax] = slice(keep, None)
+                        m[tuple(sl)] = 0.0
+            return torch.tensor(m, dtype=leaf.dtype, device=leaf.device)
+
+        def walk(tree, stacked):
+            if isinstance(tree, dict):
+                return {k: walk(v, stacked or "layers" in str(k))
+                        for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(walk(t, stacked) for t in tree)
+            return one(tree, stacked)
+
+        return walk(params, False)
 
 
 class VGGSplitProgram(SplitProgram):
     family = "vgg"
 
     def init(self, generator=None, device=None) -> Params:
+        """Random params from ``generator``: an integer seed draws from
+        ``torch.Generator().manual_seed(seed)``."""
+        if isinstance(generator, int):
+            generator = torch.Generator().manual_seed(generator)
         return vgg_model.init(self.cfg, generator, device)
 
     def client_forward(self, params, batch, op):
@@ -245,6 +283,12 @@ class LMSplitProgram(SplitProgram):
         return lm_split.cut_bytes(self.cfg, batch, self._eff_seq(seq),
                                   bytes_per_el, quantize)
 
+    def width_dims(self) -> frozenset:
+        cfg = self.cfg
+        dims = {cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim}
+        dims.discard(cfg.vocab_size)    # vocab axes are never width-scaled
+        return frozenset(d for d in dims if d > 1)
+
 
 # =============================================================================
 # SSM (Mamba-2): the same stacked cut, attention-free blocks
@@ -264,6 +308,15 @@ class SSMSplitProgram(LMSplitProgram):
                                      self.cfg.num_layers)
         hidden = L.rms_norm(x, params["final_norm"])
         return L.chunked_ce_loss(hidden, params["unembed"], batch["labels"])
+
+    def width_dims(self) -> frozenset:
+        # the residual stream and the out-projection's input; the
+        # in-projection's segments (z|x|B|C|dt) and the per-head params
+        # stay full width
+        d_inner = ssm_model.dims(self.cfg)[0]
+        dims = {self.cfg.d_model, d_inner}
+        dims.discard(self.cfg.vocab_size)
+        return frozenset(d for d in dims if d > 1)
 
 
 # =============================================================================
@@ -314,6 +367,14 @@ class HybridSplitProgram(LMSplitProgram):
         units = [per_layer[g * P:(g + 1) * P].sum() for g in range(G)]
         units[-1] += per_layer[G * P:].sum()    # the remainder: last unit
         return np.asarray(units, np.float64)
+
+    def width_dims(self) -> frozenset:
+        cfg = self.cfg
+        lru = (cfg.rglru.lru_width or cfg.d_model) if cfg.rglru \
+            else cfg.d_model
+        dims = {cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim, lru}
+        dims.discard(cfg.vocab_size)
+        return frozenset(d for d in dims if d > 1)
 
 
 # =============================================================================

@@ -161,6 +161,26 @@ LM_ENTRY_POINTS = {
         "          '--batch', '1', '--seq', '16', '--clients', '2',\n"
         "          '--quantize-transfer'], device='cpu')\n"
         "assert p['embed'].shape == (4096, 320)\n"),
+    "run_federated(_async) over LM configs (widths, edges, batched)": (
+        "import numpy as np\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.data import split_clients, token_dataset\n"
+        "from repro_torch.fl.async_loop import run_federated_async\n"
+        "from repro_torch.fl.loop import FLConfig, run_federated\n"
+        "for arch in ('qwen3-0.6b',):\n"
+        "    cfg = get_smoke_config(arch)\n"
+        "    data = token_dataset(12, 16, cfg.vocab_size, seed=0)\n"
+        "    clients = split_clients(data, 3)\n"
+        "    kw = dict(rounds=1, local_iters=1, batch_size=2, augment=False,\n"
+        "              mode='sfl', static_op=1, quantize_transfer=True,\n"
+        "              delta_density=0.5, quantize_deltas=True)\n"
+        "    h = run_federated(cfg, clients, clients[0], FLConfig(\n"
+        "        engine='batched', client_widths=(1.0, 0.5, 0.25),\n"
+        "        num_edges=2, **kw), device='cpu')\n"
+        "    a = run_federated_async(cfg, clients, clients[0],\n"
+        "                            FLConfig(**kw), device='cpu')\n"
+        "    assert np.isfinite(h['accuracy']).all()\n"
+        "    assert np.isfinite(a['accuracy']).all()\n"),
 }
 
 
@@ -211,5 +231,7 @@ def test_the_new_training_modules_are_in_the_import_check():
                  "repro_torch.fl.hierarchy", "repro_torch.models.hybrid",
                  "repro_torch.models.encdec", "repro_torch.models.split",
                  "repro_torch.models.split_program",
-                 "repro_torch.launch.train", *DRIVERS):
+                 "repro_torch.launch.train",
+                 "repro_torch.launch.generic_split_fl",
+                 "repro_torch.launch.train_lm_fedadapt", *DRIVERS):
         assert name in _module_names()
