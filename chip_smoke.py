@@ -256,6 +256,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once per surviving client row).  Printed with the card's name and power
    limit: wall seconds a round, the server step's seconds, peak memory,
    the flat buffer's lanes.
+5h. federated training published into a live server: phase 5g's
+   qwen3-0.6b set-up (top-k 0.1 EF kept) through ``run_federated_async``
+   (a buffer of K = 3, 1 local iteration, 3 aggregations) whose
+   ``on_aggregate`` hook publishes each aggregation into a ``ParamStore``
+   (a copy of the flat global), swaps it into a live ``ServeEngine`` (4
+   slots, prompts padded to 4096, 4608 positions) and serves 4 seeded
+   requests (prompts of 600-4000 tokens, 16 generated) through
+   ``serve(..., store=)``: the served versions are [1, 2, 3]; every
+   request's tokens equal ``reference_decode``'s on the adopted params up
+   to the first top-2 margin below 1e-3; launches exactly the history's
+   and the engine's prefills (the flash forward once a layer a prefill);
+   OPs, modelled times, comm and drops equal to the CPU replay; the
+   engine's final params bitwise the run's; a second ``maybe_swap``
+   without a publication returns False; a fresh engine on the adopted
+   params gives the live engine's ``last_logits`` bit for bit; a
+   publication from a second stream on a second thread, still copying
+   when the engine swaps, is adopted whole.  Printed with the card's name
+   and power limit: each aggregation's wall seconds and its hook's, each
+   ``publish_flat``'s and ``maybe_swap``'s seconds, the prefill seconds
+   and decode ms a step under training's memory pressure, peak memory.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -276,7 +296,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and int8 deltas: OPs and times exact, the metric and params within the
    discrete-step bounds) and plain through the sequential engine, and
    mamba2's smoke config through the batched engine (the metric within
-   1e-5 relative, the params within 1e-4 of each leaf's max).
+   1e-5 relative, the params within 1e-4 of each leaf's max); the
+   mixtral-8x22b and arctic-480b smoke configs through the batched engine
+   at capacity factor 1.25: plain (the metric and every lane within
+   1e-5, and the eval passes dropping the same (token, choice) pairs on
+   both), and each with the int8 cut, top-k 0.5 and int8 deltas (the
+   discrete-step bounds).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf,
    both also at one qwen3-0.6b flat row of phase 5g: top-k over (1,
@@ -289,8 +314,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    attention with gemma2's softcap and on recurrentgemma-9b's local layer
    (window 2048, which binds; MQA at D = 256), and
    ``scaled_dot_product_attention`` on gemma2's global layer without the
-   softcap, mixtral's layer 0 (D = 128, GQA 6) and whisper-base's encoder
-   layer (D = 64, no causality): yardsticks the port never calls; no
+   softcap, mixtral's layer 0 (D = 128, GQA 6), whisper-base's encoder
+   layer (D = 64, no causality) and qwen3-0.6b's layer 0 of a training
+   step (S = 4096, 16 over 8 heads of 128, causal, the forward writing
+   its lse as training's does): yardsticks the port never calls; no
    PyTorch call computes
    the SSD scan); the flash backward's two kernels and the whole backward
    at qwen3-0.6b's layer 0 (S = 4096, a real step's dO) and gemma2-2b's
@@ -323,6 +350,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -621,6 +649,30 @@ FED_MAMBA_LAYERS, FED_MAMBA_OP = 12, 6
 # holds the same bounds)
 FED_DISCRETE_METRIC_REL, FED_DISCRETE_PARAMS_REL = 5e-4, 0.25
 FED_LANE_REL, FED_TREE_SHARE = 1e-4, 0.05
+# phase 6's batched MoE runs (mixtral-8x22b and arctic-480b smoke configs
+# at their capacity factor 1.25): the plain runs' metric and every param
+# lane within FED_MOE_PLAIN_REL (relative; of the leaf's max); the runs
+# with the int8 cut, top-k 0.5 and int8 deltas take the discrete-step
+# bounds.  Card and CPU both run the batched engine, so both take silu's
+# backward from torch.func.grad: the ulp by which the port's two engines
+# part on the CPU (tests/test_torch_lm_federated_moe.py) is not in play
+FED_MOE_PLAIN_REL = 1e-5
+# phase 5h, federated training published into a live server: phase 5g's
+# qwen3-0.6b set-up (K = 3, rows of 4096 tokens, batch 1, sfl at OP 14,
+# the int8 cut, top-k HOT_DENSITY with error feedback, int8 deltas, the
+# fused step, the sequential engine) through run_federated_async with a
+# buffer of K and 1 local iteration, HOT_AGGS aggregations; each is
+# published into a ParamStore and adopted by a live ServeEngine (HOT_SLOTS
+# slots, prompts padded to HOT_MAX_PROMPT, HOT_MAX_SEQ positions), which
+# then serves HOT_TRAFFIC's seeded requests (seed: the version) through
+# serve(..., store=).  The side-stream probe sleeps HOT_SIDE_SLEEP cycles
+# (~60 ms) on the publisher's stream before its copy, so the engine's swap
+# is enqueued while the copy is still pending
+HOT_AGGS, HOT_DENSITY = 3, 0.1
+HOT_SLOTS, HOT_MAX_PROMPT, HOT_MAX_SEQ = 4, 4096, 4608
+HOT_TRAFFIC = dict(rate=4.0, n_requests=4, prompt_lens=(600, 2000, 4000),
+                   gen_lens=(16,))
+HOT_SIDE_SLEEP = 100_000_000
 
 
 def fail(msg: str) -> None:
@@ -879,7 +931,8 @@ def expected_launches(h, fl, native_op, n_leaves):
             "flash_attention_bwd_dkdv": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
-def expected_async_launches(h, fl, native_op, K, resumed=False):
+def expected_async_launches(h, fl, native_op, K, resumed=False, cfg=None,
+                            prefills=0):
     """Each kernel's launches in one ``run_federated_async`` run on live
     links (the sequential engine, an ``sfl`` static OP, the fused server
     step), from its history: the in-flight set of C clients is dispatched
@@ -887,7 +940,12 @@ def expected_async_launches(h, fl, native_op, K, resumed=False):
     re-dispatches its ``buffer_size`` reporters, every dispatch running
     the int8 cut once per local iteration below the native OP; each
     aggregation applies its reports less the ``max_staleness`` drops, one
-    top-k and one int8 round trip a row."""
+    top-k and one int8 round trip a row.  With ``cfg`` (an LM's config)
+    also its sequence mixer's kernels: every local step runs the forward
+    twice a layer (the forward and its remat recompute) and the backward
+    once, each aggregation's eval pass the forward once a layer, and each
+    of ``prefills`` engine prefills (phase 5h's live server) the forward
+    once a layer."""
     import numpy as np
     assert fl.mode == "sfl" and fl.engine == "sequential" \
         and fl.server_step == "fused", "a static-OP sequential/fused run"
@@ -900,10 +958,19 @@ def expected_async_launches(h, fl, native_op, K, resumed=False):
            if fl.quantize_transfer and fl.static_op < native_op else 0)
     rows = int(sum(buf - int(d) for d in h["dropped"]))
     quant = cut + (rows if fl.quantize_deltas else 0)
-    return {"quantize": quant, "dequantize": quant,
-            "topk_compress": rows if fl.delta_density < 1 else 0,
-            "flash_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkdv": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    out = {"quantize": quant, "dequantize": quant,
+           "topk_compress": rows if fl.delta_density < 1 else 0,
+           "flash_attention": 0, "flash_attention_bwd_dq": 0,
+           "flash_attention_bwd_dkdv": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    if cfg is not None:
+        L, steps = cfg.num_layers, fl.local_iters * dispatched
+        fwd, bwd = 2 * L * steps + L * (n_agg + prefills), L * steps
+        if cfg.family == "ssm":
+            out.update(ssd_scan=fwd, ssd_scan_bwd=bwd)
+        else:
+            out.update(flash_attention=fwd, flash_attention_bwd_dq=bwd,
+                       flash_attention_bwd_dkdv=bwd)
+    return out
 
 
 def vgg5_main_path(torch, dev, launches, reset_launches, engine="sequential",
@@ -3928,6 +3995,295 @@ def federated_lm_path(torch, dev, launches, reset_launches, card=""):
     return out
 
 
+def side_stream_publication(torch, engine, store, src):
+    """Phase 5h's stream probe: a publisher thread makes its own stream
+    wait for ``src`` (written on the default stream), sleeps it
+    HOT_SIDE_SLEEP cycles, and publishes ``src`` from it (the flatten runs
+    there); the engine then swaps on the default stream at once, while the
+    copy is still pending (the probe fails if it is not, since the swap
+    would then prove nothing).  The adopted params must be ``src`` bit for
+    bit.  Returns the probe's record."""
+    from repro_torch.tree import tree_leaves
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    published = torch.cuda.Event()
+    version = store.version
+
+    def publish():
+        with torch.cuda.stream(side):
+            side.wait_stream(main)
+            torch.cuda._sleep(HOT_SIDE_SLEEP)
+            store.publish(src)
+            published.record(side)
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=publish)
+    thread.start()
+    thread.join(timeout=60)
+    if thread.is_alive() or store.version != version + 1:
+        fail("side-stream publication: the publisher thread did not finish")
+    pending = not published.query()
+    if not pending:
+        fail("side-stream publication: the copy had finished before the "
+             "swap (a longer sleep is needed for the probe to race)")
+    if not engine.maybe_swap(store):
+        fail("side-stream publication: the engine did not swap")
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(engine.params), tree_leaves(src)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not same:
+        fail("side-stream publication: the engine adopted params that "
+             "differ from the publication's source")
+    print(f"side-stream publication: published from a second stream on a "
+          f"second thread, the copy still pending when the engine swapped; "
+          f"the adopted params are the source's bit for bit ({wall:.3f} s "
+          f"with the {HOT_SIDE_SLEEP:,}-cycle sleep)", flush=True)
+    return {"copy_pending_at_swap": pending, "bitwise": same,
+            "wall_s": wall, "version": engine.params_version}
+
+
+def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
+    """Phase 5h: federated training published into a live server.
+    ``run_federated_async`` over qwen3-0.6b at full width and depth (phase
+    5g's set-up, a buffer of K, 1 local iteration, HOT_AGGS aggregations)
+    with an ``on_aggregate`` hook that publishes each aggregation into a
+    ``ParamStore`` (``on_aggregate``: a copy of the flat global), swaps it
+    into a live ``ServeEngine`` (``maybe_swap``) and serves HOT_TRAFFIC's
+    requests through ``serve(..., store=)``.  Checked: the served versions
+    are 1..HOT_AGGS; after each swap every request's tokens equal
+    ``reference_decode``'s on the adopted params up to the first top-2
+    margin below MARGIN; the run's launches are exactly its history's
+    (``expected_async_launches``: training, eval passes and the engine's
+    prefills; the checks' kernel calls are not counted); OPs, modelled
+    times, comm and drops equal the CPU replay (round times within
+    1e-12); after the run the engine's params are ``hist["params"]`` bit
+    for bit, a ``maybe_swap`` without a publication returns False, a fresh
+    engine on the same params given the last aggregation's requests gives
+    the live engine's ``last_logits`` bit for bit at every step, and a
+    publication from a side stream is adopted whole
+    (``side_stream_publication``).  Printed with ``card``: the wall seconds
+    of each aggregation and of its hook (publish, swap, serve), each
+    publication's and swap's seconds, prefill seconds and decode ms a step
+    under training's memory pressure, and the peak GiB.  The oracle check
+    is no part of training and serving: ``aggregation_wall_s`` and
+    ``peak_memory_gib`` leave it out, ``aggregation_wall_with_check_s`` and
+    ``peak_memory_with_check_gib`` keep it.  Returns the record."""
+    import numpy as np
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.fl.async_loop import run_federated_async
+    from repro_torch.fl.loop import FLConfig
+    from repro_torch.serving import (ParamStore, ServeCosts, ServeEngine,
+                                     TrafficGenerator, reference_decode,
+                                     serve)
+    from repro_torch.tree import tree_leaves, tree_map
+    free_card(torch)
+    fl = FLConfig(rounds=HOT_AGGS, local_iters=1, batch_size=1, lr=FED_LR,
+                  augment=False, mode="sfl", static_op=FED_OP,
+                  quantize_transfer=True, delta_density=HOT_DENSITY,
+                  quantize_deltas=True, seed=0)
+    program, clients, test, links, replay = fed_lm_setup(cfg, fl, FED_K)
+    sim, transport, _ = links()
+    torch.cuda.reset_peak_memory_stats()
+    init = program.init(fl.seed, dev)
+    store = ParamStore(program.flat_layout(init))
+    engine = ServeEngine(cfg, init, slots=HOT_SLOTS,
+                         max_prompt=HOT_MAX_PROMPT, max_seq=HOT_MAX_SEQ)
+    del init
+    costs = ServeCosts(prefill=1.0, decode=0.1)
+    rec = {"publish_s": [], "swap_s": [], "hook_s": [], "serve_s": [],
+           "check_s": [], "prefill_s": [], "decode_step_s": [],
+           "served_versions": [], "tokens_compared": 0, "tokens_total": 0,
+           "engine_prefills": 0}
+    step_logits = []
+    peaks = {"train_serve": 0, "with_check": 0}
+
+    def synced(fn, log, logits=False):
+        def run(*a, **kw):
+            active = engine.active.copy()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append(time.perf_counter() - t)
+            if logits:   # the rows of the slots that were decoding
+                step_logits.append(engine.last_logits[active])
+            return r
+        return run
+    engine.submit = synced(engine.submit, rec["prefill_s"])
+    engine.step = synced(engine.step, rec["decode_step_s"], logits=True)
+
+    def requests_of(version):
+        return TrafficGenerator(vocab_size=cfg.vocab_size, seed=version,
+                                **HOT_TRAFFIC).generate()
+
+    def oracle_check(version, res):
+        """Each request's tokens against ``reference_decode`` on the
+        engine's adopted params, up to the first margin below MARGIN."""
+        for r in res["requests"]:
+            if r.tokens is None or len(r.tokens) != r.gen:
+                fail(f"hotswap v{version}: request {r.rid} gave {r.tokens}")
+            ref, margins = reference_decode(cfg, engine.params, r.prompt,
+                                            r.gen, return_margins=True)
+            n = 0
+            for i in range(r.gen):
+                if margins[i] < MARGIN:
+                    break
+                if r.tokens[i] != ref[i]:
+                    fail(f"hotswap v{version}: request {r.rid} token {i} is "
+                         f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
+                         f"{margins[i]:.4g})")
+                n += 1
+            rec["tokens_compared"] += n
+            rec["tokens_total"] += r.gen
+            print(f"hotswap v{version} request {r.rid}: prompt "
+                  f"{len(r.prompt)}, {n} of {r.gen} tokens equal the "
+                  f"oracle's (min margin {min(margins):.3g})", flush=True)
+
+    def hook(version, params, g_flat=None):
+        t_hook = time.perf_counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.on_aggregate(version, params, g_flat=g_flat)
+        torch.cuda.synchronize()
+        rec["publish_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        swapped = engine.maybe_swap(store)
+        torch.cuda.synchronize()
+        rec["swap_s"].append(time.perf_counter() - t0)
+        if not swapped or engine.params_version != version:
+            fail(f"hotswap: aggregation {version} not adopted (swapped "
+                 f"{swapped}, serving version {engine.params_version})")
+        rec["served_versions"].append(engine.params_version)
+        requests = requests_of(version)
+        step_logits.clear()
+        t0 = time.perf_counter()
+        res = serve(engine, requests, costs, store=store)
+        rec["serve_s"].append(time.perf_counter() - t0)
+        rec["engine_prefills"] += len(requests)
+        if res["swaps"]:
+            fail(f"hotswap v{version}: serve swapped {res['swaps']} with no "
+                 f"new publication")
+        # the check is no part of training and serving: its seconds come
+        # off the aggregation's wall, and its memory off the peak
+        peaks["train_serve"] = max(peaks["train_serve"],
+                                   torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        quiet_launches(lambda: oracle_check(version, res))
+        rec["check_s"].append(time.perf_counter() - t0)
+        peaks["with_check"] = max(peaks["with_check"],
+                                  torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        rec["last_logits"] = list(step_logits)
+        rec["hook_s"].append(time.perf_counter() - t_hook)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    h = run_federated_async(cfg, clients, test, fl, sim=sim,
+                            transport=transport, on_aggregate=hook,
+                            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    last = torch.cuda.max_memory_allocated()
+    peak = max(peaks["train_serve"], last) / 2**30
+    peak_with_check = max(peaks["with_check"], last) / 2**30
+    want = expected_async_launches(h, fl, program.native_op, FED_K, cfg=cfg,
+                                   prefills=rec["engine_prefills"])
+    print(f"hotswap-qwen3-0.6b: launches {counts} (expected from its "
+          f"history and {rec['engine_prefills']} engine prefills: {want})",
+          flush=True)
+    if counts != want:
+        fail(f"hotswap-qwen3-0.6b: launches {counts}, its history and "
+             f"prefills need {want}")
+    if rec["served_versions"] != list(range(1, HOT_AGGS + 1)):
+        fail(f"hotswap: served versions {rec['served_versions']}")
+    if rec["tokens_compared"] < rec["tokens_total"] // 2:
+        fail(f"hotswap: only {rec['tokens_compared']} of "
+             f"{rec['tokens_total']} tokens compared")
+    rep = replay(h["params"])
+    for key in ("ops", "times", "comm_time", "dropped"):
+        if not np_equal(h[key], rep[key]):
+            fail(f"hotswap: {key} {h[key]} vs the CPU replay's {rep[key]}")
+    if not np.allclose(h["round_time"], rep["round_time"], rtol=1e-12,
+                       atol=0) or (h["staleness"] != 0).any():
+        fail(f"hotswap: round times {h['round_time']} vs the replay's "
+             f"{rep['round_time']}, staleness {h['staleness']}")
+    if not np.all(np.isfinite(h["accuracy"])):
+        fail(f"hotswap: eval metric {h['accuracy']}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(engine.params), tree_leaves(h["params"]))):
+        fail("hotswap: the engine's final params differ from the run's")
+    if engine.maybe_swap(store):
+        fail("hotswap: maybe_swap without a new publication swapped")
+    del h["params"]
+    print(f"hotswap: served versions {rec['served_versions']}; "
+          f"{rec['tokens_compared']} of {rec['tokens_total']} tokens "
+          f"compared, all equal; the engine's final params are the run's "
+          f"bit for bit; a second maybe_swap returns False; OPs "
+          f"{h['ops'].tolist()}, modelled times, comm and drops equal to "
+          f"the CPU replay", flush=True)
+
+    # a fresh engine on the same params, the last aggregation's requests;
+    # the rows of the decoding slots compared (an idle slot decodes what
+    # its last occupant left, which differs between the two engines)
+    fresh = ServeEngine(cfg, engine.params, slots=HOT_SLOTS,
+                        max_prompt=HOT_MAX_PROMPT, max_seq=HOT_MAX_SEQ)
+    fresh_logits = []
+    step = fresh.step
+
+    def fresh_step():
+        active = fresh.active.copy()
+        out = step()
+        fresh_logits.append(fresh.last_logits[active])
+        return out
+    fresh.step = fresh_step
+    quiet_launches(lambda: serve(fresh, requests_of(HOT_AGGS), costs))
+    live = rec.pop("last_logits")
+    if len(live) != len(fresh_logits) or not all(
+            np.array_equal(a, b) for a, b in zip(live, fresh_logits)):
+        fail(f"hotswap: the live engine's last_logits differ from a fresh "
+             f"engine's on the same params ({len(live)} and "
+             f"{len(fresh_logits)} steps)")
+    print(f"hotswap: a fresh ServeEngine on the adopted params, given the "
+          f"same {HOT_TRAFFIC['n_requests']} requests, gives the live "
+          f"engine's last_logits (the decoding slots' rows) bit for bit at "
+          f"all {len(live)} decode steps", flush=True)
+    del fresh, fresh_logits, live
+
+    src = tree_map(lambda p: p * 1.5, engine.params)
+    rec["side_stream"] = side_stream_publication(torch, engine, store, src)
+    del src
+
+    walls_with_check = [float(t) for t in h["wall_s"]]
+    walls = [t - c for t, c in zip(walls_with_check, rec["check_s"])]
+    out = {"launches": counts, "expected_launches": want,
+           "ops": h["ops"].tolist(), "metric": h["accuracy"].tolist(),
+           "round_time_model_s": h["round_time"].tolist(),
+           "aggregation_wall_s": walls,
+           "aggregation_wall_with_check_s": walls_with_check, "wall_s": wall,
+           "peak_memory_gib": peak,
+           "peak_memory_with_check_gib": peak_with_check,
+           "params": count_params(engine.params),
+           "flat_lanes": store.layout.padded, "top_k_density": HOT_DENSITY}
+    out.update(rec)
+    print(f"hotswap-qwen3-0.6b ({card}): wall per aggregation, train and "
+          f"serve, {[round(t, 3) for t in walls]} s (with the oracle check "
+          f"{[round(t, 3) for t in walls_with_check]}; the check "
+          f"{[round(t, 3) for t in rec['check_s']]}); the hook without the "
+          f"check (publish, swap, serve) "
+          f"{[round(t - c, 3) for t, c in zip(rec['hook_s'], rec['check_s'])]}"
+          f" s; "
+          f"publish_flat {[round(t * 1e3, 2) for t in rec['publish_s']]} ms, "
+          f"maybe_swap {[round(t * 1e3, 2) for t in rec['swap_s']]} ms; "
+          f"prefill (padded to {HOT_MAX_PROMPT}) median "
+          f"{statistics.median(rec['prefill_s']):.3f} s "
+          f"({len(rec['prefill_s'])}), decode step ({HOT_SLOTS} slots) "
+          f"median {statistics.median(rec['decode_step_s']) * 1e3:.1f} ms "
+          f"({len(rec['decode_step_s'])}); peak {peak:.2f} GiB (with the "
+          f"check {peak_with_check:.2f}); the whole run {wall:.2f} s",
+          flush=True)
+    return out
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
     return bool(np.array_equal(np.asarray(a), np.asarray(b)))
@@ -4095,21 +4451,44 @@ def small_federated_lm_cpu_vs_card(torch, dev):
     and FED_DISCRETE_PARAMS_REL), lm16m plain through the sequential engine
     and mamba2's smoke config plain through the batched engine (the same
     exact keys; the metric within TRAIN_LOSS_REL, every param leaf within
-    TRAIN_GRAD_REL of its max)."""
+    TRAIN_GRAD_REL of its max).  Then the MoE family on the batched engine
+    (mixtral-8x22b's and arctic-480b's smoke configs at OP 1 and their
+    capacity factor 1.25): plain, the metric and every lane within
+    FED_MOE_PLAIN_REL, and each eval pass (outside ``vmap``) dropping on
+    the card the (token, choice) pairs it drops on the CPU; each with the
+    int8 cut, top-k 0.5 and int8 deltas, within the discrete-step
+    bounds."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.lm_small import LM16M
     from repro_torch.data import split_clients, token_dataset
     from repro_torch.fl.loop import FLConfig, run_federated
+    from repro_torch.models import layers as L
     from repro_torch.models.split_program import get_split_program
     from repro_torch.tree import tree_leaves
     discrete = dict(quantize_transfer=True, delta_density=0.5,
                     quantize_deltas=True)
+    mixtral = get_smoke_config("mixtral-8x22b")
+    arctic = get_smoke_config("arctic-480b")
     runs = {"lm16m-sequential-int8-topk": (LM16M, "sequential", 3, discrete),
             "lm16m-batched-int8-topk": (LM16M, "batched", 3, discrete),
             "lm16m-sequential": (LM16M, "sequential", 3, {}),
             "mamba2-smoke-batched": (get_smoke_config("mamba2-780m"),
-                                     "batched", 1, {})}
+                                     "batched", 1, {}),
+            "mixtral-smoke-batched": (mixtral, "batched", 1, {}),
+            "mixtral-smoke-batched-int8-topk": (mixtral, "batched", 1,
+                                                discrete),
+            "arctic-smoke-batched": (arctic, "batched", 1, {}),
+            "arctic-smoke-batched-int8-topk": (arctic, "batched", 1,
+                                               discrete)}
+    dispatch = L.moe_dispatch
+    keeps = []
+
+    def recorded(cfg_, topi):
+        C, slot, keep = dispatch(cfg_, topi)
+        if not torch._C._are_functorch_transforms_active():
+            keeps.append(keep.cpu())
+        return C, slot, keep
     out = {}
     for name, (cfg, engine, op, kw) in runs.items():
         clients = split_clients(token_dataset(16, 32, cfg.vocab_size,
@@ -4119,8 +4498,25 @@ def small_federated_lm_cpu_vs_card(torch, dev):
         fl = FLConfig(rounds=2, local_iters=2, batch_size=2, lr=0.1,
                       augment=False, mode="sfl", static_op=op,
                       engine=engine, **kw)
-        a, b = (run_federated(cfg, clients, test, fl, init_params=init,
-                              device=d) for d in ("cpu", dev))
+        by_device = {}
+        for d in ("cpu", dev):
+            keeps.clear()
+            L.moe_dispatch = recorded
+            try:
+                h = run_federated(cfg, clients, test, fl, init_params=init,
+                                  device=d)
+            finally:
+                L.moe_dispatch = dispatch
+            by_device[str(d)] = (h, list(keeps))
+        (a, keep_a), (b, keep_b) = by_device["cpu"], by_device[str(dev)]
+        dropped = sum(int((~k).sum()) for k in keep_a)
+        if cfg.moe is not None and not kw:
+            same = len(keep_a) == len(keep_b) and all(
+                torch.equal(x, y) for x, y in zip(keep_a, keep_b))
+            if not same or not dropped:
+                fail(f"small {name}: {dropped} assignments dropped in the "
+                     f"CPU's eval passes; the card's drops equal them: "
+                     f"{same}")
         for key in ("ops", "times", "round_time", "comm_time", "dropped",
                     "edge_time"):
             if not np_equal(a[key], b[key]):
@@ -4138,6 +4534,8 @@ def small_federated_lm_cpu_vs_card(torch, dev):
                                 FED_DISCRETE_PARAMS_REL, FED_TREE_SHARE)
                                if kw else (TRAIN_LOSS_REL, TRAIN_GRAD_REL,
                                            0.0))
+        if cfg.moe is not None and not kw:
+            m_tol = p_tol = FED_MOE_PLAIN_REL
         if not (metric <= m_tol and gap <= p_tol and share <= s_tol):
             fail(f"small {name}: metric {metric:.3g} relative (<= {m_tol}?), "
                  f"params {gap:.3g} of a leaf's max (<= {p_tol}?), "
@@ -4146,10 +4544,15 @@ def small_federated_lm_cpu_vs_card(torch, dev):
         out[name] = {"metric_rel": metric, "params_rel": gap,
                      "lane_share": share, "bounds": [m_tol, p_tol, s_tol],
                      "ops": b["ops"].tolist()}
+        if cfg.moe is not None:
+            out[name]["eval_assignments_dropped"] = dropped
         print(f"small {name}: cpu == card (ops, times, comm, drops), metric "
               f"{metric:.3g} relative (<= {m_tol}), params {gap:.3g} of a "
               f"leaf's max (<= {p_tol}), {share:.3g} of the lanes beyond "
-              f"{FED_LANE_REL} (<= {s_tol})", flush=True)
+              f"{FED_LANE_REL} (<= {s_tol})"
+              + (f"; the same {dropped} MoE assignments dropped in the eval "
+                 f"passes on both" if cfg.moe is not None and not kw
+                 else ""), flush=True)
     return out
 
 
@@ -4253,13 +4656,15 @@ def time_ssd(torch, ts, real):
 
 
 # phase 7's flash rows: the real layer's q, k, v (``real[kind]``), its
-# model, the softcap and causality timed on them
-FLASH_TIMED = [("global", "gemma2-2b", 50.0, True),
-               ("local", "gemma2-2b", 50.0, True),
-               ("global", "gemma2-2b", 0.0, True),
-               ("mixtral", "mixtral-8x22b", 0.0, True),
-               ("recurrentgemma", "recurrentgemma-9b", 0.0, True),
-               ("whisper", "whisper-base", 0.0, False)]
+# model, the softcap and causality timed on them, and whether the rows'
+# log-sum-exp is written too (training's forward)
+FLASH_TIMED = [("global", "gemma2-2b", 50.0, True, False),
+               ("local", "gemma2-2b", 50.0, True, False),
+               ("global", "gemma2-2b", 0.0, True, False),
+               ("mixtral", "mixtral-8x22b", 0.0, True, False),
+               ("recurrentgemma", "recurrentgemma-9b", 0.0, True, False),
+               ("whisper", "whisper-base", 0.0, False, False),
+               ("qwen3-train", "qwen3-0.6b", 0.0, True, True)]
 
 
 def time_flash(torch, tf, real):
@@ -4270,7 +4675,11 @@ def time_flash(torch, tf, real):
     4096, which does not bind at S=4096); recurrentgemma-9b's first local
     layer (S=4096, 16 query heads over one KV head of 256, window 2048,
     which binds); whisper-base's first encoder layer (S=1500, H=KV=8,
-    D=64, no causality).  The yardstick is one PyTorch call computing the
+    D=64, no causality); qwen3-0.6b's layer 0 of a 4096-token training
+    step (H=16, KV=8, D=128, causal) with the rows' log-sum-exp written, as
+    training's forward writes it (``flash_attention_lse`` beside
+    ``attention_plain_lse``; the lse's bytes counted).  The yardstick is
+    one PyTorch call computing the
     same function: compiled ``flex_attention`` (``flex_attention_call``)
     where a softcap or a binding window needs it, else
     ``scaled_dot_product_attention`` (causal or not; k and v repeated to H
@@ -4284,13 +4693,17 @@ def time_flash(torch, tf, real):
     operations at the fp32 CUDA-core rate (67 TFLOP/s)."""
     F = torch.nn.functional
     rows = []
-    for kind, model, cap, causal in FLASH_TIMED:
+    for kind, model, cap, causal, lse in FLASH_TIMED:
         q, k, v, window, _ = real[kind]
         B, S, H, D = q.shape
         Sk, KV = k.shape[1], k.shape[2]
         pairs = int(tf.visible_mask(S, Sk, causal, window, q.device).sum())
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        mine = tf.flash_attention(q, k, v, causal, window, cap)
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
+                      + (B * H * S if lse else 0))
+        kern, plain = ((tf.flash_attention_lse, tf.attention_plain_lse)
+                       if lse else (tf.flash_attention, tf.attention_plain))
+        args = (q, k, v, causal, window, cap)
+        mine = kern(*args)[0] if lse else kern(*args)
         if cap > 0.0 or 0 < window < Sk:
             if not causal:
                 fail(f"flash timing {kind}: flex_attention_call is causal")
@@ -4310,13 +4723,12 @@ def time_flash(torch, tf, real):
               f"causal {causal}): max abs diff {library_err:.3g}")
         ops = 4 * D * H * pairs
         row = _timing_row(
-            "flash_attention", [B, S, H, KV, D],
-            lambda: tf.flash_attention(q, k, v, causal, window, cap),
-            lambda: tf.attention_plain(q, k, v, causal, window, cap),
-            library, nbytes, 3 * ops, reps=7, inner=5,
-            ops_per_s=TF32_OPS_PER_S)
+            "flash_attention", [B, S, H, KV, D], lambda: kern(*args),
+            lambda: plain(*args), library, nbytes,
+            3 * ops, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
         row.update({"model": model, "window": window, "softcap": cap,
-                    "causal": causal, "pairs": pairs, "gflop": ops / 1e9,
+                    "causal": causal, "lse": lse, "pairs": pairs,
+                    "gflop": ops / 1e9,
                     "library": what, "library_err": library_err,
                     "bound_fp32_ms": bound_ms(nbytes, ops)[0]})
         rows.append(row)
@@ -4584,6 +4996,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f" {r['model']} window {r['window']} softcap "
                  f"{r['softcap']}" if "window" in r else "")
+        if r.get("lse"):
+            extra += " with lse (training's forward)"
         if "computes" in r:
             extra += (f" ({r['computes']}; computes "
                       f"{r['computed_gflop']:.1f} GFLOP, 3xTF32 bound "
@@ -4819,6 +5233,13 @@ def main() -> None:
         record["main_path"].update(federated_lm_path(
             torch, dev, LAUNCHES, reset_launches, card))
         free_card(torch)
+
+        phase("5h. federated training published into a live server: "
+              "run_federated_async over qwen3-0.6b (full width and depth) "
+              "into a ServeEngine through a ParamStore")
+        record["main_path"]["hotswap-qwen3-0.6b"] = hotswap_lm_path(
+            torch, dev, LAUNCHES, reset_launches, card)
+        free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}
                     for k in LAUNCHES}
@@ -4843,6 +5264,7 @@ def main() -> None:
             torch, dev)
 
         phase("7. kernel times")
+        real["qwen3-train"] = (*real["qwen3"][:3], 0, 0.0)
         kernels, rows = time_kernels(
             torch, tq, tt, dev, launches, worst, worst_rel_ssd_bwd,
             time_flash(torch, tf, real) + time_flash_bwd(torch, tf, real)

@@ -103,6 +103,12 @@ class FlatLayout:
             for off, sz, shape, dtype in
             zip(self.offsets, self.sizes, self.shapes, self.dtypes)))
 
+    def copy(self, buf: torch.Tensor) -> torch.Tensor:
+        """Bitwise copy of a flat buffer into a fresh one (the reference's
+        donated-copy identity): the copy's owner may keep it while the
+        source's owner overwrites or frees its own."""
+        return buf.detach().clone(memory_format=torch.contiguous_format)
+
     def flatten_stacked(self, tree: Params) -> torch.Tensor:
         """A tree whose leaves carry a leading client axis ``(K, ...)`` ->
         ``(K, padded)``, each row ``flatten`` of that client's params."""

@@ -27,10 +27,9 @@ key; only images are flipped).  Under the batched engine's ``vmap`` an
 LM's layers are not rematerialised (``models.layers.remat``), the
 flash-attention Functions fold the clients into their kernels' batch
 axis, and the SSD scan's run once a client (each client holds its own
-``A``, and a kernel call takes one); the MoE family is refused (its
-dispatch one-hots the routing choices, a host read, and scatters in
-place, neither of which vmap runs) and trains through the sequential
-engine.
+``A``, and a kernel call takes one); the MoE dispatch
+(``models.layers.moe_dispatch``) runs out of place with no host read, its
+capacity counting one client's tokens.
 
 Both return ``(idxs, rows)``: the trained clients and their parameters, a
 list of per-client trees (sequential) or one ``StackedRows`` tree whose
@@ -47,7 +46,6 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.data.loader import FleetLoader
 from repro_torch.fl.flatbuf import Params
 from repro_torch.models.split_program import SplitProgram
@@ -141,13 +139,6 @@ class BatchedEngine:
     def __init__(self, program: SplitProgram, local_iters: int, seed: int,
                  augment: bool, quantize: bool, device: torch.device,
                  max_group: int = 8):
-        if getattr(program.cfg, "moe", None) is not None:
-            # the MoE dispatch (models/layers.py moe_dispatch) one-hots the
-            # routing choices, which reads them on the host, and scatters
-            # into a fresh buffer in place: neither runs under vmap.  The
-            # sequential engine runs the family
-            raise not_ported("the batched fleet engine over the MoE family",
-                             "batched MoE")
         self.program = program
         self.local_iters = local_iters
         self.seed = seed

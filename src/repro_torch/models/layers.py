@@ -322,13 +322,18 @@ def moe_dispatch(cfg: ModelConfig, topi: torch.Tensor
     ``(E*C + 1, d)`` dispatch buffer, and whether it was kept.  Positions
     within an expert follow the flat order (token-major, a token's first
     choice before its second); an assignment past ``C`` goes to the
-    scratch row ``E*C`` and is dropped."""
+    scratch row ``E*C`` and is dropped.  Runs under ``torch.func.vmap``
+    (the batched fleet engine): the one-hot is a comparison with
+    ``arange(E)``, where ``F.one_hot`` would read the range on the host,
+    and ``T`` is then one client's tokens, so ``C`` is per client, as
+    under the reference's ``jit(vmap(...))``."""
     T, k = topi.shape
     E = cfg.moe.num_experts
     # the reference's Python float expression, so C is its integer
     C = max(1, int(cfg.moe.capacity_factor * T * k / E))
     flat_e = topi.reshape(-1)
-    assign = F.one_hot(flat_e, E)                             # (T*k, E)
+    assign = (flat_e[:, None] == torch.arange(E, device=flat_e.device)
+              ).to(torch.int64)                               # (T*k, E)
     pos_all = assign.cumsum(0) - assign
     pos = pos_all.gather(1, flat_e[:, None])[:, 0]
     keep = pos < C
@@ -347,14 +352,15 @@ def _moe_capacity(cfg: ModelConfig, p: Params, xf: torch.Tensor,
                   topw: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
     """The prefill path: tokens scattered into ``(E, C, d)``, the experts
     as three batched products, and the kept results combined with the
-    top-k weights."""
+    top-k weights.  Out of place throughout (``index_put``,
+    ``index_add``), so it runs under ``torch.func.vmap``."""
     T, d = xf.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
     C, slot, keep = moe_dispatch(cfg, topi)
     token_idx = torch.arange(T * k, device=xf.device) // k
-    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
-    buf[slot] = xf[token_idx]
-    h = buf[:E * C].view(E, C, d)
+    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype,
+                      device=xf.device).index_put((slot,), xf[token_idx])
+    h = buf[:E * C].reshape(E, C, d)
     mid = _expert_act(cfg, torch.bmm(h, p["w_gate"])) * torch.bmm(
         h, p["w_up"])
     y = torch.bmm(mid, p["w_down"]).reshape(E * C, d)
@@ -365,7 +371,7 @@ def _moe_capacity(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     # k = 2 terms onto zeros sum alike in any order (every config has
     # top_k 2); more would need a fixed order to match the reference
     return torch.zeros((T, d), dtype=xf.dtype, device=xf.device
-                       ).index_add_(0, token_idx, contrib)
+                       ).index_add(0, token_idx, contrib)
 
 
 def _moe_decode_exact(cfg: ModelConfig, p: Params, xf: torch.Tensor,
@@ -425,7 +431,8 @@ def moe_aux_loss(cfg: ModelConfig, p: Params, x: torch.Tensor
     E = cfg.moe.num_experts
     probs = _router_probs(p, x.reshape(-1, d))
     _, topi = _top_k(probs, cfg.moe.top_k)
-    frac_tokens = F.one_hot(topi, E).float().sum(dim=1).mean(dim=0)
+    frac_tokens = (topi[..., None] == torch.arange(E, device=topi.device)
+                   ).float().sum(dim=1).mean(dim=0)
     frac_probs = probs.mean(dim=0)
     return E * torch.sum(frac_tokens * frac_probs)
 

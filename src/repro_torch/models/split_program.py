@@ -107,6 +107,15 @@ class SplitProgram:
         """The default OP grid for planners (a family may restrict it)."""
         return list(range(self.num_boundaries))
 
+    def flat_layout(self, params: Params):
+        """The flat-buffer layout of this program's parameter structure
+        (``fl.flatbuf.FlatLayout``): one contiguous fp32 buffer with a
+        block-aligned offset per leaf, in the reference's leaf order.  The
+        server step, ``serving.ParamStore`` and ``ServeEngine.maybe_swap``
+        share it."""
+        from repro_torch.fl.flatbuf import FlatLayout
+        return FlatLayout(params)
+
     @staticmethod
     def _width_keep(n: int, width: float) -> int:
         """How many of ``n`` channels a ``width``-fraction client keeps."""

@@ -14,6 +14,12 @@
 * The prefill runs every layer's attention through the flash-attention
   kernel (on the card); decode is plain PyTorch.  The cache lies where the
   params lie and has their dtype.
+* **Hot param swap.**  ``maybe_swap`` adopts a ``ParamStore``
+  (``serving/hotswap.py``) snapshot between decode steps through the
+  layout's ``unflatten``: fresh tensors of the same shapes, dtypes and
+  device.  The reference's ``compile_counts`` has no counterpart: it
+  counts jit executables, and the port runs eagerly with nothing compiled
+  per shape; the tests hold a swapped engine bitwise to a fresh one.
 
 Greedy (argmax) sampling over the stacked-transformer families ``dense``
 and ``moe``: like the reference, the engine refuses the ``ssm`` and
@@ -23,10 +29,8 @@ adapter), which ``reference_decode`` serves, and the ``vlm`` and
 prefill drops tokens past each expert's capacity, which counts the pad
 lanes of the right-padded prompt: the engine matches the unpadded oracle
 only where no token is dropped (the reference's tests raise the capacity
-factor for that).  The reference's ``compile_counts`` has no
-counterpart: it counts jit executables, and the port runs eagerly with
-nothing compiled per shape.  ``maybe_swap`` (hot param swap from a
-``ParamStore``) is not ported yet.
+factor for that).
+
 ``reference_decode`` is the sequential single-request oracle.
 """
 from __future__ import annotations
@@ -37,7 +41,6 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
 from repro_torch.models import transformer as T
@@ -185,9 +188,29 @@ class ServeEngine:
                 self._out[s] = []
         return finished
 
+    # ------------------------------------------------------------------
+    # hot param swap
+    # ------------------------------------------------------------------
     def maybe_swap(self, store) -> bool:
-        raise not_ported("hot param swap (ServeEngine.maybe_swap, "
-                         "ParamStore)", "Hot swap")
+        """Adopt the store's latest published params if they are newer
+        than ours; returns whether it did.  ``store.snapshot`` makes this
+        thread's current stream wait for the publication's copy, and the
+        buffer is marked as used on that stream, so the allocator keeps it
+        until the unflatten's copies have run even if a newer publication
+        drops it meanwhile.  In-flight requests keep their KV cache:
+        generation continues under the new weights mid-sequence, as in the
+        reference."""
+        version, flat, layout = store.snapshot()
+        if flat is None or version == self.params_version:
+            return False
+        if flat.device != self.device:
+            raise ValueError(f"the store's buffer lies on {flat.device}, "
+                             f"the engine runs on {self.device}")
+        if flat.is_cuda:
+            flat.record_stream(torch.cuda.current_stream(flat.device))
+        self.params = layout.unflatten(flat)
+        self.params_version = version
+        return True
 
 
 # =============================================================================

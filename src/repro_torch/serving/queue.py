@@ -28,7 +28,8 @@ done virtual times plus the generated tokens) and aggregate stats
 
 A copy of the reference's ``serving/queue.py`` over the port's engine and
 ``EventQueue``: the same seed gives the same requests, bitwise.  Passing a
-``store`` reaches ``ServeEngine.maybe_swap``, which is not ported yet.
+``store`` (``serving.hotswap.ParamStore``) swaps params live through
+``ServeEngine.maybe_swap``.
 """
 from __future__ import annotations
 

@@ -21,20 +21,17 @@ package's, and the kernels' Functions under ``torch.func``.
   batched engine's step) equals a loop of ``grad`` over the clients, bit
   for bit on the CPU, where both run the plain versions; the SSD scan
   also with an ``A`` shared by the clients (not vmapped).
-* The batched engine refuses the MoE family, naming its ROADMAP item.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.fl.loop import FLConfig, run_federated
 from repro_torch.kernels import flash_attention as tf
 from repro_torch.kernels import ssd_scan as ts
 from torch_fl_cases import (DISCRETE_METRIC_REL, DISCRETE_PARAMS_REL,
                             DISCRETE_TREE_SHARE, check_sync_discrete,
-                            check_sync_plain, discrete_readings, fleet,
+                            check_sync_plain, discrete_readings,
                             one_intra_op_thread)
-from torch_lm_cases import configs
 
 _ = one_intra_op_thread
 ARCHS = ["gemma2-2b", "qwen3-0.6b", "mixtral-8x22b", "internvl2-2b"]
@@ -118,12 +115,3 @@ def test_ssd_scan_under_vmap_grad(shared_a):
         want = torch.stack([g[i] for g in looped])
         assert float(want.abs().max()) > 0, i
         torch.testing.assert_close(b, want, rtol=0, atol=0)
-
-
-def test_batched_engine_refuses_moe():
-    _, tcfg = configs("mixtral-8x22b")
-    clients, test = fleet(tcfg, 2)
-    fl = FLConfig(rounds=1, local_iters=1, batch_size=2, augment=False,
-                  engine="batched")
-    with pytest.raises(NotImplementedError, match="batched MoE"):
-        run_federated(tcfg, clients, test, fl, device="cpu")

@@ -18,7 +18,8 @@ tests/test_serving.py: the engine prefills prompts padded to
 ``max_prompt`` and the oracle prefills them unpadded, so at the configs'
 1.25 the two would drop different tokens.  Its smoke window is 32, so
 prompts stay within 30 tokens and requests that run past 32 positions
-wrap the rolling cache.  The hot-swap tests wait for ``ParamStore``.
+wrap the rolling cache.  The hot-swap twins are in
+tests/test_torch_hotswap.py.
 """
 import dataclasses
 
@@ -197,8 +198,6 @@ def test_engine_validation():
     ssm = dataclasses.replace(cfg, family="ssm")
     with pytest.raises(NotImplementedError, match="families"):
         ServeEngine(ssm, None)
-    with pytest.raises(NotImplementedError, match="Hot swap"):
-        engine.maybe_swap(None)
 
 
 def test_reference_decode_margins():

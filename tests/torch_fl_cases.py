@@ -24,6 +24,8 @@ Tolerances, against the reference's run:
   beyond ``DISCRETE_PARAMS_REL``.  Each family's plain run
   (``check_sync_plain``) holds every lane to the plain bounds.
 """
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -44,7 +46,7 @@ from repro_torch.fl.comm import Transport, device_bandwidths
 from repro_torch.fl.flatbuf import FlatLayout
 from repro_torch.fl.loop import FLConfig, run_federated
 from repro_torch.models.split_program import get_split_program
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from torch_lm_cases import batch
 
 PLAIN_METRIC_REL = 1e-5
@@ -366,6 +368,189 @@ def phase6_readings():
     return out
 
 
+class _OneFormulaSilu(torch.autograd.Function):
+    """``silu`` with its backward written out, ``g s (1 + x (1 - s))``, so
+    ``torch.autograd.grad`` and ``torch.func.grad`` (whose ``silu``
+    backward is a decomposition that rounds apart by an ulp in about a
+    fifth of the lanes) compute the same bits."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.ops.aten.silu.default(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * s * (1 + x * (1 - s))
+
+
+def one_formula_silu(monkeypatch):
+    """Route the port's ``F.silu`` through ``_OneFormulaSilu``."""
+    monkeypatch.setattr(torch.nn.functional, "silu", _OneFormulaSilu.apply)
+
+
+MOE_CUT_KW = dict(mode="sfl", quantize_transfer=True)
+
+
+def moe_engine_runs(arch, kw=MOE_CUT_KW, silu=("torch", "one formula")):
+    """The port's batched and sequential runs of ``arch``'s smoke config
+    under ``kw`` (sync sfl at the middle OP), with ``F.silu`` as it is and
+    with ``_OneFormulaSilu``; ``{(engine, silu): history}``."""
+    from torch_lm_cases import configs
+    jcfg, tcfg = configs(arch)
+    data = fleet(tcfg, 2)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for how in silu:
+            if how == "one formula":
+                one_formula_silu(mp)
+            for engine in ("batched", "sequential"):
+                out[engine, how] = run_port(
+                    jcfg, tcfg, dict(kw, static_op=sfl_op(tcfg),
+                                     engine=engine), data)
+    return out
+
+
+def moe_engine_readings(arch, kw=MOE_CUT_KW):
+    """``moe_engine_runs``: each silu's gap between the two engines (the
+    -CE metric relative, the worst lane of its leaf's max) and whether
+    their final params are bitwise equal, as printable lines."""
+    runs = moe_engine_runs(arch, kw)
+    lines = []
+    for how in ("torch", "one formula"):
+        a, b = runs["batched", how], runs["sequential", how]
+        metric = float(np.max(np.abs(a["accuracy"] - b["accuracy"])
+                              / np.abs(b["accuracy"])))
+        tl, sl = tree_leaves(a["params"]), tree_leaves(b["params"])
+        worst = max(_rel(y, x) for x, y in zip(tl, sl))
+        lines.append(f"{arch} {sorted(kw)}, silu {how}: batched vs "
+                     f"sequential metric {metric:.3g} relative, worst lane "
+                     f"{worst:.3g} of its leaf's max, params bitwise "
+                     f"{all(torch.equal(x, y) for x, y in zip(tl, sl))}")
+    return lines
+
+
+def _rel(a, b):
+    """The largest difference over the largest entry of ``a``."""
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+
+def moe_cut_step_readings(arch="arctic-480b", lr=0.1, steps=12):
+    """One client's SGD steps through the int8 cut from the reference's
+    initial params, its two batches in turn, each step's gradient taken
+    by ``torch.autograd.grad`` (the sequential engine's) and by
+    ``torch.func.grad`` (the batched engine's, without its vmap), each
+    trajectory on its own params: step 1's loss, cut input and gradient,
+    then each step's cut input, int8 codes, routing choices and kept
+    assignments, as printable lines; then step 1's gradient again with
+    ``_OneFormulaSilu``."""
+    from repro_torch import convert
+    from repro_torch.kernels import quant_transfer as qt
+    from repro_torch.models import layers as Lyr
+    from torch_lm_cases import configs
+    jcfg, tcfg = configs(arch)
+    prog = get_split_program(tcfg)
+    op = sfl_op(tcfg)
+    rows = fleet(tcfg, 2)[0][0]
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v[2 * i:2 * i + 2]))
+                for k, v in rows.items()} for i in range(2)]
+    p0 = convert.lm_params_from_numpy(reference_init(jcfg), device="cpu")
+    seen = {"cut": [], "topi": [], "keep": []}
+    cut, top_k, dispatch = (qt._FakeQuantInt8.apply, Lyr._top_k,
+                            Lyr.moe_dispatch)
+
+    def loss(p, b):
+        return prog.loss_through_cut(p, b, op, quantize=True)
+
+    def grads(p, b, how):
+        for v in seen.values():
+            v.clear()
+        if how == "autograd":
+            q = tree_map(lambda v: v.clone().requires_grad_(), p)
+            value = loss(q, b)
+            return value.detach(), dict(zip(
+                _names(q), torch.autograd.grad(value, tree_leaves(q))))
+        g, value = torch.func.grad_and_value(loss)(p, b)
+        return value, dict(zip(_names(p), tree_leaves(g)))
+
+    def record(key, value):
+        seen[key].append(value.detach().clone())
+        return value
+
+    lines = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(qt._FakeQuantInt8, "apply",
+                   staticmethod(lambda x: cut(record("cut", x))))
+        mp.setattr(Lyr, "_top_k", lambda probs, k: (
+            lambda r: (r[0], record("topi", r[1])))(top_k(probs, k)))
+        mp.setattr(Lyr, "moe_dispatch", lambda cfg, topi: (
+            lambda r: (r[0], r[1], record("keep", r[2])))(
+                dispatch(cfg, topi)))
+        params = {"autograd": p0, "func": p0}
+        for i in range(steps):
+            got = {}
+            for how in ("autograd", "func"):
+                value, g = grads(params[how], batches[i % 2], how)
+                got[how] = dict(loss=value, g=g,
+                                **{k: list(v) for k, v in seen.items()})
+                params[how] = tree_unflatten(params[how], [
+                    v - lr * g[n] for n, v in
+                    zip(_names(params[how]), tree_leaves(params[how]))])
+            a, f = got["autograd"], got["func"]
+            if i == 0:
+                lines.append(
+                    f"{arch} step 1: loss bitwise "
+                    f"{bool(torch.equal(a['loss'], f['loss']))}, cut input "
+                    f"bitwise {all(map(torch.equal, a['cut'], f['cut']))}")
+                diff = {n: (int((a["g"][n] != f["g"][n]).sum()),
+                            a["g"][n].numel(), _rel(a["g"][n], f["g"][n]))
+                        for n in a["g"]}
+                moved = {n: d for n, d in diff.items() if d[0]}
+                lines.append(
+                    f"{arch} step 1 gradient: {len(moved)} of {len(diff)} "
+                    f"leaves differ: " + ", ".join(
+                        f"{n} {c}/{t} lanes (at most {r:.2g} of its max)"
+                        for n, (c, t, r) in sorted(moved.items())))
+            x, y = a["cut"][0], f["cut"][0]
+
+            def apart(key):
+                return [int((u != v).sum()) for u, v in zip(a[key], f[key])]
+            qa, sa = qt.quantize_rows_plain(x.reshape(-1, x.shape[-1]))
+            qf, sf = qt.quantize_rows_plain(y.reshape(-1, y.shape[-1]))
+            lines.append(
+                f"{arch} step {i + 1}: cut input {int((x != y).sum())} of "
+                f"{x.numel()} lanes differ, at most {_rel(x, y):.2g} of its "
+                f"max; int8 codes moved {int((qa != qf).sum())}; routing "
+                f"choices differing per MoE layer {apart('topi')} of "
+                f"{a['topi'][0].numel()}; kept assignments differing "
+                f"{apart('keep')}; loss {float(a['loss']):.7g} vs "
+                f"{float(f['loss']):.7g}")
+        one_formula_silu(mp)
+        _, ga = grads(p0, batches[0], "autograd")
+        _, gf = grads(p0, batches[0], "func")
+        lines.append(f"{arch} step 1 gradient with one silu backward "
+                     f"formula: leaves differing "
+                     f"{sum(not torch.equal(ga[n], gf[n]) for n in ga)}")
+    return lines
+
+
+def _names(tree, prefix=""):
+    """Each leaf's path, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _names(t, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
 if __name__ == "__main__":
     # the readings that set the discrete-step bounds, on the CPU (~2 min):
     #   PYTHONPATH=src:tests python tests/torch_fl_cases.py
@@ -377,6 +562,15 @@ if __name__ == "__main__":
             print(f"{name}: metric {metric:.3g} relative, worst lane "
                   f"{worst:.3g}, {share:.3g} of the lanes beyond {LANE_REL}",
                   flush=True)
+    if sys.argv[1:] == ["--moe-cut"]:
+        # why arctic's runs with the int8 cut part between the port's two
+        # engines (~20 s):
+        #   PYTHONPATH=src:tests python tests/torch_fl_cases.py --moe-cut
+        for line in (moe_cut_step_readings()
+                     + moe_engine_readings("arctic-480b")
+                     + moe_engine_readings("mixtral-8x22b")):
+            print(line, flush=True)
+        sys.exit(0)
     show(phase6_readings())
     for arch in ARCHS:
         show({f"{arch}, {name}": r
