@@ -109,6 +109,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    runtime with two edges (buffer 3, discount 0.5, 6 aggregations; the
    hop reported, the virtual clock the run's without it).  Every run's
    launches exactly as its history needs.
+4f. VGG-5 on a mesh: phase 4's sfl-op1 set-up on the batched engine and
+   the fused step, mesh-less and over ``FLConfig.mesh_shape`` (1, 1),
+   (1, 8) and (2, 4), the mesh's eight places all this card
+   (``mesh_devices``), cuDNN deterministic.  (1, 1) and (1, 8) (580
+   blocks: a tail of 4) give the mesh-less run's params and history bit
+   for bit; at (2, 4) (5 rows padded to 6) every server step is held
+   against the single-device step on its own inputs (the new global
+   within 1e-6, the EF rows bit for bit), OPs, modelled times, comm and
+   drops are exact and accuracy within 0.02 a round (phase 4c's contract:
+   the data shards' reordered fp32 sums move int8 codes and top-k
+   near-ties over the run).  ``run_federated_async`` over (2, 1), 4
+   aggregations checkpointed at 2 and resumed: the suffix and params bit
+   for bit.  Launches exact: the cut once per (data shard, chunk, local
+   step), top-k and the delta int8 pair once per (padded row, model
+   shard).  Printed with the card's name and power limit: each run's wall
+   a round and server-step seconds against the mesh-less run's.
 5. the serving main path: ``ServeEngine`` on gemma2-2b at full width
    (26 layers, d_model 2304, 8 query heads over 4 KV heads of dim 256,
    vocab 256000; fp32 weights drawn on the card from a seed).  First the
@@ -276,6 +292,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and power limit: each aggregation's wall seconds and its hook's, each
    ``publish_flat``'s and ``maybe_swap``'s seconds, the prefill seconds
    and decode ms a step under training's memory pressure, peak memory.
+5i. the LM on a mesh: phase 5g's qwen3-0.6b run over mesh (1, 4) of this
+   card (582,081 blocks: a tail of 3), its params and history bit for bit
+   phase 5g's, launches exact (top-k and the delta pair once per row and
+   model shard); then one MoE layer at full width from seeded weights,
+   local against expert-parallel (``use_rules``): mixtral-8x22b (capacity
+   factor 4.0: C = T) in case A at (1, 4), case B (d_ff over 16) at (1,
+   16), FSDP at (2, 4) plain and under ``moe_int8_gather()``; arctic-480b
+   (128 experts, 53.5 GB of fp32 experts; capacity factor 8.0, the
+   busiest expert checked within C) in case A at (1, 16), 8 experts a
+   place; each on 2048 tokens and one decode step over 8 rows, within
+   1e-4 of the largest local value (int8: 0.05), no repo kernel launched.
+   Printed with the card's name and power limit: the mesh run's wall a
+   round, step seconds and peak against 5g's, each MoE call's ms against
+   local, peak memory.  The places share one card: no inter-card traffic
+   is measured.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -673,6 +704,48 @@ HOT_SLOTS, HOT_MAX_PROMPT, HOT_MAX_SEQ = 4, 4096, 4608
 HOT_TRAFFIC = dict(rate=4.0, n_requests=4, prompt_lens=(600, 2000, 4000),
                    gen_lens=(16,))
 HOT_SIDE_SLEEP = 100_000_000
+# phase 4f, VGG-5 on a mesh: phase 4's sfl set-up at OP1 (K = 5, 1000
+# samples a client, batch 100, 10 local iterations, 3 rounds, the int8 cut,
+# top-k 0.1 EF, int8 deltas) on the batched engine and the fused step, over
+# meshes whose MESH_PLACES places are all this one card, against the
+# mesh-less run of the same set-up: the data = 1 meshes bit for bit; at
+# (2, 4) every server step within MESH_ATOL of the single-device step on
+# the same inputs (the reference's bound between its data > 1 mesh step
+# and its single-device step) and its EF rows bit for bit, OPs, modelled
+# times, comm and drops exact, and the whole run's accuracy within
+# BATCHED_ACC_ATOL a round (phase 4c's contract between two summation
+# orders of one algorithm): the data shards' sums and the engine's
+# smaller vmapped chunks reorder fp32 additions, which across 3 rounds
+# move int8 codes and top-k near-ties (PERF.md records the params' gap);
+# cuDNN held deterministic.  Then run_federated_async over MESH_ASYNC
+# (buffer 3, discount 0.5, 4 aggregations, a checkpoint at 2) resumed from
+# that checkpoint, bit for bit the straight run's suffix
+MESH_PLACES = 8
+VGG_MESHES = ((1, 1), (1, 8), (2, 4))
+MESH_ATOL = 1e-6
+MESH_ASYNC = (2, 1)
+# phase 5i, the LM on a mesh: phase 5g's qwen3-0.6b run on FED_MESH (its
+# 582,081 blocks leave a tail of 3), bit for bit phase 5g's run; then one
+# MoE layer at full width, sharded (``use_rules``) against local from the
+# same seeded weights, at MOE_MESH_S tokens (B = 1) and one decode step
+# over MOE_MESH_ROWS rows, within MOE_MESH_REL of the largest local value
+# (the reference test's 1e-4, tests/test_moe_sharded.py), the int8 gather
+# within MOE_INT8_GATHER_REL (tests/test_torch_moe_sharded.py's
+# INT8_GATHER_REL: rowwise int8 moves a weight by at most 1/254 of its
+# row's absmax).  The capacity factors drop nothing on either side:
+# mixtral's makes C = T (E / k = 4); arctic's C = 256 is checked against
+# the busiest expert's load
+FED_MESH = (1, 4)
+MOE_MESH_S, MOE_MESH_ROWS = 2048, 8
+MOE_MESH_REL, MOE_INT8_GATHER_REL = 1e-4, 0.05
+MOE_MESH_CASES = {
+    # (mesh, int8 gather): case A (E % tp == 0) at (1, 4); case B (d_ff
+    # over 16) at (1, 16); FSDP (d over data) at (2, 4), plain and int8
+    "mixtral-8x22b": (4.0, (((1, 4), False), ((1, 16), False),
+                            ((2, 4), False), ((2, 4), True))),
+    # 8 of 128 experts a place: one chip's expert share
+    "arctic-480b": (8.0, (((1, 16), False),)),
+}
 
 
 def fail(msg: str) -> None:
@@ -897,7 +970,18 @@ def masked_delta_row(torch, dev):
     return spec.mask_row(0) * (layout.flatten(rows[0]) - g), layout
 
 
-def expected_launches(h, fl, native_op, n_leaves):
+def batched_cut_launches(fl, sizes, native_op, data=1):
+    """The batched engine's int8-cut launches (one quantize, one
+    dequantize each) for the ``(OP, n clients)`` groups of its calls: per
+    local iteration of every chunk below the native OP, chunks of
+    ``BATCHED_MAX_GROUP`` clients rounded up to a multiple of the mesh's
+    ``data`` size, each chunk's data shards launching apart."""
+    chunk = -(-BATCHED_MAX_GROUP // data) * data
+    return fl.local_iters * data * sum(-(-n // chunk) for op, n in sizes
+                                       if op < native_op)
+
+
+def expected_launches(h, fl, native_op, n_leaves, mesh_shape=None):
     """Each kernel's launches in one ``run_federated`` run without failures
     or deadline, from its history.  The int8 cut (one quantize, one
     dequantize) runs per local iteration of every client below the native
@@ -906,23 +990,29 @@ def expected_launches(h, fl, native_op, n_leaves):
     ``BATCHED_MAX_GROUP`` clients at most) in the batched one.  The fused
     server step takes one top-k (density < 1) and one int8 round trip per
     client row, flat or through the edges; the reference step one top-k
-    per leaf (``n_leaves``) and one int8 round trip per kept client."""
+    per leaf (``n_leaves``) and one int8 round trip per kept client.  On a
+    ``mesh_shape`` ``(data, model)`` mesh the batched engine's chunks split
+    into ``data`` shards, each launching the cut, and the fused step's
+    compression paths take each row, padded to a multiple of ``data``,
+    once per model shard."""
     assert fl.fail_prob == 0 and fl.deadline_factor == 0, \
         "every client trains and is kept"
-    widths = fl.client_widths or (1.0,) * len(h["ops"][0])
+    data, model = mesh_shape or (1, 1)
+    K = len(h["ops"][0])
+    widths = fl.client_widths or (1.0,) * K
     if not fl.quantize_transfer:
         cut = 0
     elif fl.engine == "batched":
-        cut = fl.local_iters * sum(
-            -(-n // BATCHED_MAX_GROUP)
-            for row in h["ops"]
+        cut = batched_cut_launches(fl, [
+            (op, n) for row in h["ops"]
             for (op, _), n in collections.Counter(
-                (int(o), float(wk)) for o, wk in zip(row, widths)).items()
-            if op < native_op)
+                (int(o), float(wk)) for o, wk in zip(row, widths)).items()],
+            native_op, data)
     else:
         cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
                                        for op in row))
-    rows = len(h["ops"]) * len(h["ops"][0])
+    compressed = fl.delta_density < 1 or fl.quantize_deltas
+    rows = len(h["ops"]) * ((K + (-K) % data) * model if compressed else K)
     quant = cut + (rows if fl.quantize_deltas else 0)
     per_row = n_leaves if fl.server_step == "reference" else 1
     return {"quantize": quant, "dequantize": quant,
@@ -932,7 +1022,7 @@ def expected_launches(h, fl, native_op, n_leaves):
 
 
 def expected_async_launches(h, fl, native_op, K, resumed=False, cfg=None,
-                            prefills=0):
+                            prefills=0, mesh_shape=None):
     """Each kernel's launches in one ``run_federated_async`` run on live
     links (the sequential engine, an ``sfl`` static OP, the fused server
     step), from its history: the in-flight set of C clients is dispatched
@@ -945,18 +1035,29 @@ def expected_async_launches(h, fl, native_op, K, resumed=False, cfg=None,
     twice a layer (the forward and its remat recompute) and the backward
     once, each aggregation's eval pass the forward once a layer, and each
     of ``prefills`` engine prefills (phase 5h's live server) the forward
-    once a layer."""
+    once a layer.  The batched engine runs the cut per chunk of a dispatch
+    (``batched_cut_launches``); on a ``mesh_shape`` mesh the step's rows
+    pad to the ``data`` size and each goes once per model shard."""
     import numpy as np
-    assert fl.mode == "sfl" and fl.engine == "sequential" \
-        and fl.server_step == "fused", "a static-OP sequential/fused run"
+    assert fl.mode == "sfl" and fl.server_step == "fused", \
+        "a static-OP fused run"
     assert np.isfinite(h["times"]).all(), "every report arrives"
+    data, model = mesh_shape or (1, 1)
     C = fl.cohort_size or K
     buf = fl.buffer_size or C
     n_agg = len(h["accuracy"])
-    dispatched = (0 if resumed else C) + buf * (n_agg - 1)
-    cut = (fl.local_iters * dispatched
-           if fl.quantize_transfer and fl.static_op < native_op else 0)
-    rows = int(sum(buf - int(d) for d in h["dropped"]))
+    sizes = ([] if resumed else [C]) + [buf] * (n_agg - 1)
+    dispatched = sum(sizes)
+    if not fl.quantize_transfer:
+        cut = 0
+    elif fl.engine == "batched":
+        cut = batched_cut_launches(fl, [(fl.static_op, n) for n in sizes],
+                                   native_op, data)
+    else:
+        cut = (fl.local_iters * dispatched
+               if fl.static_op < native_op else 0)
+    rows = sum((n + (-n) % data) * model for n in
+               (buf - int(d) for d in h["dropped"]))
     quant = cut + (rows if fl.quantize_deltas else 0)
     out = {"quantize": quant, "dequantize": quant,
            "topk_compress": rows if fl.delta_density < 1 else 0,
@@ -1513,6 +1614,182 @@ def hetero_hierarchy_path(torch, dev, launches, reset_launches, flat_run,
     print(f"async-hetero-edges2: edge_time {hop:.6f} s an aggregation, "
           f"virtual_time {h6['virtual_time'].tolist()} == the run without "
           f"the hop")
+    return out
+
+
+def vgg5_mesh_path(torch, dev, launches, reset_launches, card=""):
+    """Phase 4f: phase 4's sfl-op1 set-up at VGG-5's full width on the
+    batched engine and the fused step, mesh-less and over each of
+    ``VGG_MESHES`` (``mesh_devices``: ``MESH_PLACES`` places, all ``dev``),
+    cuDNN held deterministic: the data = 1 meshes' params and history bit
+    for bit the mesh-less run's; at (2, 4) each step within ``MESH_ATOL``
+    of the single-device step on its inputs, OPs, modelled times, comm and
+    drops exact, accuracy within ``BATCHED_ACC_ATOL`` a round;
+    ``run_federated_async`` over
+    ``MESH_ASYNC`` checkpointed and resumed, the suffix and params bit for
+    bit.  Every run's launches exactly what its history and mesh need.
+    Printed with ``card``: each run's wall a round and its server steps'
+    seconds against the mesh-less run's."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs.vgg import VGG5
+    from repro_torch.core.env import SimulatedCluster
+    from repro_torch.core.testbed import paper_testbed
+    from repro_torch.data import make_cifar_like, split_clients
+    from repro_torch.fl.async_loop import run_federated_async
+    from repro_torch.fl.comm import Transport, device_bandwidths
+    from repro_torch.fl.loop import FLConfig, run_federated
+    from repro_torch.models.split_program import get_split_program
+
+    K = 5
+    clients = split_clients(make_cifar_like(1000 * K, seed=1), K)
+    test = make_cifar_like(1000, seed=2)
+    w, devices, c_srv, ovh = paper_testbed(VGG5)
+    program = get_split_program(VGG5)
+    native_op = program.native_op
+    init = program.init(torch.Generator().manual_seed(0), "cpu")
+    n_leaves = sum(len(layer) for layer in init)
+    base = dict(local_iters=10, batch_size=100, seed=0, mode="sfl",
+                static_op=VGG5.ops[0], quantize_transfer=True,
+                delta_density=0.1, quantize_deltas=True, engine="batched")
+    exact = ("ops", "times", "round_time", "comm_time", "dropped")
+    out = {}
+
+    def counted(name, run, want):
+        """``run()`` between a zeroing and a read of the launch counts,
+        its server steps timed; the counts must be ``want(h)``."""
+        reset_launches()
+        t0 = time.perf_counter()
+        with ServerStepProbe(torch, check=False, single=True) as probe:
+            h = run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = dict(launches)
+        expected = want(h)
+        if counts != expected:
+            fail(f"{name}: launches {counts}, its history and mesh need "
+                 f"{expected}")
+        if any(counts[k] <= 0 for k in VGG_KERNELS):
+            fail(f"{name}: a VGG-path kernel never launched: {counts}")
+        out[name] = {"total_s": total, "launches": counts,
+                     "wall_s": [float(t) for t in h["wall_s"]],
+                     "server_step_s": probe["server_step_s"],
+                     "step_vs_single_device": probe[
+                         "single_device_max_abs_err"],
+                     "accuracy": [float(a) for a in h["accuracy"]],
+                     "ops": np.asarray(h["ops"]).tolist(),
+                     "round_time_model_s": h["round_time"].tolist()}
+        print(f"{name}: {total:.2f} s, wall per round (s) "
+              f"{[round(t, 4) for t in out[name]['wall_s']]}, server step "
+              f"(s) {[round(t, 4) for t in probe['server_step_s']]}, "
+              f"launches {counts} (as its history and mesh need)",
+              flush=True)
+        return h
+
+    def sync(mesh_shape):
+        fl = FLConfig(rounds=3, mesh_shape=mesh_shape, **base)
+        sim = SimulatedCluster(w, devices, c_srv, VGG5.ops,
+                               iterations=fl.local_iters, overhead_s=ovh)
+        tag = ("mesh-none" if mesh_shape is None
+               else f"mesh-{mesh_shape[0]}x{mesh_shape[1]}")
+        return counted(tag, lambda: run_federated(
+            VGG5, clients, test, fl, sim=sim,
+            transport=Transport(device_bandwidths(devices)),
+            init_params=init, device=dev,
+            mesh_devices=[dev] * MESH_PLACES),
+            lambda h: expected_launches(h, fl, native_op, n_leaves,
+                                        mesh_shape))
+
+    def run_async(fl, resume=False):
+        sim = SimulatedCluster(w, devices, c_srv, VGG5.ops,
+                               iterations=fl.local_iters, overhead_s=ovh)
+        return run_federated_async(
+            VGG5, clients, test, fl, sim=sim,
+            transport=Transport(device_bandwidths(devices)), resume=resume,
+            init_params=init, device=dev, mesh_devices=[dev] * MESH_PLACES)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = sync(None)
+        for shape in VGG_MESHES:
+            h = sync(shape)
+            what = f"mesh {shape} vs mesh-less"
+            if shape[0] == 1:
+                _same_history(ref, h, ("accuracy",) + exact, what)
+                print(f"{what}: params and history bit for bit")
+                continue
+            for key in exact:
+                if not np_equal(ref[key], h[key]):
+                    fail(f"{what}: {key} {h[key]} != {ref[key]}")
+            # its steps held the single-device step's numbers on their own
+            # inputs (ServerStepProbe(single=True)); across the run the
+            # fp32 reorderings move int8 codes and top-k near-ties, so the
+            # run takes phase 4c's contract between two summation orders
+            # of one algorithm (accuracy within BATCHED_ACC_ATOL a round)
+            # and its params' gap is recorded
+            errs = [(a[k] - b[k]).abs().reshape(-1)
+                    / max(float(a[k].abs().max()), 1e-3)
+                    for a, b in zip(ref["params"], h["params"]) for k in a]
+            gap = max(float(e.max()) for e in errs)
+            share = (sum(int((e > FED_LANE_REL).sum()) for e in errs)
+                     / sum(e.numel() for e in errs))
+            err = max(float((a[k] - b[k]).abs().max())
+                      for a, b in zip(ref["params"], h["params"]) for k in a)
+            acc = float(np.abs(ref["accuracy"] - h["accuracy"]).max())
+            out[f"mesh-{shape[0]}x{shape[1]}"].update(
+                params_max_abs_err=err, params_rel=gap, lane_share=share)
+            finite = all(bool(torch.isfinite(v).all())
+                         for layer in h["params"] for v in layer.values())
+            if acc > BATCHED_ACC_ATOL or not finite:
+                fail(f"{what}: accuracy within {acc} (<= "
+                     f"{BATCHED_ACC_ATOL}?), params finite {finite}")
+            steps = out[f"mesh-{shape[0]}x{shape[1]}"][
+                "step_vs_single_device"]
+            print(f"{what}: OPs, modelled times, comm and drops exact; each "
+                  f"step within {max(steps):.3g} <= {MESH_ATOL} of the "
+                  f"single-device step on its inputs, EF rows bitwise; "
+                  f"accuracy within {acc} <= {BATCHED_ACC_ATOL}; the run's "
+                  f"params {err:.3g} apart ({gap:.3g} of a leaf's max, "
+                  f"{share:.3g} of the lanes beyond {FED_LANE_REL})")
+
+        # run_federated_async over MESH_ASYNC: 4 aggregations, a
+        # checkpoint at 2 (none at the last), then resumed from it
+        suffix = ("accuracy", "virtual_time", "staleness", "round_time",
+                  "dropped", "agg_weight_sum")
+        tag = f"mesh-async-{MESH_ASYNC[0]}x{MESH_ASYNC[1]}"
+        with tempfile.TemporaryDirectory() as ck:
+            fl = FLConfig(rounds=4, buffer_size=3, staleness_discount=0.5,
+                          checkpoint_dir=ck, checkpoint_every=2,
+                          mesh_shape=MESH_ASYNC, **base)
+            full, resumed = (counted(
+                name, lambda: run_async(fl, resume),
+                lambda h: expected_async_launches(
+                    h, fl, native_op, K, resumed=resume,
+                    mesh_shape=MESH_ASYNC))
+                for name, resume in ((tag, False),
+                                     (f"{tag}-resumed", True)))
+        if len(resumed["accuracy"]) != 2:
+            fail(f"{tag}: the resumed run took {len(resumed['accuracy'])} "
+                 f"aggregations, not the 2 after its checkpoint")
+        tail = {k: (v[-2:] if k != "params" else v) for k, v in full.items()}
+        _same_history(tail, resumed, suffix, f"{tag} resume")
+        if full["staleness"].max() <= 0:
+            fail(f"{tag}: no report was ever stale")
+        print(f"{tag}: resumed at 2 of 4 aggregations == the straight run's "
+              f"suffix and params, bit for bit")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    none = out["mesh-none"]
+    for name, r in out.items():
+        print(f"{name} ({card}, {MESH_PLACES} places on one card, no "
+              f"inter-card traffic): wall a round "
+              f"{[round(t, 4) for t in r['wall_s']]} s, server step "
+              f"{[round(t, 4) for t in r['server_step_s']]} s; mesh-less "
+              f"{[round(t, 4) for t in none['wall_s']]} / "
+              f"{[round(t, 4) for t in none['server_step_s']]} s",
+              flush=True)
     return out
 
 
@@ -3621,7 +3898,7 @@ def mamba2_training_path(torch, ts, dev, launches, reset_launches):
     return out, real
 
 
-def fed_lm_launches(cfg, h, fl, native_op, K):
+def fed_lm_launches(cfg, h, fl, native_op, K, mesh_shape=None):
     """Each kernel's launches in a ``run_federated`` run over an LM from
     its history (no failures, no deadline): every local step runs the
     sequence mixer's forward twice a layer (the forward and its remat
@@ -3629,12 +3906,15 @@ def fed_lm_launches(cfg, h, fl, native_op, K):
     test set at the native OP under ``no_grad``) runs the forward once a
     layer; the int8 pair once a step below the native OP and once per
     surviving client row for the delta wire; top-k once per surviving
-    client row."""
+    client row (on a ``mesh_shape`` mesh: rows padded to the ``data``
+    size, each once per model shard)."""
     rounds = len(h["ops"])
     steps = fl.local_iters * K * rounds
     cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
                                    for op in row))
-    kept = int(sum(K - int(d) for d in h["dropped"]))
+    data, model = mesh_shape or (1, 1)
+    kept = sum((n + (-n) % data) * model
+               for n in (K - int(d) for d in h["dropped"]))
     L = cfg.num_layers
     ssm = cfg.family == "ssm"
     mixer = {"fwd": 2 * L * steps + L * rounds, "bwd": L * steps}
@@ -3715,31 +3995,39 @@ def fed_lm_setup(cfg, fl, K):
 
 
 def fed_lm_run(torch, cfg, fl, K, dev, launches, reset_launches, what,
-               wrap):
+               wrap, keep=None):
     """One ``run_federated`` run of phase 5g on the card, its params drawn
     by the run itself (``program.init(seed)`` on the card): its launches
     exactly what its history needs, its OPs, modelled round and comm
     times, drops and ``edge_time`` equal to the CPU replay, the -CE metric
     finite every round.  ``wrap()`` is the run's server-step probe (a
-    context manager whose value is its record).  Returns the record."""
+    context manager whose value is its record).  With ``fl.mesh_shape``
+    the mesh's places are all ``dev``.  ``keep`` (a dict) receives the
+    final params' flat buffer on the host (``"flat"``) and the history's
+    arrays (``"hist"``).  Returns the record."""
     import numpy as np
     from repro_torch.fl.flatbuf import FlatLayout
     from repro_torch.fl.loop import run_federated
     free_card(torch)
     program, clients, test, links, replay = fed_lm_setup(cfg, fl, K)
     sim, transport, edges = links()
+    mesh = tuple(fl.mesh_shape) if fl.mesh_shape is not None else None
+    places = [dev] * (mesh[0] * mesh[1]) if mesh is not None else None
     reset_launches()
     t0 = time.perf_counter()
     with wrap() as probe:
         h = run_federated(cfg, clients, test, fl, sim=sim,
                           transport=transport, edge_transport=edges,
-                          device=dev)
+                          device=dev, mesh_devices=places)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launches)
     n = count_params(h["params"])
     layout = FlatLayout(h["params"])
-    want = fed_lm_launches(cfg, h, fl, program.native_op, K)
+    if keep is not None:
+        keep["flat"] = layout.flatten(h["params"]).cpu()
+        keep["hist"] = {k: np.asarray(h[k]) for k in h if k != "params"}
+    want = fed_lm_launches(cfg, h, fl, program.native_op, K, mesh)
     print(f"fed-{what}: {n:,} fp32 params ({n * 4 / 2**30:.2f} GiB), the "
           f"flat buffer {layout.padded:,} lanes ({layout.padded // 1024:,} "
           f"blocks of 1024); launches {counts} (expected from its history: "
@@ -3853,11 +4141,35 @@ class ServerStepProbe:
     """Wraps ``ServerStep.__call__`` for one run: each call's seconds (a
     sync before and after) and, with ``check``, round 1's step (the
     second, with nonzero EF rows) checked by ``server_step_check``, its
-    seconds kept apart."""
+    seconds kept apart.  With ``single``, every call of a mesh step whose
+    ``data`` size is above 1 is held against the single-device
+    ``ServerStep`` on the same inputs (no launch counted): the new global
+    within ``MESH_ATOL`` (the data shards' partial sums add in another
+    order), the EF rows bit for bit (each row's wire is the same ops)."""
 
-    def __init__(self, torch, check=True):
-        self.torch, self.check = torch, check
+    def __init__(self, torch, check=True, single=False):
+        self.torch, self.check, self.single = torch, check, single
         self.rec = {"server_step_s": [], "check_s": None}
+        if single:
+            self.rec["single_device_max_abs_err"] = []
+
+    def against_single(self, step, g, deltas, weights, errors, masks,
+                       new_g, new_err):
+        from repro_torch.fl import flatbuf
+        if not isinstance(step, flatbuf.ShardedServerStep) \
+                or step.data_size == 1:
+            return
+        one = flatbuf.ServerStep(step.layout, step.density, step.quantize)
+        want_g, want_err = quiet_launches(
+            lambda: self.orig(one, g, deltas, weights, errors, masks))
+        err = float((new_g - want_g).abs().max())
+        self.rec["single_device_max_abs_err"].append(err)
+        if err > MESH_ATOL or (new_err is not None
+                               and not self.torch.equal(new_err, want_err)):
+            fail(f"mesh step (data={step.data_size}) vs the single-device "
+                 f"step on its inputs: global within {err:.3g} (bound "
+                 f"{MESH_ATOL}), EF rows bitwise "
+                 f"{new_err is None or self.torch.equal(new_err, want_err)}")
 
     def __enter__(self):
         from repro_torch.fl import flatbuf
@@ -3870,6 +4182,9 @@ class ServerStepProbe:
             new_g, new_err = orig(step, g, deltas, weights, errors, masks)
             torch.cuda.synchronize()
             rec["server_step_s"].append(time.perf_counter() - t0)
+            if self.single:
+                self.against_single(step, g, deltas, weights, errors, masks,
+                                    new_g, new_err)
             if self.check and len(rec["server_step_s"]) == 2:
                 t1 = time.perf_counter()
                 rec["check"] = server_step_check(torch, step, g, deltas,
@@ -3952,14 +4267,17 @@ class WidthProbe:
         return False
 
 
-def federated_lm_path(torch, dev, launches, reset_launches, card=""):
+def federated_lm_path(torch, dev, launches, reset_launches, card="",
+                      keep=None):
     """Phase 5g: ``run_federated`` over qwen3-0.6b at full width and depth
     (sfl at OP 14, the int8 cut, top-k 0.1 EF, int8 deltas, the fused
     server step, round 1's step checked against the plain versions), the
     same set-up with widths and two edges for one round, then mamba2-780m
     at full width, 12 of 48 layers, one round at OP 6 with the int8 cut.
-    ``card`` (the card's name and power limit) goes on each summary line.
-    Returns the records by path name."""
+    ``card`` (the card's name and power limit) goes on each summary line;
+    ``keep`` receives the qwen3-0.6b run's final flat params and history
+    (``fed_lm_run``), phase 5i's yardstick.  Returns the records by path
+    name."""
     import dataclasses
     from repro_torch.configs.mamba2_780m import CONFIG as mamba_cfg
     from repro_torch.configs.qwen3_0_6b import CONFIG as qwen_cfg
@@ -3971,7 +4289,7 @@ def federated_lm_path(torch, dev, launches, reset_launches, card=""):
     out = {}
     out["fed-qwen3-0.6b"] = fed_lm_run(
         torch, qwen_cfg, fl, FED_K, dev, launches, reset_launches,
-        "qwen3-0.6b", wrap=lambda: ServerStepProbe(torch))
+        "qwen3-0.6b", wrap=lambda: ServerStepProbe(torch), keep=keep)
     wide = dataclasses.replace(fl, rounds=1, client_widths=FED_WIDTHS,
                                num_edges=2, delta_density=1.0)
     out["fed-qwen3-0.6b-widths"] = fed_lm_run(
@@ -4281,6 +4599,136 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
           f"({len(rec['decode_step_s'])}); peak {peak:.2f} GiB (with the "
           f"check {peak_with_check:.2f}); the whole run {wall:.2f} s",
           flush=True)
+    return out
+
+
+def moe_mesh_drill(torch, dev, arch, cf, cases, launches, reset_launches):
+    """One MoE layer of ``arch`` at full width (seeded weights drawn on the
+    card), its capacity factor ``cf``: the local block and the sharded
+    block (``use_rules`` over each case's mesh of ``dev`` places, under
+    ``moe_int8_gather()`` where the case says) on ``MOE_MESH_S`` tokens and
+    on one decode step of ``MOE_MESH_ROWS`` rows, each within its bound of
+    the largest local value; no repo kernel launches.  Returns the
+    record."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import (make_axis_rules,
+                                               make_flat_mesh, use_rules)
+    free_card(torch)
+    cfg0 = get_config(arch)
+    cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+        cfg0.moe, capacity_factor=cf))
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    p = L.init_moe(torch.Generator(device=dev).manual_seed(0), cfg,
+                   torch.float32)
+    n = sum(v.numel() for v in p.values() if torch.is_tensor(v)) + sum(
+        v.numel() for v in p.get("dense", {}).values())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    xs = {"S": torch.randn((1, MOE_MESH_S, cfg.d_model), generator=gen,
+                           device=dev) * 0.5,
+          "decode": torch.randn((MOE_MESH_ROWS, 1, cfg.d_model),
+                                generator=gen, device=dev) * 0.5}
+    rec = {"params": n, "capacity_factor": cf, "cases": {}}
+    reset_launches()
+    with torch.no_grad():
+        # nothing dropped: the busiest expert's load within the capacity
+        _, topi = L.moe_route(cfg, p, xs["S"].reshape(-1, cfg.d_model))
+        load = int(torch.bincount(topi.reshape(-1), minlength=E).max())
+        C = max(1, int(cf * MOE_MESH_S * k / E))
+        if load > C:
+            fail(f"{arch}: an expert takes {load} tokens, capacity {C}")
+        rec["busiest_expert"], rec["capacity"] = load, C
+
+        def timed(fn, reps=3):
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return y, statistics.median(ts)
+
+        local = {key: timed(lambda x=x: L._moe_block_local(cfg, p, x))
+                 for key, x in xs.items()}
+        for shape, int8 in cases:
+            mesh = make_flat_mesh(shape, devices=[dev] * (shape[0]
+                                                          * shape[1]))
+            rules = make_axis_rules(mesh)
+            kind = ("A" if E % shape[1] == 0 else "B") + (
+                " FSDP" if shape[0] > 1 else "") + (" int8" if int8 else "")
+            bound = MOE_INT8_GATHER_REL if int8 else MOE_MESH_REL
+            for key, x in xs.items():
+                with use_rules(rules), L.moe_int8_gather(int8):
+                    y, ms = timed(lambda: L.moe_block(cfg, p, x))
+                want, local_ms = local[key]
+                rel = float((y - want).abs().max() / want.abs().max())
+                name = f"{shape[0]}x{shape[1]}{'-int8' if int8 else ''}-{key}"
+                rec["cases"][name] = {"case": kind, "rel_err": rel,
+                                      "ms": ms, "local_ms": local_ms}
+                print(f"{arch} MoE layer, case {kind} on {shape} "
+                      f"({key}: {tuple(x.shape)}): sharded {ms:.2f} ms vs "
+                      f"local {local_ms:.2f} ms, within {rel:.3g} of the "
+                      f"largest local value (bound {bound})", flush=True)
+                if not bool(torch.isfinite(y).all()) or rel > bound:
+                    fail(f"{arch} {name}: sharded vs local {rel:.3g} > "
+                         f"{bound}")
+    if any(launches.values()):
+        fail(f"{arch} MoE layers launched a repo kernel: {dict(launches)}")
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} MoE layer: {n:,} fp32 params, busiest expert {load} of "
+          f"capacity {C}, peak {rec['peak_memory_gib']:.2f} GiB", flush=True)
+    del p, xs, local
+    return rec
+
+
+def lm_mesh_path(torch, dev, launches, reset_launches, card, fed_ref):
+    """Phase 5i: phase 5g's qwen3-0.6b run over ``FED_MESH`` (places all
+    ``dev``), its params and history bit for bit phase 5g's (``fed_ref``,
+    from ``federated_lm_path(keep=)``), launches exactly what its history
+    and mesh need; then ``moe_mesh_drill`` over ``MOE_MESH_CASES``.
+    Returns the records."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.qwen3_0_6b import CONFIG as qwen_cfg
+    from repro_torch.fl.loop import FLConfig
+    from repro_torch.parallel.sharding import flat_shard_tail
+    fl = FLConfig(rounds=2, local_iters=2, batch_size=1, lr=FED_LR,
+                  augment=False, mode="sfl", static_op=FED_OP,
+                  quantize_transfer=True, delta_density=0.1,
+                  quantize_deltas=True, seed=0, mesh_shape=FED_MESH)
+    keep = {}
+    tag = f"fed-qwen3-0.6b-mesh-{FED_MESH[0]}x{FED_MESH[1]}"
+    out = {tag: fed_lm_run(
+        torch, qwen_cfg, fl, FED_K, dev, launches, reset_launches,
+        f"qwen3-0.6b on mesh {FED_MESH}",
+        wrap=lambda: ServerStepProbe(torch, check=False), keep=keep)}
+    r = out[tag]
+    tail = flat_shard_tail(r["flat_lanes"], 1024, FED_MESH[1])
+    r["tail_lanes"] = tail
+    for key, want in fed_ref["hist"].items():
+        if key != "wall_s" and not np.array_equal(keep["hist"][key], want):
+            fail(f"{tag}: {key} {keep['hist'][key]} != phase 5g's {want}")
+    if not torch.equal(keep["flat"], fed_ref["flat"]):
+        fail(f"{tag}: final params differ from phase 5g's")
+    print(f"{tag}: params ({r['flat_lanes']:,} lanes + a tail of {tail}) "
+          f"and history bit for bit phase 5g's run", flush=True)
+    del keep
+    for arch, (cf, cases) in MOE_MESH_CASES.items():
+        out[f"moe-{arch}"] = moe_mesh_drill(torch, dev, arch, cf, cases,
+                                            launches, reset_launches)
+        free_card(torch)
+    r, ref = out[tag], fed_ref["record"]
+    print(f"{tag} ({card}, {FED_MESH[0] * FED_MESH[1]} places on one card, "
+          f"no inter-card traffic): wall a round "
+          f"{[round(t, 3) for t in r['round_wall_s']]} s, server step "
+          f"{[round(t, 3) for t in r['server_step_s']]} s, peak "
+          f"{r['peak_memory_gib']:.2f} GiB; phase 5g's "
+          f"{[round(t, 3) for t in ref['round_wall_s']]} / "
+          f"{[round(t, 3) for t in ref['server_step_s']]} s, "
+          f"{ref['peak_memory_gib']:.2f} GiB", flush=True)
     return out
 
 
@@ -5170,6 +5618,13 @@ def main() -> None:
             {name: run for name, run in record["hetero"].items()
              if isinstance(run, dict) and "launches" in run})
 
+        phase("4f. VGG-5 on a mesh: (1, 1), (1, 8) and (2, 4) over "
+              f"{MESH_PLACES} places of one card, and async over "
+              f"{MESH_ASYNC} with a resume")
+        record["mesh"] = vgg5_mesh_path(torch, dev, LAUNCHES,
+                                        reset_launches, card)
+        record["main_path"].update(record["mesh"])
+
         phase("5. serving main path: ServeEngine on gemma2-2b, full width")
         serving, real = gemma2_main_path(torch, tf, dev, LAUNCHES,
                                          reset_launches)
@@ -5230,8 +5685,10 @@ def main() -> None:
         phase("5g. federated LM training: run_federated over qwen3-0.6b "
               "(full width and depth; then widths and two edges) and "
               "mamba2-780m (12 of 48 layers)")
+        fed_ref = {}
         record["main_path"].update(federated_lm_path(
-            torch, dev, LAUNCHES, reset_launches, card))
+            torch, dev, LAUNCHES, reset_launches, card, keep=fed_ref))
+        fed_ref["record"] = record["main_path"]["fed-qwen3-0.6b"]
         free_card(torch)
 
         phase("5h. federated training published into a live server: "
@@ -5239,6 +5696,18 @@ def main() -> None:
               "into a ServeEngine through a ParamStore")
         record["main_path"]["hotswap-qwen3-0.6b"] = hotswap_lm_path(
             torch, dev, LAUNCHES, reset_launches, card)
+        free_card(torch)
+
+        phase(f"5i. the LM on a mesh: phase 5g's qwen3-0.6b run over "
+              f"{FED_MESH}, and the expert-parallel MoE layer of "
+              f"mixtral-8x22b and arctic-480b at full width")
+        lm_mesh = lm_mesh_path(torch, dev, LAUNCHES, reset_launches, card,
+                               fed_ref)
+        del fed_ref
+        record["main_path"].update(
+            {k: v for k, v in lm_mesh.items() if "launches" in v})
+        record["moe_mesh"] = {k: v for k, v in lm_mesh.items()
+                              if "launches" not in v}
         free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}

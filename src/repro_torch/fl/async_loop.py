@@ -18,9 +18,10 @@ stacked fresh rows (reports carry flat delta rows), or with
 ``server_step="reference"`` through ``reference_server_step``; with
 ``client_widths`` both take the fresh reporters' mask rows, and with
 ``num_edges > 0`` the fused rows go through the two-tier server
-(``fl/hierarchy.py``).  The edge->root hop (``edge_transport``) is reported
-as the ``edge_time`` column but not clocked: the virtual clock is
-event-driven and ignores it.  Clients
+(``fl/hierarchy.py``); ``mesh_shape`` threads the sync loop's mesh through
+the layout, the engine and the server step.  The edge->root hop
+(``edge_transport``) is reported as the ``edge_time`` column but not
+clocked: the virtual clock is event-driven and ignores it.  Clients
 behind dead links (``Transport`` returns ``inf``) never report; they are
 re-dispatched with the current params at every aggregation
 (``EventQueue.drop_unreachable``), and a fleet whose every in-flight
@@ -56,8 +57,8 @@ from repro_torch.fl.cohort import CohortSampler, EFStore
 from repro_torch.fl.comm import Transport
 from repro_torch.fl.flatbuf import (
     FlatLayout,
-    ServerStep,
     get_root_step,
+    get_server_step,
     reference_server_step,
 )
 from repro_torch.fl.fleet import get_engine, rows_as_list
@@ -70,6 +71,7 @@ from repro_torch.fl.loop import (
     _error_state,
     _initial_params,
     _resolve_hetero,
+    _resolve_mesh,
     _resolve_planner,
     _restore_controller,
     _restore_errors,
@@ -116,6 +118,7 @@ def run_federated_async(
     init_params=None,
     device=None,
     edge_transport: Optional[Transport] = None,
+    mesh_devices=None,
 ) -> Dict[str, np.ndarray]:
     """Train ``cfg`` (a ``VGGConfig``, or any ``ModelConfig`` with a
     split program on token batches, as ``run_federated``) through the
@@ -134,8 +137,8 @@ def run_federated_async(
 
     ``on_aggregate(version, params, g_flat=...)`` fires after every
     aggregation (``g_flat``: the flat global under the fused server step,
-    else ``None``).  ``device``, ``init_params`` and ``resume`` are as in
-    ``run_federated``.
+    else ``None``).  ``device``, ``init_params``, ``resume`` and
+    ``mesh_devices`` (with ``fl.mesh_shape``) are as in ``run_federated``.
     """
     device = resolve_device(device)
     _check_ported(fl)
@@ -158,7 +161,12 @@ def run_federated_async(
 
     params = _initial_params(program, fl, init_params, device)
     fused = fl.server_step == "fused"
-    layout = FlatLayout(params)
+    mesh = _resolve_mesh(fl, fused, device, mesh_devices)
+    if mesh is None:
+        layout = FlatLayout(params)
+    else:
+        params = program.shard_params(params, mesh)
+        layout = program.flat_layout(params, mesh=mesh)
     if fl.checkpoint_dir and not layout.exact_fp32:
         raise ValueError(
             "async checkpoint/resume needs an fp32 parameter layout "
@@ -167,7 +175,7 @@ def run_federated_async(
     loaders = FleetLoader.for_clients(clients_data, fl.batch_size,
                                       seed=fl.seed)
     engine = get_engine(fl.engine, program, fl.local_iters, fl.seed,
-                        fl.augment, fl.quantize_transfer, device)
+                        fl.augment, fl.quantize_transfer, device, mesh=mesh)
     native_op = program.native_op
     sizes = np.asarray([len(d["labels"]) for d in clients_data], np.float64)
     cohort = (CohortSampler(K, C, seed=fl.seed)
@@ -178,7 +186,7 @@ def run_federated_async(
     virtualized = isinstance(delta_errors, EFStore)
     ctl = controller if controller is not None \
         else getattr(planner, "controller", None)
-    srv = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
+    srv = (get_server_step(layout, fl.delta_density, fl.quantize_deltas)
            if fused else None)
     root = get_root_step(layout) if fl.num_edges > 0 else None
     g_flat = layout.flatten(params) if fused else None
@@ -203,6 +211,8 @@ def run_federated_async(
             params, delta_errors, ctl, K, C, layout, template=True,
             ef_len=ef_template_len(shapes)))
         params = restored["params"]
+        if mesh is not None:
+            params = program.shard_params(params, mesh)
         if fused:
             g_flat = layout.flatten(params)
         delta_errors = _restore_errors(delta_errors, restored)

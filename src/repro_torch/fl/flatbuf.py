@@ -31,6 +31,23 @@ device): aggregate the clients' weight deltas into the global model.
   tier of the two-tier server (``fl/hierarchy.py``), whose ``(E, padded)``
   rows ``RootStep`` combines and applies at the root.  ``__call__`` is
   reduce then apply, in the same operations as before the split.
+* ``ShardedFlatLayout`` / ``ShardedServerStep`` run the step over a
+  ``(data, model)`` mesh (``parallel.sharding.make_flat_mesh``, behind
+  ``FLConfig.mesh_shape``): the buffer gains a zero tail so it splits into
+  ``model`` shards of whole blocks (``flat_shard_tail``; the tail's blocks
+  carry ``(valid=0, k=1)`` metadata), client rows split along ``data``.
+  Averaging is the single-device program.  The compression paths run the
+  reference's ``shard_map`` body once per place ``(i, j)``: data shard
+  ``i``'s rows (zero-padded, at zero weight, to a multiple of ``data``)
+  over model shard ``j``'s lanes, through top-k with that shard's slice of
+  the metadata (``topk_compress_rows``) and the int8 pair over its rows of
+  one block; each model shard's partial sums then add over ``data`` in
+  place order (``parallel.sharding.psum``) and gather back to the mesh's
+  home place, where the global buffers stay one tensor.  Every op is
+  block-local and shards are whole blocks, so ``data = 1`` is the
+  single-device step bit for bit; ``data > 1`` adds the partial sums in
+  another order (fp32 tolerance).  ``layout_of`` and ``get_server_step``
+  pick the sharded classes for a mesh.
 """
 from __future__ import annotations
 
@@ -46,8 +63,9 @@ from repro_torch.kernels.quant_transfer import dequantize_rows, quantize_rows
 from repro_torch.kernels.topk_compress import (
     compress_tree,
     density_block_meta,
-    topk_compress_flat,
+    topk_compress_rows,
 )
+from repro_torch.parallel.sharding import flat_shard_tail, psum
 from repro_torch.tree import (
     tree_leaves,
     tree_map,
@@ -93,7 +111,7 @@ class FlatLayout:
         parts = [F.pad(leaf.detach().reshape(-1).to(torch.float32),
                        (0, seg - sz))
                  for leaf, sz, seg in zip(leaves, self.sizes, self.segs)]
-        return torch.cat(parts)
+        return self._cat(parts, 0)
 
     def unflatten(self, buf: torch.Tensor) -> Params:
         """Exact inverse of ``flatten`` (padding dropped, dtypes restored;
@@ -116,7 +134,11 @@ class FlatLayout:
                        .to(torch.float32), (0, seg - sz))
                  for leaf, sz, seg in zip(tree_leaves(tree), self.sizes,
                                           self.segs)]
-        return torch.cat(parts, dim=1)
+        return self._cat(parts, 1)
+
+    def _cat(self, parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+        """The leaves' padded segments, joined along the buffer's dim."""
+        return torch.cat(parts, dim=dim)
 
     def rows_to_deltas(self, rows, g_flat: torch.Tensor) -> torch.Tensor:
         """Client parameter rows (the sequential engine's list, or the
@@ -137,6 +159,57 @@ class FlatLayout:
         budget from its true (unpadded) element count."""
         return np.concatenate([density_block_meta(sz, self.block, density)
                                for sz in self.sizes], axis=0)
+
+
+class ShardedFlatLayout(FlatLayout):
+    """``FlatLayout`` over a ``(data, model)`` mesh: the flat vector splits
+    along ``model`` in whole blocks, stacked client rows along ``data``.
+
+    The buffer gains ``tail`` zero lanes (``flat_shard_tail``) so its block
+    count divides the model-axis size: every shard owns ``shard_elems``
+    distinct lanes, the tail's blocks carry ``(valid=0, k=1)`` metadata and
+    stay zero in every delta and EF row.  Buffers stay one tensor on the
+    caller's device (the mesh's home place): the loops, checkpoints and hot
+    swap never see the mesh.  ``unflatten`` reads only the leaf segments,
+    so round trips stay bitwise."""
+
+    def __init__(self, params: Params, mesh, block: int = 1024):
+        super().__init__(params, block=block)
+        if not {"data", "model"} <= set(mesh.shape):
+            raise ValueError(f"mesh axes {tuple(mesh.shape)} must include "
+                             f"'data' and 'model'")
+        self.mesh = mesh
+        self.data_size = int(mesh.shape["data"])
+        self.model_size = int(mesh.shape["model"])
+        self.base_padded = self.padded
+        self.tail = flat_shard_tail(self.padded, self.block, self.model_size)
+        self.padded += self.tail
+        self.shard_elems = self.padded // self.model_size
+
+    def _cat(self, parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+        if self.tail:
+            shape = list(parts[0].shape)
+            shape[dim] = self.tail
+            parts = parts + [parts[0].new_zeros(shape)]
+        return torch.cat(parts, dim=dim)
+
+    def block_meta(self, density: float) -> np.ndarray:
+        """The base per-leaf ``(valid, k)`` rows plus ``(0, 1)`` rows over
+        the tail's blocks (they keep lane 0 of an all-zero block, so the
+        tail stays exactly zero in the output and the error feedback)."""
+        rows = super().block_meta(density)
+        if not self.tail:
+            return rows
+        return np.concatenate([rows, np.tile(np.asarray([[0, 1]], np.int32),
+                                             (self.tail // self.block, 1))])
+
+
+def layout_of(params: Params, block: int = 1024, mesh=None) -> FlatLayout:
+    """The flat layout of a params tree: ``FlatLayout``, or with ``mesh``
+    (``parallel.sharding.make_flat_mesh``) the ``ShardedFlatLayout``."""
+    if mesh is None:
+        return FlatLayout(params, block=block)
+    return ShardedFlatLayout(params, mesh, block=block)
 
 
 def _normalized_f64(weights: Sequence[float],
@@ -173,6 +246,8 @@ class ServerStep:
         # the per-block (valid, k) table, moved to the buffers' device once
         self._meta = (torch.from_numpy(layout.block_meta(self.density))
                       if self.track_errors else None)
+        self._kmax = (int(self._meta[:, 1].max()) if self.track_errors
+                      else 0)
 
     def _reduce_core(self, deltas: torch.Tensor, w: torch.Tensor,
                      errors: Optional[torch.Tensor],
@@ -184,29 +259,44 @@ class ServerStep:
             if masks is None:
                 return w @ deltas, None, None
             return w @ (masks * deltas), w @ masks, None
-        block = self.layout.block
         if self.track_errors and self._meta.device != deltas.device:
             self._meta = self._meta.to(deltas.device)
         acc = torch.zeros_like(deltas[0])
         den = torch.zeros_like(acc) if masks is not None else None
         new_err = torch.empty_like(errors) if self.track_errors else None
         for i in range(deltas.shape[0]):
-            d = deltas[i] if masks is None else masks[i] * deltas[i]
-            carried = d + errors[i] if self.track_errors else d
-            comp = (topk_compress_flat(carried[None], self._meta, block)[0]
-                    if self.track_errors else carried)
-            if self.quantize:
-                q, s = quantize_rows(comp.view(-1, block))
-                sent = dequantize_rows(q, s).view(-1)
-            else:
-                sent = comp
-            if masks is not None:
-                sent = masks[i] * sent
-                den = den + w[i] * masks[i]
+            m = masks[i] if masks is not None else None
+            carried, sent = self._send(
+                deltas[i], errors[i] if self.track_errors else None, m,
+                self._meta)
+            if m is not None:
+                den = den + w[i] * m
             if self.track_errors:
                 new_err[i] = carried - sent
             acc = acc + w[i] * sent
         return acc, den, new_err
+
+    def _send(self, d: torch.Tensor, e: Optional[torch.Tensor],
+              m: Optional[torch.Tensor], meta: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One client row (or its lanes of one model shard) through the
+        wire: ``(carried, sent)``.  ``meta`` is the lanes' ``(valid, k)``
+        table."""
+        block = self.layout.block
+        if m is not None:
+            d = m * d
+        carried = d + e if self.track_errors else d
+        comp = (topk_compress_rows(carried[None], meta, self._kmax,
+                                   block)[0]
+                if self.track_errors else carried)
+        if self.quantize:
+            q, s = quantize_rows(comp.view(-1, block))
+            sent = dequantize_rows(q, s).view(-1)
+        else:
+            sent = comp
+        if m is not None:
+            sent = m * sent
+        return carried, sent
 
     def __call__(self, g_flat: torch.Tensor, deltas: torch.Tensor,
                  weights: Sequence[float],
@@ -231,6 +321,97 @@ class ServerStep:
         (else ``None``) and the members' new error rows."""
         return self._reduce_core(
             deltas, _normalized_f64(weights, deltas.device), errors, masks)
+
+
+class ShardedServerStep(ServerStep):
+    """``ServerStep`` over a ``ShardedFlatLayout``'s mesh: the same call
+    contract (buffers on the mesh's home place) and the same numbers.
+
+    Averaging (no top-k, no int8) is the inherited program.  The
+    compression paths run once per place ``(i, j)``: the rows of data shard
+    ``i`` (the ``K`` rows padded with zero rows of zero weight to a
+    multiple of ``data``) over the lanes of model shard ``j``, sent to that
+    place (views when the places coincide), through ``_send`` with the
+    shard's slice of the block metadata, accumulated ``acc += w_i * sent``
+    in row order.  Each model shard's partial sums then add over ``data``
+    in place order and gather to the home place, where ``__call__``
+    applies them (elementwise, so the values an apply per shard gives); the
+    pad rows' EF rows are dropped.  Top-k and the int8 pair launch once per
+    (padded row, model shard)."""
+
+    def __init__(self, layout: ShardedFlatLayout, density: float = 1.0,
+                 quantize: bool = False):
+        if not isinstance(layout, ShardedFlatLayout):
+            raise TypeError("ShardedServerStep needs a ShardedFlatLayout; "
+                            "use ServerStep for the single-device layout")
+        super().__init__(layout, density=density, quantize=quantize)
+        self.mesh = layout.mesh
+        self.data_size = layout.data_size
+        self._metas = {}
+
+    def _meta_on(self, place: torch.device) -> torch.Tensor:
+        if place not in self._metas:
+            self._metas[place] = self._meta.to(place)
+        return self._metas[place]
+
+    def _reduce_core(self, deltas, w, errors, masks):
+        if not self.track_errors and not self.quantize:
+            return super()._reduce_core(deltas, w, errors, masks)
+        lay, home = self.layout, deltas.device
+        K, data = int(deltas.shape[0]), self.data_size
+        rows = (K + (-K) % data) // data         # padded rows a data shard
+        S, nbs = lay.shard_elems, lay.shard_elems // lay.block
+        new_err = torch.empty_like(errors) if self.track_errors else None
+        accs, dens = [], []
+        for j in range(lay.model_size):
+            lanes = slice(j * S, (j + 1) * S)
+            acc_j, den_j = [], []
+            for i in range(data):
+                place = self.mesh.devices[i, j]
+                meta = (self._meta_on(place)[j * nbs:(j + 1) * nbs]
+                        if self.track_errors else None)
+                w_p = w.to(place)
+                zero = torch.zeros(S, dtype=torch.float32, device=place)
+                acc = zero
+                den = zero if masks is not None else None
+                for r in range(i * rows, (i + 1) * rows):
+                    if r < K:
+                        d = deltas[r, lanes].to(place)
+                        e = (errors[r, lanes].to(place)
+                             if self.track_errors else None)
+                        m = (masks[r, lanes].to(place)
+                             if masks is not None else None)
+                        wr = w_p[r]
+                    else:    # a pad row: zero delta, error and weight
+                        d, wr = zero, w_p.new_zeros(())
+                        e = zero if self.track_errors else None
+                        m = zero if masks is not None else None
+                    carried, sent = self._send(d, e, m, meta)
+                    if m is not None:
+                        den = den + wr * m
+                    if self.track_errors and r < K:
+                        new_err[r, lanes] = carried - sent
+                    acc = acc + wr * sent
+                acc_j.append(acc)
+                den_j.append(den)
+            first = self.mesh.devices[0, j]
+            accs.append(psum(acc_j, first).to(home))
+            if masks is not None:
+                dens.append(psum(den_j, first).to(home))
+        acc = accs[0] if len(accs) == 1 else torch.cat(accs)
+        den = None
+        if masks is not None:
+            den = dens[0] if len(dens) == 1 else torch.cat(dens)
+        return acc, den, new_err
+
+
+def get_server_step(layout: FlatLayout, density: float = 1.0,
+                    quantize: bool = False) -> ServerStep:
+    """The server step for a layout: ``ShardedServerStep`` for a
+    ``ShardedFlatLayout``, else ``ServerStep``."""
+    cls = (ShardedServerStep if isinstance(layout, ShardedFlatLayout)
+           else ServerStep)
+    return cls(layout, density=density, quantize=quantize)
 
 
 class RootStep:

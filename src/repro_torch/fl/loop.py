@@ -24,9 +24,13 @@ masked local training, the coverage-count server step, and Eq. 1 compute
 scaled by ``width**2``.  ``num_edges > 0`` aggregates through the two-tier
 server (``fl/hierarchy.py``, fused step only); with an ``edge_transport``
 the slowest edge's hop to the root is the ``edge_time`` column and extends
-the round.  The reference's one knob the port does not run yet, a device
-mesh (``mesh_shape``), raises ``NotImplementedError`` naming its ROADMAP
-item rather than being ignored.
+the round.  ``mesh_shape=(data, model)`` runs the round over a device mesh
+(``parallel.sharding.make_flat_mesh`` over ``mesh_devices``, by default
+the visible cards, or the one CPU device of a CPU run): the flat layout
+gains its shard tail, the fused server step shards over the mesh
+(``ShardedServerStep``, the edges' ``reduce`` too) and the batched engine
+trains each data shard's clients on its own place; ``mesh_shape=(1, 1)``
+is the mesh-less run bit for bit.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.controller import FedAdaptController
 from repro_torch.core.env import SimulatedCluster
@@ -47,8 +51,8 @@ from repro_torch.fl.comm import Transport
 from repro_torch.fl.fedavg import fedavg_delta_stacked, model_bytes
 from repro_torch.fl.flatbuf import (
     FlatLayout,
-    ServerStep,
     get_root_step,
+    get_server_step,
     reference_server_step,
 )
 from repro_torch.fl.fleet import (
@@ -62,6 +66,7 @@ from repro_torch.fl.hierarchy import hierarchical_apply
 from repro_torch.fl.planner import FedAdaptPlanner, Planner, StaticPlanner
 from repro_torch.fl.state import base_state_tree, ef_template_len
 from repro_torch.models.split_program import get_split_program
+from repro_torch.parallel.sharding import default_places, make_flat_mesh
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.runtime.straggler import (
     deadline_mask,
@@ -103,21 +108,13 @@ class FLConfig:
     client_widths: Optional[Sequence[float]] = None  # each client's
                                      # HeteroFL width in (0, 1]; None: full
     num_edges: int = 0               # >0: the two-tier server's edges
-    # the reference's knob the port does not run yet: any other value
-    # than this default raises
-    mesh_shape: Optional[Sequence[int]] = None
-
-
-_UNPORTED = (
-    # (field, default, what, ROADMAP item)
-    ("mesh_shape", None, "mesh_shape", "multi-device"),
-)
+    mesh_shape: Optional[Sequence[int]] = None  # (data, model): the
+                                     # server step and the batched engine
+                                     # over a device mesh (fused step
+                                     # only); None: one device
 
 
 def _check_ported(fl: FLConfig) -> None:
-    for field, default, what, item in _UNPORTED:
-        if getattr(fl, field) != default:
-            raise not_ported(what, item)
     if fl.mode not in ("fl", "sfl", "fedadapt"):
         raise ValueError(f"unknown mode {fl.mode!r}")
     if fl.server_step not in ("fused", "reference"):
@@ -130,6 +127,29 @@ def _check_ported(fl: FLConfig) -> None:
             "hierarchical aggregation (num_edges > 0) runs through the "
             "fused flat-buffer server step; server_step='reference' is the "
             "per-client oracle it is tested against, not a tiered path")
+
+
+def _resolve_mesh(fl: FLConfig, fused: bool, device: torch.device,
+                  mesh_devices=None):
+    """``FLConfig.mesh_shape`` -> the ``(data, model)`` mesh over
+    ``mesh_devices`` (default: ``default_places(device)``), or ``None``.
+    The mesh's home place holds the run's buffers, so it must be the run's
+    device."""
+    if fl.mesh_shape is None:
+        return None
+    if not fused:
+        raise ValueError(
+            "mesh_shape runs through the fused flat-buffer server step; "
+            "server_step='reference' is the single-device per-leaf oracle")
+    mesh = make_flat_mesh(fl.mesh_shape, devices=(
+        mesh_devices if mesh_devices is not None
+        else default_places(device)))
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if mesh.home != device:
+        raise ValueError(f"the mesh's first place {mesh.home} must be the "
+                         f"run's device {device}")
+    return mesh
 
 
 def _resolve_hetero(fl: FLConfig, program, params, layout: FlatLayout,
@@ -310,6 +330,7 @@ def run_federated(
     init_params=None,
     device=None,
     edge_transport: Optional[Transport] = None,
+    mesh_devices=None,
 ) -> Dict[str, np.ndarray]:
     """Train ``cfg`` federated with per-round offloading: a ``VGGConfig``
     on image batches, or any ``ModelConfig`` with a split program on token
@@ -331,7 +352,9 @@ def run_federated(
     without one), the measured wall time of each round (``wall_s``), plus
     the final ``params``.  With ``resume=True`` and a checkpoint in
     ``fl.checkpoint_dir``, the run continues from it and the history holds
-    the remaining rounds only.
+    the remaining rounds only.  ``mesh_devices`` lists the places of
+    ``fl.mesh_shape``'s mesh (a device may repeat; the first must be
+    ``device``).
     """
     device = resolve_device(device)
     _check_ported(fl)
@@ -341,11 +364,14 @@ def run_federated(
         raise ValueError(f"cohort_size={fl.cohort_size} outside [0, K={K}]")
     params = _initial_params(program, fl, init_params, device)
     fused = fl.server_step == "fused"
-    layout = FlatLayout(params)
+    mesh = _resolve_mesh(fl, fused, device, mesh_devices)
+    if mesh is not None:
+        params = program.shard_params(params, mesh)
+    layout = program.flat_layout(params, mesh=mesh)
     loaders = FleetLoader.for_clients(clients_data, fl.batch_size,
                                       seed=fl.seed)
     engine = get_engine(fl.engine, program, fl.local_iters, fl.seed,
-                        fl.augment, fl.quantize_transfer, device)
+                        fl.augment, fl.quantize_transfer, device, mesh=mesh)
     injector = FailureInjector(fl.fail_prob, seed=fl.seed)
     native_op = program.native_op
     sizes = np.asarray([len(d["labels"]) for d in clients_data], np.float64)
@@ -368,6 +394,8 @@ def run_federated(
             params, delta_errors, ctl, K, template=True,
             ef_len=ef_template_len(shapes)))
         params = restored["params"]
+        if mesh is not None:
+            params = program.shard_params(params, mesh)
         delta_errors = _restore_errors(delta_errors, restored)
         _restore_controller(ctl, restored)
         # replay the loaders: a client drew local_iters batches in every
@@ -386,7 +414,7 @@ def run_federated(
                                       if hetero is not None else None),
                        edge_transport=edge_transport,
                        seq=_seq_len(clients_data))
-    step = (ServerStep(layout, fl.delta_density, fl.quantize_deltas)
+    step = (get_server_step(layout, fl.delta_density, fl.quantize_deltas)
             if fused else None)
     root = get_root_step(layout) if fl.num_edges > 0 else None
     g_flat = layout.flatten(params) if fused else None

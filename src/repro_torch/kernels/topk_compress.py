@@ -9,7 +9,9 @@ A flat buffer is tiled into blocks of ``block`` lanes; each block carries a
 ``+1e-9`` and int truncation).  Within a block the ``k`` largest ``|x|`` are
 kept, ties going to the earlier lane; everything else becomes 0.
 ``topk_compress_flat`` is the kernel wrapper (``csrc/topk_compress.cu``,
-whose header proves the selection rule equal to the reference's);
+whose header proves the selection rule equal to the reference's), and
+``topk_compress_rows`` the same call with a model shard's slice of the
+metadata (the mesh-sharded server step);
 ``topk_blocks_plain`` is the same function in plain PyTorch.
 
 ``topk_compress_density`` and ``compress_tree`` are the per-leaf entry
@@ -104,6 +106,17 @@ def topk_compress_flat(buf: torch.Tensor,
             block, stream), "topk_compress_flat")
     LAUNCHES["topk_compress"] += 1
     return out
+
+
+def topk_compress_rows(buf: torch.Tensor, meta: torch.Tensor, kmax: int,
+                       block: int = 1024) -> torch.Tensor:
+    """``topk_compress_flat`` for a table that is a tensor already on the
+    buffer's device: the mesh-sharded server step's model shard, whose
+    ``(n/block, 2)`` metadata is its slice of the whole buffer's, so its
+    output is bitwise that slice of the full call's.  ``kmax`` (the
+    table's largest ``k``) sizes the reference's selection; the radix
+    select needs no bound."""
+    return topk_compress_flat(buf, meta, block)
 
 
 def topk_compress_density(x: torch.Tensor, density: float,

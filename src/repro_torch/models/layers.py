@@ -22,9 +22,14 @@ cache, per-row positions) stays plain PyTorch, as the reference computes
 it outside any Pallas kernel.  So does the MoE block: the
 reference's dispatch is one-hot, cumsum, scatter and a batched einsum, and
 its decode path a ``lax.ragged_dot``, none of them a Pallas kernel; here
-they are ``torch.bmm`` and one ``torch.matmul`` per expert group.  The
-reference's expert-parallel ``_moe_block_sharded`` needs sharding rules,
-which the port does not have: ``moe_block`` is the single-device path.
+they are ``torch.bmm`` and one ``torch.matmul`` per expert group.  Under
+active sharding rules (``parallel.sharding.use_rules``) ``moe_block``
+takes the expert-parallel ``_moe_block_sharded``, the reference's
+``shard_map`` body run once per mesh place: tokens split over the batch
+axes, the experts (``E % tp == 0``) or ``d_ff`` split over ``model``, the
+``d`` dim of the weights gathered over ``data`` (FSDP; under
+``moe_int8_gather()`` as rowwise int8 with a straight-through gradient),
+the partial outputs summed over ``model`` in place order.
 
 Training: ``chunked_ce_loss`` (the LM loss, one ``torch.utils.checkpoint``
 per chunk of 1024 positions, so the ``(B, S, V)`` logits are never held for
@@ -34,8 +39,10 @@ while autograd records).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +50,12 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel.sharding import (
+    all_gather,
+    current_rules,
+    psum,
+    psum_scatter,
+)
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -403,9 +416,22 @@ def _moe_decode_exact(cfg: ModelConfig, p: Params, xf: torch.Tensor,
 
 
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Token-choice top-k MoE over ``x`` (B, S, d): capacity-bounded
-    dispatch for ``S > 1``, the exact drop-free path for a decode step
-    (``S == 1``); plus arctic's dense residual FFN in both."""
+    """Token-choice top-k MoE over ``x`` (B, S, d): the expert-parallel
+    ``_moe_block_sharded`` under active sharding rules whose ``model``
+    size divides the experts or ``d_ff``, else ``_moe_block_local``."""
+    rules = current_rules()
+    if rules is not None and rules.tp:
+        tp = rules.axis_size(rules.tp)
+        if cfg.moe.num_experts % tp == 0 or cfg.d_ff % tp == 0:
+            return _moe_block_sharded(cfg, p, x, rules)
+    return _moe_block_local(cfg, p, x)
+
+
+def _moe_block_local(cfg: ModelConfig, p: Params, x: torch.Tensor
+                     ) -> torch.Tensor:
+    """Capacity-bounded dispatch for ``S > 1``, the exact drop-free path
+    for a decode step (``S == 1``); plus arctic's dense residual FFN in
+    both."""
     assert cfg.moe is not None
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
@@ -418,6 +444,224 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe.dense_residual:
         out = out + ffn(p["dense"], x, cfg.mlp_act)
     return out
+
+
+# =============================================================================
+# expert-parallel MoE over a mesh (the reference's shard_map body)
+# =============================================================================
+_GATHER = threading.local()
+
+
+@contextlib.contextmanager
+def moe_int8_gather(on: bool = True):
+    """Int8-compress the sharded MoE's FSDP weight gathers (rowwise absmax
+    along the dim that is not gathered; the gradient straight through)."""
+    prev = getattr(_GATHER, "on", False)
+    _GATHER.on = on
+    try:
+        yield
+    finally:
+        _GATHER.on = prev
+
+
+class _Int8Gather(torch.autograd.Function):
+    """The FSDP gather of a weight's shards as int8: each shard quantized
+    rowwise along ``q_axis`` (absmax / 127, round half to even), codes and
+    scales gathered along ``axis``, dequantized once for each of the
+    group's places.  The backward is the plain gather's: the places'
+    cotangents summed in place order and scattered back to the shards
+    (``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, axis: int, places, *shards):
+        w = shards[0]
+        q_axis = w.dim() - 2 if axis == w.dim() - 1 else w.dim() - 1
+        codes, scales = [], []
+        for shard in shards:
+            w32 = shard.float()
+            scale = w32.abs().amax(dim=q_axis, keepdim=True).clamp_min(
+                1e-12) / 127.0
+            codes.append(torch.clamp(torch.round(w32 / scale), -127, 127
+                                     ).to(torch.int8))
+            scales.append(scale)
+        ctx.axis = axis
+        ctx.devices = [shard.device for shard in shards]
+        return tuple((all_gather(codes, axis, place).float()
+                      * all_gather(scales, axis, place)).to(w.dtype)
+                     for place in places)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, *psum_scatter(cts, ctx.axis, ctx.devices))
+
+
+def _gather_w(shards: List[torch.Tensor], axis: int, places, int8: bool
+              ) -> List[torch.Tensor]:
+    """The FSDP unshard of a weight for each place of a ``data`` group:
+    its shards concatenated along ``axis`` (plain), or ``_Int8Gather``."""
+    if int8:
+        return list(_Int8Gather.apply(axis, tuple(places), *shards))
+    return [all_gather(shards, axis, place) for place in places]
+
+
+def _moe_shard(cfg: ModelConfig, xb: torch.Tensor, router: torch.Tensor,
+               wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+               dense_w, e0: int, local_E: int, dense_div: int
+               ) -> torch.Tensor:
+    """One place's body: route its tokens ``xb`` over all ``E`` experts,
+    dispatch those that chose one of its ``local_E`` experts (from ``e0``;
+    the others go to the out-of-range row) with capacity ``C = cf * T_l *
+    k / E`` (``T_l * k`` at ``S == 1``: lossless), run its experts
+    (or its ``d_ff`` slice of all of them) and combine; plus the dense
+    residual divided by ``dense_div``.  Returns the partial ``(T_l, d)``
+    output."""
+    Bl, Sl, d = xb.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    xf = xb.reshape(-1, d)
+    T_l = xf.shape[0]
+    topw, topi = moe_route(cfg, {"router": router}, xf)
+    C = (T_l * k if Sl == 1
+         else max(1, int(cfg.moe.capacity_factor * T_l * k / E)))
+    flat_e = topi.reshape(-1) - e0
+    in_range = (flat_e >= 0) & (flat_e < local_E)
+    safe_e = torch.where(in_range, flat_e, torch.full_like(flat_e, local_E))
+    assign = (safe_e[:, None] == torch.arange(local_E + 1,
+                                              device=xf.device)
+              ).to(torch.int64)
+    pos_all = assign.cumsum(0) - assign
+    pos = pos_all.gather(1, safe_e[:, None])[:, 0]
+    keep = in_range & (pos < C)
+    slot = torch.where(keep, safe_e * C + pos,
+                       torch.full_like(safe_e, local_E * C))
+    token_idx = torch.arange(T_l * k, device=xf.device) // k
+    buf = torch.zeros((local_E * C + 1, d), dtype=xf.dtype,
+                      device=xf.device).index_put((slot,), xf[token_idx])
+    h = buf[:local_E * C].reshape(local_E, C, d)
+    mid = _expert_act(cfg, torch.bmm(h, wg)) * torch.bmm(h, wu)
+    y = torch.bmm(mid, wd).reshape(local_E * C, d)
+    w_flat = topw.reshape(-1).to(xf.dtype)
+    gathered = y[slot.clamp(max=local_E * C - 1)]
+    contrib = torch.where(keep[:, None], w_flat[:, None] * gathered,
+                          torch.zeros((), dtype=xf.dtype, device=xf.device))
+    out = torch.zeros((T_l, d), dtype=xf.dtype, device=xf.device
+                      ).index_add(0, token_idx, contrib)
+    if dense_w is not None:
+        dg, du, dd = dense_w
+        hd = _expert_act(cfg, xf @ dg) * (xf @ du)
+        dense_out = hd @ dd
+        if dense_div > 1:
+            # the experts are summed over tp; a replicated dense branch is
+            # in every place's part
+            dense_out = dense_out / dense_div
+        out = out + dense_out
+    return out
+
+
+def _moe_block_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       rules) -> torch.Tensor:
+    """Expert-parallel MoE, the reference's ``shard_map`` body run once per
+    place of ``rules.mesh``.
+
+    Tokens split over the batch axes when ``B`` divides them (else every
+    place takes all of them).  Along ``model`` either the experts are
+    sharded (case A, ``E % tp == 0``, arctic: a place's ``E/tp`` experts
+    as views) or ``d_ff`` is (case B: a ``d_ff/tp`` slice of every
+    expert).  The ``d`` dim of the weights is ``data``-sharded when it
+    divides (FSDP) and gathered in the body, under ``moe_int8_gather()``
+    as int8.  The partial outputs sum over ``model`` in place order, and
+    the batch shards concatenate on the mesh's home place."""
+    assert cfg.moe is not None
+    mesh = rules.mesh
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    B, S, _ = x.shape
+    tp_ax = rules.tp[0]
+    tp = mesh.shape[tp_ax]
+    fsdp_ax = rules.fsdp[0] if rules.fsdp else None
+    fsdp = mesh.shape.get(fsdp_ax, 1) if fsdp_ax else 1
+    expert_sharded = E % tp == 0
+    d_sh = fsdp_ax is not None and d % fsdp == 0
+    f_sh = not expert_sharded and f % tp == 0
+    b_axes = rules.resolve("batch", B)
+    b_axes = (() if b_axes is None else
+              (b_axes,) if isinstance(b_axes, str) else tuple(b_axes))
+    n_b = 1
+    for a in b_axes:
+        n_b *= mesh.shape[a]
+    dense = cfg.moe.dense_residual
+    dense_f_sh = dense and f % tp == 0
+    int8 = d_sh and getattr(_GATHER, "on", False)
+    local_E = E // tp if expert_sharded else E
+    B_l, d_l, f_l = B // n_b, d // fsdp if d_sh else d, f // tp
+
+    def dsl(c):                       # a place's FSDP slice of d
+        i = c[fsdp_ax] if d_sh else 0
+        return slice(i * d_l, (i + 1) * d_l) if d_sh else slice(None)
+
+    def fsl(c, sharded):              # a place's tp slice of d_ff
+        j = c[tp_ax]
+        return slice(j * f_l, (j + 1) * f_l) if sharded else slice(None)
+
+    def held(c):
+        """The weight shards place ``c`` holds (views of ``p``)."""
+        place = mesh.place(c)
+        if expert_sharded:
+            es = slice(c[tp_ax] * local_E, (c[tp_ax] + 1) * local_E)
+            wg = p["w_gate"][es, dsl(c), :]
+            wu = p["w_up"][es, dsl(c), :]
+            wd = p["w_down"][es, :, dsl(c)]
+        else:
+            wg = p["w_gate"][:, dsl(c), fsl(c, f_sh)]
+            wu = p["w_up"][:, dsl(c), fsl(c, f_sh)]
+            wd = p["w_down"][:, fsl(c, f_sh), dsl(c)]
+        w = [p["router"][dsl(c)], wg, wu, wd]
+        if dense:
+            w += [p["dense"]["w_gate"][dsl(c), fsl(c, dense_f_sh)],
+                  p["dense"]["w_up"][dsl(c), fsl(c, dense_f_sh)],
+                  p["dense"]["w_down"][fsl(c, dense_f_sh), dsl(c)]]
+        return [v.to(place) for v in w]
+
+    # each FSDP group: the places that differ only in their data index
+    groups: Dict[tuple, list] = {}
+    for c in mesh.coords():
+        key = tuple(v for a, v in c.items() if a != fsdp_ax or not d_sh)
+        groups.setdefault(key, []).append(c)
+    # the axis each held weight gathers along, and whether it goes int8
+    gather_axes = [(0, False), (1, int8), (1, int8), (2, int8)]
+    if dense:
+        gather_axes += [(0, False), (0, False), (1, False)]
+    parts: Dict[tuple, torch.Tensor] = {}
+    for members in groups.values():
+        places = [mesh.place(c) for c in members]
+        shards = [held(c) for c in members]
+        weights = [_gather_w([s[n] for s in shards], ax, places, q)
+                   for n, (ax, q) in enumerate(gather_axes)]
+        for m, c in enumerate(members):
+            w = [ws[m] for ws in weights]
+            bi = 0
+            for a in b_axes:
+                bi = bi * mesh.shape[a] + c[a]
+            xb = x[bi * B_l:(bi + 1) * B_l].to(places[m])
+            parts[tuple(c.values())] = _moe_shard(
+                cfg, xb, w[0], w[1], w[2], w[3],
+                w[4:] if dense else None,
+                c[tp_ax] * local_E if expert_sharded else 0, local_E,
+                tp if dense and not dense_f_sh else 1)
+    # psum over model, one batch shard from the places whose other
+    # coordinates are 0; the shards concatenated on the home place
+    outs = []
+    for bi in range(n_b):
+        c = {a: 0 for a in mesh.axis_names}
+        rest = bi
+        for a in reversed(b_axes):
+            c[a] = rest % mesh.shape[a]
+            rest //= mesh.shape[a]
+        group = []
+        for j in range(tp):
+            c[tp_ax] = j
+            group.append(parts[tuple(c[a] for a in mesh.axis_names)])
+        outs.append(psum(group, group[0].device).to(mesh.home))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(B, S, d)
 
 
 def moe_aux_loss(cfg: ModelConfig, p: Params, x: torch.Tensor

@@ -107,14 +107,39 @@ class SplitProgram:
         """The default OP grid for planners (a family may restrict it)."""
         return list(range(self.num_boundaries))
 
-    def flat_layout(self, params: Params):
+    def flat_layout(self, params: Params, mesh=None):
         """The flat-buffer layout of this program's parameter structure
         (``fl.flatbuf.FlatLayout``): one contiguous fp32 buffer with a
         block-aligned offset per leaf, in the reference's leaf order.  The
         server step, ``serving.ParamStore`` and ``ServeEngine.maybe_swap``
-        share it."""
-        from repro_torch.fl.flatbuf import FlatLayout
-        return FlatLayout(params)
+        share it.  ``mesh`` (``parallel.sharding.make_flat_mesh``) selects
+        the ``ShardedFlatLayout``."""
+        from repro_torch.fl.flatbuf import layout_of
+        return layout_of(params, mesh=mesh)
+
+    def shard_params(self, params: Params, mesh) -> Params:
+        """``params`` placed for a mesh: on its home place, where the one
+        copy of the global lives (a sharded body reads its shard as a view,
+        copied only to a place on another device).  The specs a placement
+        over distinct cards would use are ``parallel.sharding
+        .param_pspecs(params, make_axis_rules(mesh, fsdp=False,
+        tp=True))``: tensor-parallel over ``model``, none for VGG."""
+        home = mesh.home
+        return tree_map(lambda v: v.to(home), params)
+
+    def shard_batches(self, batches: Dict[str, torch.Tensor], mesh
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """A stacked client-batch dict (leaves ``(G, ...)``, ``G`` a
+        multiple of the mesh's ``data`` size: ``client_chunk_pad``) split
+        along ``data``: one dict a data shard, its ``G / data`` clients on
+        place ``(i, 0)``."""
+        data = int(mesh.shape["data"])
+        G = int(next(iter(batches.values())).shape[0])
+        if G % data:
+            raise ValueError(f"{G} clients do not split over data={data}")
+        n = G // data
+        return [{k: v[i * n:(i + 1) * n].to(mesh.devices[i, 0])
+                 for k, v in batches.items()} for i in range(data)]
 
     @staticmethod
     def _width_keep(n: int, width: float) -> int:

@@ -1,0 +1,357 @@
+"""The device mesh, logical-axis sharding rules (MaxText-style) with the
+divisibility fallback, and the collectives of the sharded bodies
+(counterpart of ``repro/parallel/sharding.py``).
+
+The reference runs ``shard_map`` from one process over many devices.  The
+port does the same from one controller: a ``Mesh`` is a grid of
+``torch.device`` places over named axes, a sharded body runs once per
+place, each on its own place's tensors, and every collective is an explicit
+sum, concatenation or slice in a fixed place order.  So ``data = 1`` stays
+bit for bit the single-device program, and ``data > 1`` is deterministic.
+A place may repeat: eight places can share one card (the tests pass eight
+CPU places, the card's smoke run ``cuda:0`` eight times).
+
+A single source of truth maps *logical* axis names to mesh axes:
+
+    batch     -> ('data',)         or ('pod', 'data') multi-pod
+    fsdp      -> 'data'            (ZeRO-3-style parameter sharding)
+    tp        -> 'model'           (tensor parallelism)
+    experts   -> 'model'           (expert parallelism, when E % tp == 0)
+    cache_seq -> 'model'           (seq-sharded KV cache for decode)
+
+``param_pspecs`` derives each parameter's spec from its leaf *path name*,
+so models never annotate tensors; every rule checks divisibility of the
+concrete dim against the mesh axis size and falls back to replication when
+it does not divide (e.g. arctic's 56 heads).  A spec is a plain tuple with
+one entry a dim: a mesh axis name, a tuple of them, or ``None``.
+
+The reference's ``shard`` / ``named_shardings`` only place arrays and
+change no value, so they have no counterpart here.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[MeshAxes, ...]
+
+
+class Mesh:
+    """A grid of places (``torch.device``) over named axes.
+
+    ``devices`` is a numpy object array whose dims are ``axis_names``;
+    ``shape`` is the ``{axis: size}`` dict (JAX's ``mesh.shape``), ``home``
+    the first place (where the global buffers live) and ``n_devices`` the
+    number of distinct devices among the places."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        if devices.ndim != len(self.axis_names):
+            raise ValueError(f"{devices.ndim}-d places for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices.flat[0]
+
+    @property
+    def n_devices(self) -> int:
+        return len(set(self.devices.flat))
+
+    def coords(self) -> Iterator[Dict[str, int]]:
+        """Every place's ``{axis: index}``, in place (row-major) order."""
+        for idx in np.ndindex(*self.devices.shape):
+            yield dict(zip(self.axis_names, idx))
+
+    def place(self, coords: Dict[str, int]) -> torch.device:
+        return self.devices[tuple(coords[a] for a in self.axis_names)]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, {self.n_devices} distinct device(s), "
+                f"home {self.home})")
+
+
+def default_places(device=None) -> List[torch.device]:
+    """The places a mesh takes when the caller names none: every visible
+    CUDA device for a run on the card, one CPU device (JAX's default on
+    the CPU) for a run there.  ``device=None``: the card when one is
+    visible, else the CPU."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def make_flat_mesh(mesh_shape: Sequence[int],
+                   axis_names: Tuple[str, str] = ("data", "model"),
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """The ``(data, model)`` mesh behind ``FLConfig.mesh_shape``.
+
+    ``data`` carries stacked client-delta rows, ``model`` the flat
+    parameter vector (``fl/flatbuf.ShardedFlatLayout``).  Takes the first
+    ``data * model`` of ``devices`` (default ``default_places()``), a place
+    as often as it is listed, and raises when fewer are given: there is no
+    fallback to fewer places or to the CPU."""
+    shape = tuple(int(s) for s in mesh_shape)
+    if len(shape) != 2 or any(s < 1 for s in shape):
+        raise ValueError(f"mesh_shape must be two positive ints "
+                         f"(data, model); got {mesh_shape!r}")
+    need = shape[0] * shape[1]
+    devs = [torch.device(d) for d in
+            (devices if devices is not None else default_places())]
+    if need > len(devs):
+        raise ValueError(
+            f"mesh_shape {shape} needs {need} places but only {len(devs)} "
+            f"are given; pass devices= with {need} places (a device may "
+            f"repeat: several places can share one card) or shrink the "
+            f"mesh")
+    grid = np.empty(need, dtype=object)
+    for i, d in enumerate(devs[:need]):
+        grid[i] = d
+    return Mesh(grid.reshape(shape), axis_names)
+
+
+def flat_shard_tail(padded: int, block: int, model_size: int) -> int:
+    """Tail padding (elements) that makes a block-aligned flat buffer split
+    across ``model_size`` shards in whole blocks.
+
+    The flat-vector replacement for ``AxisRules.resolve``'s divisibility
+    fallback: replicating a flat server-step buffer would copy the stacked
+    delta rows onto every model-axis place, so ``ShardedFlatLayout`` pads
+    the final shard instead and masks the tail out of the compression
+    metadata (``(valid=0, k=1)`` rows)."""
+    if padded % block:
+        raise ValueError(f"padded={padded} is not block-aligned "
+                         f"(block={block})")
+    return (-padded) % (block * int(model_size))
+
+
+def client_chunk_pad(n_clients: int, data_size: int) -> int:
+    """Rows to append so a stacked client chunk splits evenly along the
+    mesh ``data`` axis (the batched engine repeats its first client's rows
+    and drops them after the step).  ``data_size=1`` always returns 0."""
+    if data_size < 1:
+        raise ValueError(f"data_size={data_size} must be >= 1")
+    return (-int(n_clients)) % int(data_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """Resolved logical->mesh mapping for one mesh configuration."""
+    mesh: Any
+    batch: Tuple[str, ...] = ("data",)
+    fsdp: Tuple[str, ...] = ("data",)
+    tp: Tuple[str, ...] = ("model",)
+    # sequence-parallel attention (activations' seq dim over tp)
+    seq_shard: Tuple[str, ...] = ()
+    cache_seq: Tuple[str, ...] = ("model",)
+    logical: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+
+    def axis_size(self, axes: Tuple[str, ...]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    def resolve(self, name: str, dim: Optional[int] = None) -> MeshAxes:
+        """Logical name -> mesh axes, with divisibility fallback."""
+        table: Dict[str, Tuple[str, ...]] = {
+            "batch": self.batch,
+            "fsdp": self.fsdp,
+            "tp": self.tp,
+            "experts": self.tp,
+            "vocab": self.tp,
+            "cache_seq": self.cache_seq,
+            "seq": self.seq_shard,
+            "none": (),
+        }
+        table.update(self.logical)
+        axes = table.get(name, ())
+        if not axes:
+            return None
+        if dim is not None and dim % self.axis_size(axes) != 0:
+            return None  # divisibility fallback -> replicate
+        return axes if len(axes) > 1 else axes[0]
+
+
+def make_axis_rules(mesh, *, fsdp: bool = True, tp: bool = True,
+                    seq_shard: bool = False,
+                    extra: Optional[Dict[str, Tuple[str, ...]]] = None
+                    ) -> AxisRules:
+    axes = dict(mesh.shape)
+    batch = tuple(a for a in ("pod", "data") if a in axes)
+    return AxisRules(
+        mesh=mesh,
+        batch=batch or ("data",),
+        fsdp=("data",) if (fsdp and "data" in axes) else (),
+        tp=("model",) if (tp and "model" in axes) else (),
+        seq_shard=("model",) if seq_shard else (),
+        cache_seq=("model",) if "model" in axes else (),
+        logical=dict(extra or {}),
+    )
+
+
+# --- thread-local active rules (set by the caller) --------------------------
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[AxisRules]):
+    prev = getattr(_state, "rules", None)
+    _state.rules = rules
+    try:
+        yield
+    finally:
+        _state.rules = prev
+
+
+def current_rules() -> Optional[AxisRules]:
+    return getattr(_state, "rules", None)
+
+
+def activation_spec(names: Sequence[str],
+                    shape: Optional[Sequence[int]] = None,
+                    rules: Optional[AxisRules] = None) -> Spec:
+    rules = rules or current_rules()
+    if rules is None:
+        return ()
+    dims = list(shape) if shape is not None else [None] * len(names)
+    return tuple(rules.resolve(n, d) for n, d in zip(names, dims))
+
+
+# =============================================================================
+# the collectives: one part a place of a group, in place order
+# =============================================================================
+def psum(parts: Sequence[torch.Tensor],
+         device: Optional[torch.device] = None) -> torch.Tensor:
+    """The sum of a group's parts, added in place order on ``device`` (the
+    group's first place, by default the first part's device).  One part
+    comes back as it is."""
+    device = parts[0].device if device is None else device
+    acc = parts[0].to(device)
+    for p in parts[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int = 0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """The group's parts concatenated along ``dim`` (a tiled gather) on
+    ``device`` (by default the first part's)."""
+    device = parts[0].device if device is None else device
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def psum_scatter(parts: Sequence[torch.Tensor], dim: int,
+                 devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The group's parts summed in place order, then split along ``dim``
+    into one equal tile a place (a tiled reduce-scatter)."""
+    total = psum(parts, devices[0])
+    return [t.to(d) for t, d in
+            zip(total.chunk(len(devices), dim=dim), devices)]
+
+
+# =============================================================================
+# parameter specs from leaf path names
+# =============================================================================
+# (regex on the '/'-joined path) -> logical names per dim.  First match
+# with the leaf's rank wins; checked in order.
+_PARAM_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    # embeddings
+    (r"(^|/)embed$",        ("vocab", "fsdp")),
+    (r"(^|/)unembed$",      ("fsdp", "vocab")),
+    (r"(^|/)patch_proj$",   ("fsdp", "none")),
+    # attention
+    (r"/w[qkv]$",           ("fsdp", "tp")),
+    (r"/wo$",               ("tp", "fsdp")),
+    # moe stacked experts (E, d, f) / (E, f, d): before the generic ffn
+    # rules (same leaf names, one more dim)
+    (r"/moe/w_(gate|up)$",  ("experts", "fsdp", "tp")),
+    (r"/moe/w_down$",       ("experts", "tp", "fsdp")),
+    # ffn
+    (r"/w_(gate|up)$",      ("fsdp", "tp")),
+    (r"/w_down$",           ("tp", "fsdp")),
+    (r"/router$",           ("fsdp", "none")),
+    # mamba2 / rg-lru
+    (r"/in_proj$",          ("fsdp", "tp")),
+    (r"/out_proj$",         ("tp", "fsdp")),
+    (r"/conv_w$",           ("none", "tp")),
+    (r"/w_in[12]$",         ("fsdp", "tp")),
+    (r"/w_(r|i)$",          ("fsdp", "tp")),
+    (r"/w_lru_out$",        ("tp", "fsdp")),
+)
+
+
+def _spec_for_leaf(path: str, shape: Tuple[int, ...],
+                   rules: AxisRules) -> Spec:
+    for pat, names in _PARAM_RULES:
+        if re.search(pat, path):
+            if len(names) != len(shape):
+                continue  # rank mismatch -> try the next rule
+            resolved = []
+            used: set = set()
+            for n, d in zip(names, shape):
+                ax = rules.resolve(n, d)
+                # a mesh axis may appear at most once in a spec
+                flat = (ax,) if isinstance(ax, str) else (ax or ())
+                if any(a in used for a in flat):
+                    ax = None
+                else:
+                    used.update(flat)
+                resolved.append(ax)
+            return tuple(resolved)
+    return (None,) * len(shape)
+
+
+def _map_with_path(fn, tree, prefix: Tuple[str, ...] = ()):
+    """``fn('/'-joined path, leaf)`` over a tree's leaves, keeping its
+    dicts, lists and tuples; the path is the one
+    ``jax.tree_util.tree_flatten_with_path`` gives (a dict key as itself, a
+    list or tuple index as its number)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(prefix), tree)
+
+
+def param_pspecs(params: Any, rules: AxisRules,
+                 stacked_layer_dims: int = 1) -> Any:
+    """A spec tree mirroring ``params`` (each leaf's spec a tuple).
+
+    ``stacked_layer_dims``: leaves under a path containing ``layers`` have
+    that many leading stacked dims (the layer axis), which are never
+    sharded."""
+
+    def one(path: str, leaf) -> Spec:
+        shape = tuple(leaf.shape)
+        lead = 0
+        if "layers" in path.split("/"):
+            lead = min(stacked_layer_dims, len(shape))
+        return (None,) * lead + _spec_for_leaf(path, shape[lead:], rules)
+
+    return _map_with_path(one, params)

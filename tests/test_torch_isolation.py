@@ -104,6 +104,30 @@ ENTRY_POINTS = {
         "    num_edges=2), edge_transport=Transport(indexed_bandwidths(\n"
         "    [1e7, 2e7])), device='cpu')\n"
         "assert h['edge_time'][0] > 0\n"),
+    "run_federated(mesh_shape=(2, 4), engine='batched')": (
+        "from repro_torch.configs.vgg import VGG5\n"
+        "from repro_torch.data import make_cifar_like, split_clients\n"
+        "from repro_torch.fl.loop import FLConfig, run_federated\n"
+        "c = split_clients(make_cifar_like(30, seed=1), 3)\n"
+        "h = run_federated(VGG5, c, c[0], FLConfig(rounds=1, local_iters=1,\n"
+        "    batch_size=10, mode='sfl', static_op=2, delta_density=0.1,\n"
+        "    quantize_deltas=True, engine='batched', mesh_shape=(2, 4)),\n"
+        "    device='cpu', mesh_devices=['cpu'] * 8)\n"
+        "assert len(h['accuracy']) == 1\n"),
+    "moe_block under use_rules and moe_int8_gather": (
+        "import torch\n"
+        "from repro_torch.configs.registry import get_smoke_config\n"
+        "from repro_torch.models import layers as L\n"
+        "from repro_torch.parallel.sharding import (make_axis_rules,\n"
+        "    make_flat_mesh, use_rules)\n"
+        "cfg = get_smoke_config('arctic-480b')\n"
+        "p = L.init_moe(torch.Generator().manual_seed(0), cfg,\n"
+        "               torch.float32)\n"
+        "x = torch.randn(2, 4, cfg.d_model)\n"
+        "mesh = make_flat_mesh((2, 2), devices=['cpu'] * 4)\n"
+        "with use_rules(make_axis_rules(mesh)), L.moe_int8_gather():\n"
+        "    y = L.moe_block(cfg, p, x)\n"
+        "assert y.shape == x.shape and bool(torch.isfinite(y).all())\n"),
 }
 
 
@@ -233,5 +257,7 @@ def test_the_new_training_modules_are_in_the_import_check():
                  "repro_torch.models.split_program",
                  "repro_torch.launch.train",
                  "repro_torch.launch.generic_split_fl",
-                 "repro_torch.launch.train_lm_fedadapt", *DRIVERS):
+                 "repro_torch.launch.train_lm_fedadapt",
+                 "repro_torch.parallel", "repro_torch.parallel.sharding",
+                 *DRIVERS):
         assert name in _module_names()
