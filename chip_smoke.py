@@ -307,6 +307,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    round, step seconds and peak against 5g's, each MoE call's ms against
    local, peak memory.  The places share one card: no inter-card traffic
    is measured.
+5j. the launch drivers (``repro_torch.launch.steps``, ``dryrun``,
+   ``fedavg_dryrun``, ``fleet_simulation``): the FedAdapt pod pair
+   (``make_local_sync_steps``: the train step vmapped over 2 pods, then
+   the FedAvg sync) at qwen3-0.6b's full width and depth from one start,
+   one 2048-token row a pod and step (4096 ran out of memory), AdamW, 2
+   local steps; each pod against ``make_train_step`` on its rows alone
+   (after one step every lane within 1e-5 of its leaf's max but for at
+   most 1e-4 of the lanes, none of them beyond 2 lr: Adam's sign steps),
+   the sync bit for bit
+   ``(p0 + p1) * 0.5`` in both pods, flash launched once a layer and step
+   for both pods; ``make_prefill_step`` / ``make_decode_step`` (B = 2, a
+   512-token prompt, 8 decode steps) bit for bit ``api.prefill`` /
+   ``api.decode``; the dry runs on meta (qwen3-0.6b train_4k, its FLOPs
+   the closed form; mixtral-8x22b and arctic-480b decode_32k at 4 of
+   their layers, their collectives those of the expert-parallel body's
+   case B and case A; mamba2-780m long_500k; the fedavg dry run of
+   qwen3-0.6b on 2 x 16 x 16), every cell ``ok`` with no card memory and
+   no launch; ``launch.fleet_simulation`` at the example's size (lm16m, K
+   = 32, 3 rounds through both engines), launches exact and the engines'
+   metric within 1e-5 of its largest value.  Printed with the card's name
+   and power limit: each local step's and the sync's seconds, the peak,
+   each dry run's FLOPs, per-place argument bytes, collective bytes and
+   seconds, each engine's rounds/s.
 6. the small configurations on the CPU and on the card from the same
    weights: the VGG-5 runs of ``tests/test_torch_loop.py`` (ops and times
    exact, accuracy within one test sample, final params within the tests'
@@ -747,6 +770,49 @@ MOE_MESH_CASES = {
     "arctic-480b": (8.0, (((1, 16), False),)),
 }
 
+
+# phase 5j, the launch drivers.  (a) The FedAdapt pod pair
+# (``launch.steps.make_local_sync_steps``) at qwen3-0.6b's full width and
+# depth: fp32 params from api.init(cfg, 0) on the card, the same start in
+# both pods, one row of POD_SEQ tokens a pod and local step (half
+# train_4k's length, its global batch of 256 cut to one row a pod: see
+# below), qwen3's AdamW
+# (make_opt: make_optimizer's default rate ADAMW_LR, clip 1.0),
+# POD_LOCAL_STEPS vmapped local steps, then the sync.  Each pod against
+# make_train_step on its rows alone: the loss within TRAIN_LOSS_REL, and
+# after one step every lane within POD_STEP_REL of its leaf's max but for
+# at most POD_FLIP_SHARE of the tree's lanes, none beyond 2 * ADAMW_LR
+# more: Adam's first step is lr * sign(g) wherever |g| >> eps, so a
+# gradient within the vmapped GEMMs' rounding of 0 flips its lane by up
+# to 2 lr (a discrete step); the reading after the second step is
+# recorded.  The sync equals (p0 + p1) * 0.5 bit for bit in both pods, and
+# flash launches once a layer for both pods (its vmap rules fold them
+# into B).  The peak was reckoned at 50-66 GiB for rows of 4096 tokens
+# (PERF.md, phase 5j), but with no remat under ``torch.func`` every
+# layer's elementwise intermediates stay for the backward, and the first
+# step at 4096 ran out of the card's 79.2 GiB: so rows of 2048 tokens
+POD_SEQ, POD_LOCAL_STEPS = 2048, 2
+ADAMW_LR = 1e-4
+POD_STEP_REL, POD_FLIP_SHARE = 1e-5, 1e-4
+# (b) the step builders at qwen3-0.6b: B = 2 rows of a STEPS_PROMPT-token
+# seeded prompt, then STEPS_DECODE greedy decode steps, bit for bit
+# api.prefill / api.decode
+STEPS_PROMPT, STEPS_DECODE = 512, 8
+# (c) the dry runs on meta (run_cell on the 16 x 16 mesh of meta places,
+# fedavg_dryrun.run on 2 x 16 x 16): (arch, shape, layers); the MoE cells
+# keep DRYRUN_MOE_LAYERS of their layers (the expert-parallel body runs
+# once for each of the 256 places a layer, 2-4 s of host time a layer)
+DRYRUN_MOE_LAYERS = 4
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", None),
+                ("mixtral-8x22b", "decode_32k", DRYRUN_MOE_LAYERS),
+                ("arctic-480b", "decode_32k", DRYRUN_MOE_LAYERS),
+                ("mamba2-780m", "long_500k", None))
+# (d) launch.fleet_simulation at the example's size (lm16m, K = 32, 3
+# rounds through both engines): the engines' metric within
+# FLEET_DRIFT_REL of its largest value, the plain fp32 bound the federated
+# LM tests hold (tests/torch_fl_cases.py PLAIN_METRIC_REL)
+FLEET_CLIENTS, FLEET_ROUNDS = 32, 3
+FLEET_DRIFT_REL = 1e-5
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -3904,14 +3970,15 @@ def fed_lm_launches(cfg, h, fl, native_op, K, mesh_shape=None):
     sequence mixer's forward twice a layer (the forward and its remat
     recompute) and its backward once; each round's eval pass (the whole
     test set at the native OP under ``no_grad``) runs the forward once a
-    layer; the int8 pair once a step below the native OP and once per
-    surviving client row for the delta wire; top-k once per surviving
-    client row (on a ``mesh_shape`` mesh: rows padded to the ``data``
-    size, each once per model shard)."""
+    layer; the int8 pair once a step below the native OP (with the int8
+    cut) and once per surviving client row for the delta wire; top-k once
+    per surviving client row (on a ``mesh_shape`` mesh: rows padded to the
+    ``data`` size, each once per model shard)."""
     rounds = len(h["ops"])
     steps = fl.local_iters * K * rounds
     cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
-                                   for op in row))
+                                   for op in row)) \
+        if fl.quantize_transfer else 0
     data, model = mesh_shape or (1, 1)
     kept = sum((n + (-n) % data) * model
                for n in (K - int(d) for d in h["dropped"]))
@@ -4731,6 +4798,339 @@ def lm_mesh_path(torch, dev, launches, reset_launches, card, fed_ref):
           f"{ref['peak_memory_gib']:.2f} GiB", flush=True)
     return out
 
+
+def pod_lane_readings(torch, got, want):
+    """``got`` (a pod's params) against ``want`` (the lone step's), leaf by
+    leaf: the worst error over its leaf's max, the tree's share of lanes
+    beyond POD_STEP_REL of their leaf's max, and the worst absolute error
+    of those lanes."""
+    from repro_torch.tree import tree_leaves
+    worst, beyond, lanes, worst_abs = 0.0, 0, 0, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        scale = max(float(w.abs().max()), 1e-30)
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()) / scale)
+        far = err > POD_STEP_REL * scale
+        beyond += int(far.sum())
+        lanes += err.numel()
+        if bool(far.any()):
+            worst_abs = max(worst_abs, float(err[far].max()))
+    return worst, beyond / lanes, worst_abs
+
+
+def pod_pair_launches(cfg, local_steps):
+    """The pod pair's launches: a local step runs flash's forward once a
+    layer (no remat under ``torch.func``) and its backward pair once,
+    every pod folded into one launch."""
+    n = cfg.num_layers * local_steps
+    return {"quantize": 0, "dequantize": 0, "topk_compress": 0,
+            "flash_attention": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkdv": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
+def pod_pair_path(torch, dev, launches, reset_launches, card):
+    """Phase 5j (a): the FedAdapt pod pair at qwen3-0.6b's full width and
+    depth, each pod against the train step on its rows alone, the sync
+    bit for bit.  Returns the record and the initial params."""
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.launch import steps as S
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+    free_card(torch)
+    params = api.init(cfg, 0, device=dev)
+    opt = S.make_opt(cfg)
+    local_step, sync_step = S.make_local_sync_steps(cfg, opt, 2)
+    train_step = S.make_train_step(cfg, opt)
+    batch_of = lm_batches(torch, cfg, dev)
+    rows = [[batch_of(POD_SEQ, 2 * t + i) for i in range(2)]
+            for t in range(POD_LOCAL_STEPS)]
+    pp = tree_map(lambda x: torch.stack([x, x]), params)
+    oo = tree_map(lambda x: torch.stack([x, x]), opt.init(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    after, losses, step_s = [], [], []
+    for t in range(POD_LOCAL_STEPS):
+        batch = {k: torch.stack([r[k] for r in rows[t]]) for k in rows[t][0]}
+        t0 = time.perf_counter()
+        loss, pp, oo = local_step(pp, oo, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after.append(pp)
+        losses.append(loss.tolist())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = dict(launches)
+    want = pod_pair_launches(cfg, POD_LOCAL_STEPS)
+    if got != want:
+        fail(f"pod pair: launches {got} != {want}")
+    del oo
+    t0 = time.perf_counter()
+    synced = sync_step(pp)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    for x, y in zip(tree_leaves(synced), tree_leaves(pp)):
+        mean = (y[0] + y[1]) * 0.5
+        if not (torch.equal(x[0], mean) and torch.equal(x[1], mean)):
+            fail("pod pair: the sync is not (p0 + p1) * 0.5 in both pods")
+    parted = max(float((y[0] - y[1]).abs().max()) for y in tree_leaves(pp))
+    del synced, pp
+    out = {"launches": got, "peak_memory_gib": peak, "local_step_s": step_s,
+           "sync_s": sync_s, "losses": losses, "pods_parted": parted,
+           "lone": []}
+    # each pod alone: the train step on its own rows, two steps
+    for i in range(2):
+        p, state = params, opt.init(params)
+        for t in range(POD_LOCAL_STEPS):
+            t0 = time.perf_counter()
+            loss, p, state = quiet_launches(
+                lambda: train_step(p, state, rows[t][i]))
+            torch.cuda.synchronize()
+            lone_s = time.perf_counter() - t0
+            rel = abs(float(loss) - losses[t][i]) / abs(float(loss))
+            if not rel <= TRAIN_LOSS_REL:
+                fail(f"pod {i} step {t + 1}: loss {losses[t][i]} vmapped, "
+                     f"{float(loss)} alone: {rel:.3g} > {TRAIN_LOSS_REL}")
+            worst, share, worst_abs = pod_lane_readings(
+                torch, tree_map(lambda x: x[i], after[t]), p)
+            if t == 0 and not (share <= POD_FLIP_SHARE and worst_abs
+                               <= 2 * ADAMW_LR * (1 + 1e-3)
+                               + POD_STEP_REL):
+                fail(f"pod {i} after one step: {share:.3g} of the lanes "
+                     f"beyond {POD_STEP_REL} of their leaf's max (bound "
+                     f"{POD_FLIP_SHARE}), the worst of them {worst_abs:.3g} "
+                     f"(bound 2 lr)")
+            out["lone"].append({"pod": i, "step": t + 1, "loss_rel": rel,
+                                "worst_rel": worst, "share_beyond": share,
+                                "worst_abs_beyond": worst_abs,
+                                "step_s": lone_s})
+            print(f"pod {i} step {t + 1} against the step alone: loss "
+                  f"{rel:.3g} relative, lanes within {worst:.3g} of their "
+                  f"leaf's max, {share:.3g} of them beyond {POD_STEP_REL} "
+                  f"(worst {worst_abs:.3g})", flush=True)
+        del p, state
+    del after
+    print(f"pod pair, qwen3-0.6b full width and depth, {POD_SEQ} tokens a "
+          f"pod ({card}): local steps {[round(t, 3) for t in step_s]} s, "
+          f"sync {sync_s:.3f} s, the step alone "
+          f"{[round(r['step_s'], 3) for r in out['lone']]} s, peak "
+          f"{peak:.2f} GiB; the sync (p0 + p1) * 0.5 bit for bit; "
+          f"launches {got}", flush=True)
+    return out, params
+
+
+def step_builders_path(torch, dev, params, launches, reset_launches):
+    """Phase 5j (b): make_prefill_step and make_decode_step at qwen3-0.6b
+    bit for bit api.prefill / api.decode."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
+    from repro_torch.launch import steps as S
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, STEPS_PROMPT),
+                           generator=gen).to(dev)
+    shape = ShapeConfig("prefill", STEPS_PROMPT + STEPS_DECODE, 2,
+                        "prefill")
+    prefill = S.make_prefill_step(cfg, shape)
+    decode = S.make_decode_step(cfg)
+
+    def same(a, b, what):
+        if not all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b))):
+            fail(f"step builders: {what} differs from the api's")
+    with torch.no_grad():
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        want_logits, want_cache = quiet_launches(lambda: api.prefill(
+            cfg, params, {"tokens": tokens}, target_seq=shape.seq_len))
+        same((logits, cache), (want_logits, want_cache), "the prefill")
+        token = logits.argmax(-1)[:, None]
+        for i in range(STEPS_DECODE):
+            pos = STEPS_PROMPT + i
+            logits, cache = decode(params, cache, token, pos)
+            want_logits, want_cache = quiet_launches(
+                lambda: api.decode(cfg, params, want_cache, token, pos))
+            same((logits, cache), (want_logits, want_cache),
+                 f"decode step {i}")
+            token = logits.argmax(-1)[:, None]
+        got = dict(launches)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = cfg.num_layers
+    if got != want:
+        fail(f"step builders: launches {got} != {want}")
+    print(f"step builders (qwen3-0.6b, B = 2, {STEPS_PROMPT}-token prompt, "
+          f"{STEPS_DECODE} decode steps): bit for bit api.prefill / "
+          f"api.decode; prefill {prefill_s:.3f} s", flush=True)
+    return {"launches": got, "prefill_s": prefill_s}
+
+
+def moe_gather_bytes(cfg, tp, places, layers):
+    """The sharded MoE's all-gather bytes in a bf16 dry run: every place
+    gathers the router (d, E) and its experts' three weights, the ``E /
+    tp`` experts it holds (case A) or a ``d_ff / tp`` slice of all of them
+    (case B), plus arctic's dense FFN (its ``d_ff`` over ``tp`` when that
+    divides), once a layer."""
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    case_a = E % tp == 0
+    local_E, f_l = (E // tp, f) if case_a else (E, f // tp)
+    per_place = d * E + 3 * local_E * d * f_l
+    if cfg.moe.dense_residual:
+        per_place += 3 * d * (f // tp if f % tp == 0 else f)
+    return 2.0 * per_place * places * layers
+
+
+def qwen3_train_flops(cfg, B, S):
+    """The matmul FLOPs the counter sees in a qwen3 train step (projections
+    and the tied unembedding 2 T d d_out, attention's two (S, S) products
+    a head, the backward two products a forward one; no recompute under
+    ``torch.func``)."""
+    T, d, L = B * S, cfg.d_model, cfg.num_layers
+    per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+                 + 3 * d * cfg.d_ff)
+    attention = 4 * B * cfg.num_heads * S * S * cfg.head_dim
+    return 3 * (2 * T * (L * per_layer + cfg.vocab_size * d)
+                + L * attention)
+
+
+def dry_runs_path(torch, launches, card):
+    """Phase 5j (c): the dry runs on meta, on this machine (no JAX):
+    every cell ``ok``, the card's memory and every launch count unchanged,
+    qwen3's FLOPs the closed form, the MoE cells' collectives those of
+    case B (mixtral) and case A (arctic)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, fedavg_dryrun
+    mem0, counts0 = torch.cuda.memory_allocated(), dict(launches)
+    out = {}
+    for arch, shape, layers in DRYRUN_CELLS:
+        flags = {"num_layers": layers} if layers else None
+        variant = f"depth{layers}" if layers else "baseline"
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, False, variant, flags)
+        r["wall_s"] = time.perf_counter() - t0
+        if r["status"] != "ok":
+            fail(f"dry run {arch} {shape}: {r['status']}")
+        cfg = get_config(arch)
+        coll = r["collectives"]
+        if cfg.moe is not None:
+            B = SHAPES[shape].global_batch
+            want = {"all-reduce": 16 * layers,
+                    "all-gather": (7 if cfg.moe.dense_residual else 4)
+                    * 256 * layers}
+            got = {k: coll[k]["count"] for k in want}
+            gather = moe_gather_bytes(cfg, 16, 256, layers)
+            if got != want or coll["all-gather"]["bytes"] != gather or \
+                    coll["all-reduce"]["bytes"] != \
+                    16 * layers * (B // 16) * cfg.d_model * 2:
+                fail(f"dry run {arch}: collectives {coll} are not the "
+                     f"sharded body's ({want}, {gather} gathered bytes)")
+        elif coll["total"]["count"] != 0:
+            fail(f"dry run {arch}: a dense step counted {coll['total']}")
+        if arch == "qwen3-0.6b":
+            sh = SHAPES[shape]
+            want_flops = qwen3_train_flops(cfg, sh.global_batch, sh.seq_len)
+            if r["cost"]["flops"] != want_flops:
+                fail(f"dry run qwen3: {r['cost']['flops']} FLOPs, the "
+                     f"closed form {want_flops}")
+        out[f"{arch}/{shape}/{variant}"] = r
+        print(f"dry run {arch} {shape} {variant} ({r['mesh']} meta "
+              f"places): {r['cost']['flops']:.4g} FLOPs, "
+              f"{r['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB of "
+              f"arguments a place, collectives "
+              f"{coll['total']['bytes'] / 2**30:.3f} GiB in "
+              f"{coll['total']['count']} calls, {r['wall_s']:.2f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fed = fedavg_dryrun.run("qwen3-0.6b")
+    fed["wall_s"] = time.perf_counter() - t0
+    sync = fed["sync_step"]["collectives"]
+    if fed["status"] != "ok" or sync["all-reduce"]["count"] != 1 or \
+            fed["local_step"]["collectives"]["total"]["count"] != 0:
+        fail(f"fedavg dry run: {fed}")
+    out["fedavg/qwen3-0.6b"] = fed
+    print(f"fedavg dry run qwen3-0.6b (2 x 16 x 16 meta places): model "
+          f"{fed['model_bytes'] / 2**30:.3f} GiB bf16, the sync one "
+          f"all-reduce of {sync['all-reduce']['bytes'] / 2**30:.3f} GiB, "
+          f"the local step none, {fed['wall_s']:.2f} s", flush=True)
+    if torch.cuda.memory_allocated() != mem0 or dict(launches) != counts0:
+        fail("the dry runs allocated on the card or launched a kernel")
+    total = sum(r["wall_s"] for r in out.values())
+    print(f"dry runs: no card memory, no launch; {total:.1f} s ({card})",
+          flush=True)
+    return {"launches": {k: 0 for k in launches}, "cells": out,
+            "wall_s": total}
+
+
+def fleet_simulation_launches(cfg, hists, fl_kw, K):
+    """The fleet simulation's launches: the sequential engine's as
+    ``fed_lm_launches``; the batched engine's flash forward once a layer
+    for each chunk of at most BATCHED_MAX_GROUP clients and local
+    iteration (no remat under ``vmap``) and its backward pair once, plus
+    each round's eval pass."""
+    from repro_torch.fl.loop import FLConfig
+    from repro_torch.models.split_program import get_split_program
+    native = get_split_program(cfg).native_op
+    seq = fed_lm_launches(cfg, hists["sequential"],
+                          FLConfig(**fl_kw, engine="sequential"), native, K)
+    rounds = len(hists["batched"]["ops"])
+    chunks = sum(-(-n // BATCHED_MAX_GROUP) for row in hists["batched"]["ops"]
+                 for n in collections.Counter(int(o) for o in row).values())
+    L, steps = cfg.num_layers, fl_kw["local_iters"] * chunks
+    out = dict(seq)
+    out["flash_attention"] += L * steps + L * rounds
+    out["flash_attention_bwd_dq"] += L * steps
+    out["flash_attention_bwd_dkdv"] += L * steps
+    return out
+
+
+def fleet_simulation_path(torch, launches, reset_launches, card):
+    """Phase 5j (d): ``launch.fleet_simulation`` on the card at the
+    example's size, the engines' drift within FLEET_DRIFT_REL."""
+    from repro_torch.configs.lm_small import LM16M
+    from repro_torch.launch import fleet_simulation
+    reset_launches()
+    out = fleet_simulation.main(["--clients", str(FLEET_CLIENTS),
+                                 "--rounds", str(FLEET_ROUNDS)])
+    got = dict(launches)
+    fl_kw = dict(rounds=FLEET_ROUNDS, local_iters=2, batch_size=2, lr=0.3,
+                 mode="sfl", static_op=3, augment=False)
+    want = fleet_simulation_launches(LM16M, out["hists"], fl_kw,
+                                     FLEET_CLIENTS)
+    if got != want:
+        fail(f"fleet simulation: launches {got} != {want}")
+    scale = max(abs(float(a)) for a in out["hists"]["sequential"]["accuracy"])
+    if not out["drift"] <= FLEET_DRIFT_REL * scale:
+        fail(f"fleet simulation: the engines drift {out['drift']:.3g} > "
+             f"{FLEET_DRIFT_REL} x {scale:.3g}")
+    rates = out["rounds_per_s"]
+    print(f"fleet simulation (lm16m, K = {FLEET_CLIENTS}, {FLEET_ROUNDS} "
+          f"rounds; {card}): sequential {rates['sequential']:.3f} rounds/s, "
+          f"batched {rates['batched']:.3f}; drift {out['drift']:.3g} "
+          f"(bound {FLEET_DRIFT_REL} x {scale:.3g}); launches {got}",
+          flush=True)
+    return {"launches": got, "rounds_per_s": rates, "drift": out["drift"]}
+
+
+def launch_drivers_path(torch, dev, launches, reset_launches, card):
+    """Phase 5j: the pod pair, the step builders, the dry runs on meta and
+    the fleet simulation.  Returns the records by path."""
+    out = {}
+    out["pods-qwen3-0.6b"], params = pod_pair_path(
+        torch, dev, launches, reset_launches, card)
+    out["steps-qwen3-0.6b"] = step_builders_path(torch, dev, params,
+                                                 launches, reset_launches)
+    del params
+    free_card(torch)
+    out["dryrun-meta"] = dry_runs_path(torch, launches, card)
+    out["fleet-simulation"] = fleet_simulation_path(torch, launches,
+                                                    reset_launches, card)
+    return out
 
 def np_equal(a, b) -> bool:
     import numpy as np
@@ -5708,6 +6108,13 @@ def main() -> None:
             {k: v for k, v in lm_mesh.items() if "launches" in v})
         record["moe_mesh"] = {k: v for k, v in lm_mesh.items()
                               if "launches" not in v}
+        free_card(torch)
+
+        phase("5j. the launch drivers: the FedAdapt pod pair at qwen3-0.6b "
+              "(full width and depth), the step builders, the dry runs on "
+              "meta and the fleet simulation")
+        record["main_path"].update(launch_drivers_path(
+            torch, dev, LAUNCHES, reset_launches, card))
         free_card(torch)
         launches = {k: {path: run["launches"][k]
                         for path, run in record["main_path"].items()}

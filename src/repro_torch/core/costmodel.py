@@ -9,8 +9,8 @@ device and server speeds to the paper's measured per-OP tables
 (``core/testbed.py``).  ``lm_layer_flops`` / ``lm_workload`` /
 ``program_workload`` materialize the LM families' workloads, and
 ``slice_profile`` models a fleet of pod slices as FedAdapt devices (the LM
-training driver's simulated cluster).  The reference's HBM-traffic model
-(``analytic_step_memory_bytes``) serves its dry runs only and is not here.
+training driver's simulated cluster).  ``analytic_step_memory_bytes`` is the dry runs' HBM-traffic
+model (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -200,6 +200,66 @@ def calibrate_device(w: Workload, ops: Sequence[int],
             den += dev * dev
     inv_c = num / max(den, 1e-30)
     return 1.0 / max(inv_c, 1e-15)
+
+
+# =============================================================================
+# analytic HBM-traffic model (fused-attention semantics)
+# =============================================================================
+def analytic_step_memory_bytes(cfg: ModelConfig, kind: str, batch: int,
+                               seq: int, dp: int, tp: int,
+                               act_bytes: int = 2,
+                               cache_len: Optional[int] = None) -> float:
+    """Per-device HBM bytes per step, assuming fused kernels that keep the
+    (Sq, Sk) attention scores and the elementwise chains on chip (as the
+    port's flash kernel keeps the scores in shared memory and registers),
+    so that only these move:
+      * weights: param shard per device (P/tp after the FSDP gather),
+        x3 passes for training (fwd, bwd, remat-fwd);
+      * activations: block I/O per layer per local token (d-wide residual
+        traffic, f/tp-wide MLP intermediates, attention qkvo), x3 for train;
+      * logits: chunked CE traffic (2 passes over tokens x vocab/tp);
+      * decode: the KV-cache read (sharded dp x tp) dominates.
+    ``kind`` is ``"train"``, ``"prefill"`` or ``"decode"``; ``dp`` and
+    ``tp`` the data- and model-parallel sizes.  The formula and its
+    constants are the reference's (``repro/core/costmodel.py``), which
+    aims to be within ~2x, enough to rank bottlenecks; it states no
+    measured rate."""
+    P_dev = cfg.param_count() * 2.0 / tp          # bf16 shard per device
+    toks = batch * seq / dp if kind != "decode" else batch / dp
+    n_mlp = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    f_active = (cfg.d_ff * (cfg.moe.top_k * cfg.moe.capacity_factor
+                            if cfg.moe else 1.0))
+    if cfg.moe and cfg.moe.dense_residual:
+        f_active += cfg.d_ff
+    heads_div = cfg.num_heads and cfg.q_dim % tp == 0
+    qkv_dim = (cfg.q_dim + 2 * cfg.kv_dim) / (tp if heads_div else 1)
+    if cfg.family == "ssm":
+        di = cfg.ssm.expand * cfg.d_model
+        per_tok_layer = (8 * cfg.d_model + 6 * di / tp
+                         + 4 * cfg.ssm.state_dim)
+    else:
+        per_tok_layer = (10 * cfg.d_model + n_mlp * f_active / tp
+                         + 2 * qkv_dim)
+    act_io = toks * per_tok_layer * act_bytes * cfg.num_layers
+    logit_io = 2.0 * toks * cfg.vocab_size / tp * act_bytes
+
+    if kind == "train":
+        total = 3.0 * P_dev + 3.0 * act_io + 2.0 * logit_io
+        total += 12.0 * cfg.param_count() / (dp * tp)   # optimizer update
+    elif kind == "prefill":
+        total = P_dev + act_io + logit_io
+    else:  # decode
+        CL = cache_len if cache_len is not None else seq
+        if cfg.family == "ssm":
+            di = cfg.ssm.expand * cfg.d_model
+            nheads = di // cfg.ssm.head_dim
+            cache = (cfg.num_layers * batch * nheads * cfg.ssm.head_dim
+                     * cfg.ssm.state_dim * act_bytes) / (dp * tp)
+        else:
+            cache = (2.0 * cfg.num_layers * batch * CL * cfg.kv_dim
+                     * act_bytes) / (dp * tp)
+        total = P_dev + act_io + logit_io + cache
+    return float(total)
 
 
 # =============================================================================

@@ -102,10 +102,12 @@ def load(name: str, signatures: Optional[Dict[str, tuple]] = None
 
 def wants_kernel(t, what: str) -> bool:
     """Dispatch on the tensor's device: True for CUDA (launch the kernel),
-    False for CPU (the plain version); anything else raises."""
+    False for CPU (the plain version) and for ``meta`` (the plain version
+    propagates shapes and dtypes, allocating and launching nothing: the
+    dry runs' abstract evaluation); anything else raises."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: no kernel for device {t.device}")
 

@@ -304,8 +304,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention of q ``(B, Sq, H, D)`` over k, v ``(B, Sk, KV, D)``;
     differentiable (fp32 only) when grad is enabled and an input requires
-    it."""
+    it.  On ``meta`` (abstract evaluation: shapes and dtypes alone) it is
+    ``attention_plain`` under autograd, in any dtype."""
     _check(q, k, v)
+    if q.device.type == "meta":
+        return attention_plain(q, k, v, causal, window, softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if q.dtype != torch.float32:

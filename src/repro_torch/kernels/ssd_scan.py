@@ -369,7 +369,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y ``(B, S, H, P)`` and the final state ``(B, H, P, N)`` of the SSD
     recurrence over x, in chunks of ``min(chunk, S)`` rows; differentiable
-    (``_SSDScan``) when grad is enabled and an input requires it."""
+    (``_SSDScan``) when grad is enabled and an input requires it.  On
+    ``meta`` (abstract evaluation: shapes and dtypes alone) it is
+    ``ssd_scan_plain`` under autograd over fp32 casts, y and the state
+    cast back to x's dtype, as the reference's bf16 ``ssd_chunked``
+    returns them."""
+    if x.device.type == "meta":
+        f32 = [None if t is None else t.float()
+               for t in (x, dt, A, Bm, Cm, init_state)]
+        _check(*f32[:5], chunk, f32[5])
+        y, final = ssd_scan_plain(*f32[:5], chunk, f32[5])
+        return y.to(x.dtype), final.to(x.dtype)
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad

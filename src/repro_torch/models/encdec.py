@@ -77,9 +77,11 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     card, raising if none is visible), a layer at a time into the stacks.
     They are not the reference's threefry draws: to hold the port against
     the reference, carry the reference's params across with
-    ``convert.lm_params_from_numpy``."""
+    ``convert.lm_params_from_numpy``.
+    On ``"meta"`` they are uninitialised meta tensors of the same
+    shapes and dtypes, and nothing is drawn."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.make_generator(device, seed)
     return {
         "embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "enc_layers": T.stacked_layers(cfg, gen, dtype, init_enc_layer,

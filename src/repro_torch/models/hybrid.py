@@ -61,8 +61,7 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     w = cfg.rglru.lru_width or d
     device = gen.device
     # Λ so that a lies in (0.9, 0.999) at r = 1 (Griffin appendix)
-    lam = torch.empty((w,), dtype=torch.float32, device=device)
-    lam.uniform_(0.9, 0.999, generator=gen)
+    lam = L._uniform(gen, (w,), 0.9, 0.999)
     lam = torch.log(torch.expm1(-torch.log(lam) / _LRU_C))  # inv. softplus
     return {
         "w_in1": L._dense_init(gen, d, w, dtype),
@@ -214,9 +213,11 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     card, raising if none is visible), a layer at a time into each slot's
     stack (``transformer.stacked_layers``).  They are not the reference's
     threefry draws: to hold the port against the reference, carry the
-    reference's params across with ``convert.lm_params_from_numpy``."""
+    reference's params across with ``convert.lm_params_from_numpy``.
+    On ``"meta"`` they are uninitialised meta tensors of the same
+    shapes and dtypes, and nothing is drawn."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.make_generator(device, seed)
     n_groups, rem = _pattern_info(cfg)
     p: Params = {"embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype)}

@@ -64,10 +64,37 @@ NEG_INF = -1e30
 # =============================================================================
 # initializers (same distributions as the reference; other random bits)
 # =============================================================================
+class _MetaDraws:
+    """The generator of an init on the ``meta`` device, where no
+    ``torch.Generator`` exists: it names the device and draws nothing (a
+    meta tensor has a shape and a dtype and no storage), as
+    ``jax.eval_shape`` traces the reference's init without running it."""
+    device = torch.device("meta")
+
+
+def make_generator(device: torch.device, seed: int):
+    """An init's generator: a ``torch.Generator`` on ``device`` seeded with
+    ``seed``; on ``meta``, ``_MetaDraws``."""
+    if device.type == "meta":
+        return _MetaDraws()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if gen.device.type == "meta":
+        return out.to(dtype)
     out.normal_(0.0, 1.0, generator=gen)
     return out.mul_(std).to(dtype)
+
+
+def _uniform(gen: torch.Generator, shape, low: float, high: float
+             ) -> torch.Tensor:
+    """fp32 draws from U(low, high) (uninitialised on ``meta``)."""
+    out = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if gen.device.type == "meta":
+        return out
+    return out.uniform_(low, high, generator=gen)
 
 
 def _dense_init(gen, d_in: int, d_out: int, dtype) -> torch.Tensor:

@@ -51,9 +51,8 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     """One layer's params, drawn from ``gen`` on its device."""
     d_inner, nheads, conv_dim, proj_dim, N = dims(cfg)
     device = gen.device
-    dt = torch.empty((nheads,), dtype=torch.float32, device=device)
-    dt = torch.exp(dt.uniform_(math.log(1e-3), math.log(1e-1),
-                               generator=gen))
+    dt = torch.exp(L._uniform(gen, (nheads,), math.log(1e-3),
+                              math.log(1e-1)))
     return {
         "ln": L.init_rms_norm(cfg.d_model, dtype, device),
         "in_proj": L._dense_init(gen, cfg.d_model, proj_dim, dtype),
@@ -75,9 +74,11 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``: the
     card, raising if none is visible).  They are not the reference's
     threefry draws: to hold the port against the reference, carry the
-    reference's params across with ``convert.lm_params_from_numpy``."""
+    reference's params across with ``convert.lm_params_from_numpy``.
+    On ``"meta"`` they are uninitialised meta tensors of the same
+    shapes and dtypes, and nothing is drawn."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.make_generator(device, seed)
     p: Params = {"embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype)}
     p["layers"] = T.stacked_layers(cfg, gen, dtype, init_layer)

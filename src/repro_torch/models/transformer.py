@@ -100,10 +100,12 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     card, raising if none is visible), so a full-width model's draws stay
     on the card.  They are not the reference's threefry draws: to hold the
     port against the reference, carry the reference's params across with
-    ``convert.lm_params_from_numpy``."""
+    ``convert.lm_params_from_numpy``.
+    On ``"meta"`` they are uninitialised meta tensors of the same
+    shapes and dtypes, and nothing is drawn."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.make_generator(device, seed)
     p: Params = {"embed": L._embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype)}
     p["layers"] = stacked_layers(cfg, gen, dtype)

@@ -22,8 +22,12 @@ folds the weight decay into the delta and clips by the global norm with
 updates return new tensors and never write the old ones.
 
 The step counter stays on the host: the rate and the bias corrections are
-fp32 values computed there and enter the update as scalars, so a step on
-the card copies nothing to it and never waits for it.
+0-d fp32 tensors computed there and enter the update as CPU scalars (the
+same fp32 values a Python float of them would give), so a step on the card
+copies nothing to it and never waits for it.  They are never read back
+with ``float()``, which neither a ``meta`` tensor (the dry runs) nor
+``torch.func.vmap`` (the pods' local step, whose stacked counter lies with
+the params) allows.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ def sgd(schedule=None, momentum: float = 0.9, weight_decay: float = 0.0,
     def update(params, grads, state):
         if clip_norm > 0:
             grads, _ = clip_by_global_norm(grads, clip_norm)
-        lr = float(schedule(state["step"]))
+        lr = schedule(state["step"])
 
         def upd(p, g, m):
             g32 = g.to(torch.float32)
@@ -103,9 +107,9 @@ def adamw(schedule=None, b1: float = 0.9, b2: float = 0.999,
         if clip_norm > 0:
             grads, _ = clip_by_global_norm(grads, clip_norm)
         step = state["step"] + 1
-        lr = float(schedule(state["step"]))
-        bc1 = float(1 - b1 ** step.to(torch.float32))
-        bc2 = float(1 - b2 ** step.to(torch.float32))
+        lr = schedule(state["step"])
+        bc1 = 1 - b1 ** step.to(torch.float32)
+        bc2 = 1 - b2 ** step.to(torch.float32)
 
         def upd(p, g, m, v):
             g32 = g.to(torch.float32)
@@ -153,8 +157,8 @@ def adafactor(schedule=None, eps: float = 1e-30, clip_threshold: float = 1.0,
 
     def update(params, grads, state):
         step = state["step"] + 1
-        lr = float(schedule(state["step"]))
-        beta2 = float(1.0 - step.to(torch.float32) ** -decay_pow)
+        lr = schedule(state["step"])
+        beta2 = 1.0 - step.to(torch.float32) ** -decay_pow
 
         def upd(p, g, s):
             g32 = g.to(torch.float32)

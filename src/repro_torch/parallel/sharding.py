@@ -25,6 +25,9 @@ concrete dim against the mesh axis size and falls back to replication when
 it does not divide (e.g. arctic's 56 heads).  A spec is a plain tuple with
 one entry a dim: a mesh axis name, a tuple of them, or ``None``.
 
+``count_collectives`` counts the bytes and calls of the collectives run
+inside it (the dry runs' ``collectives``).
+
 The reference's ``shard`` / ``named_shardings`` only place arrays and
 change no value, so they have no counterpart here.
 """
@@ -242,6 +245,46 @@ def activation_spec(names: Sequence[str],
 # =============================================================================
 # the collectives: one part a place of a group, in place order
 # =============================================================================
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter")
+_counts = threading.local()
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives this thread runs inside the block: yields
+    ``{op: {"bytes", "count"}}`` over ``COLLECTIVES``, with ``"total"``
+    added when the block ends.  Each call of ``psum`` (an all-reduce),
+    ``all_gather`` and ``psum_scatter`` over more than one part counts
+    once, its bytes those of what it returns (``psum_scatter``: every
+    tile), as do the calls of ``record_collective``.  These are the
+    collectives the port's one-controller program performs (``all_gather``
+    runs once for each receiving place, ``psum`` once a group): not XLA's
+    SPMD traffic, which counts each op once per device program."""
+    prev = getattr(_counts, "stats", None)
+    stats = {op: {"bytes": 0.0, "count": 0} for op in COLLECTIVES}
+    _counts.stats = stats
+    try:
+        yield stats
+    finally:
+        _counts.stats = prev
+        stats["total"] = {
+            "bytes": sum(stats[op]["bytes"] for op in COLLECTIVES),
+            "count": sum(stats[op]["count"] for op in COLLECTIVES)}
+
+
+def record_collective(op: str, nbytes: float) -> None:
+    """Count one ``op`` of ``nbytes`` in the active ``count_collectives``
+    block (none active: nothing)."""
+    stats = getattr(_counts, "stats", None)
+    if stats is not None:
+        stats[op]["bytes"] += float(nbytes)
+        stats[op]["count"] += 1
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def psum(parts: Sequence[torch.Tensor],
          device: Optional[torch.device] = None) -> torch.Tensor:
     """The sum of a group's parts, added in place order on ``device`` (the
@@ -251,6 +294,8 @@ def psum(parts: Sequence[torch.Tensor],
     acc = parts[0].to(device)
     for p in parts[1:]:
         acc = acc + p.to(device)
+    if len(parts) > 1:
+        record_collective("all-reduce", _nbytes(acc))
     return acc
 
 
@@ -261,14 +306,23 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int = 0,
     device = parts[0].device if device is None else device
     if len(parts) == 1:
         return parts[0].to(device)
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+    out = torch.cat([p.to(device) for p in parts], dim=dim)
+    record_collective("all-gather", _nbytes(out))
+    return out
 
 
 def psum_scatter(parts: Sequence[torch.Tensor], dim: int,
                  devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """The group's parts summed in place order, then split along ``dim``
     into one equal tile a place (a tiled reduce-scatter)."""
-    total = psum(parts, devices[0])
+    stats = getattr(_counts, "stats", None)
+    _counts.stats = None        # the sum inside is this op, not another
+    try:
+        total = psum(parts, devices[0])
+    finally:
+        _counts.stats = stats
+    if len(parts) > 1:
+        record_collective("reduce-scatter", _nbytes(total))
     return [t.to(d) for t, d in
             zip(total.chunk(len(devices), dim=dim), devices)]
 
@@ -325,18 +379,39 @@ def _spec_for_leaf(path: str, shape: Tuple[int, ...],
     return (None,) * len(shape)
 
 
-def _map_with_path(fn, tree, prefix: Tuple[str, ...] = ()):
+def is_spec(x) -> bool:
+    """Whether ``x`` is a spec (a tuple of mesh axis names, tuples of
+    them, or ``None``), not a tuple container of a tree."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def map_with_path(fn, tree, prefix: Tuple[str, ...] = (), is_leaf=None):
     """``fn('/'-joined path, leaf)`` over a tree's leaves, keeping its
     dicts, lists and tuples; the path is the one
     ``jax.tree_util.tree_flatten_with_path`` gives (a dict key as itself, a
-    list or tuple index as its number)."""
+    list or tuple index as its number).  ``is_leaf(x)`` true stops the
+    descent (``is_spec`` for a tree of specs)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn("/".join(prefix), tree)
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, prefix + (str(k),))
+        return {k: map_with_path(fn, v, prefix + (str(k),), is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, prefix + (str(i),))
+        return type(tree)(map_with_path(fn, v, prefix + (str(i),), is_leaf)
                           for i, v in enumerate(tree))
     return fn("/".join(prefix), tree)
+
+
+def path_leaves(tree, is_leaf=None) -> Dict[str, Any]:
+    """``{'/'-joined path: leaf}`` over a tree's leaves (``map_with_path``'s
+    paths and ``is_leaf``)."""
+    out: Dict[str, Any] = {}
+    map_with_path(lambda path, leaf: out.__setitem__(path, leaf), tree,
+                  is_leaf=is_leaf)
+    return out
 
 
 def param_pspecs(params: Any, rules: AxisRules,
@@ -354,4 +429,4 @@ def param_pspecs(params: Any, rules: AxisRules,
             lead = min(stacked_layer_dims, len(shape))
         return (None,) * lead + _spec_for_leaf(path, shape[lead:], rules)
 
-    return _map_with_path(one, params)
+    return map_with_path(one, params)

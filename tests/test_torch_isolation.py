@@ -128,6 +128,33 @@ ENTRY_POINTS = {
         "with use_rules(make_axis_rules(mesh)), L.moe_int8_gather():\n"
         "    y = L.moe_block(cfg, p, x)\n"
         "assert y.shape == x.shape and bool(torch.isfinite(y).all())\n"),
+    "the dry runs import without side effects and run on meta": (
+        "import os, torch\n"
+        "env = dict(os.environ)\n"
+        "from repro_torch.launch import dryrun, fedavg_dryrun\n"
+        "assert dict(os.environ) == env and not torch.cuda.is_initialized()\n"
+        "r = dryrun.run_cell('mamba2-780m', 'long_500k', False)\n"
+        "assert r['status'] == 'ok' and r['cost']['flops'] > 0\n"
+        "assert dryrun.run_cell('qwen3-0.6b', 'long_500k', True)['status'] \\\n"
+        "    == 'skipped'\n"
+        "assert not torch.cuda.is_initialized()\n"),
+    "make_local_sync_steps over two pods": (
+        "import torch\n"
+        "from repro_torch.configs.lm_small import LM16M\n"
+        "from repro_torch.launch import steps as S\n"
+        "from repro_torch.models import api\n"
+        "from repro_torch.tree import tree_leaves, tree_map\n"
+        "p = api.init(LM16M, 0, device='cpu')\n"
+        "opt = S.make_opt(LM16M)\n"
+        "local, sync = S.make_local_sync_steps(LM16M, opt, 2)\n"
+        "pp = tree_map(lambda x: torch.stack([x, x]), p)\n"
+        "oo = tree_map(lambda x: torch.stack([x, x]), opt.init(p))\n"
+        "toks = torch.randint(0, LM16M.vocab_size, (2, 1, 17))\n"
+        "b = {'tokens': toks[..., :-1], 'labels': toks[..., 1:]}\n"
+        "loss, pp, oo = local(pp, oo, b)\n"
+        "assert loss.shape == (2,) and bool(torch.isfinite(loss).all())\n"
+        "for x in tree_leaves(sync(pp)):\n"
+        "    assert torch.equal(x[0], x[1])\n"),
 }
 
 

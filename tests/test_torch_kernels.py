@@ -7,6 +7,8 @@ exact: int8 codes, fp32 scales, dequantized values and top-k outputs are
 equal bit for bit.  The ``cuda`` cases run the hand-written kernels and
 skip where no card is visible.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ import torch
 from repro.kernels.quant_transfer import ops as jq
 from repro.kernels.topk_compress import ops as jt
 from repro.kernels.topk_compress.topk_compress import topk_compress_pallas
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels import quant_transfer as tq
 from repro_torch.kernels import topk_compress as tt
 
@@ -191,8 +193,17 @@ def test_wrappers_check_their_inputs():
                            torch.zeros(3))
     with pytest.raises(ValueError):
         tt.topk_compress_flat(torch.zeros(1, 1000), np.zeros((1, 2)), 1024)
-    with pytest.raises(ValueError):                         # no kernel there
-        tq.quantize_rows(torch.zeros(4, 4, device="meta"))
+    # a meta tensor (the dry runs' stand-in) takes the plain version for
+    # its shapes and launches nothing; a device with no kernel and no plain
+    # version raises
+    before = dict(LAUNCHES)
+    q, scale = tq.quantize_rows(torch.zeros(4, 4, device="meta"))
+    assert (q.device.type, q.dtype, tuple(q.shape), tuple(scale.shape)) == \
+        ("meta", torch.int8, (4, 4), (4,))
+    assert dict(LAUNCHES) == before
+    with pytest.raises(ValueError, match="no kernel"):
+        _build.wants_kernel(SimpleNamespace(device=torch.device("xpu")),
+                            "quantize_rows")
 
 
 # =============================================================================
