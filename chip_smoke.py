@@ -261,8 +261,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dropped: with it the run would not fit the card): the width-0.25
    client's params exactly 0 outside its mask, and with the width-1.0
    client left out of a recomputed step every uncovered coordinate keeps
-   its value bit for bit.  Then mamba2-780m at full width, 12 of 48
-   layers, 1 round at OP 6 with the int8 cut.  Each run: OPs, modelled
+   its value bit for bit.  The qwen3-0.6b set-up again through the
+   batched engine (the three clients one vmapped chunk, every layer and
+   CE chunk rematerialised under ``torch.func``): OPs, modelled times and
+   drops equal to the sequential run's, the metric within 5e-4, the final
+   params within phase 6's discrete-step bounds of the sequential run's
+   (at most 5% of the lanes beyond 1e-4 of their leaf's max, none beyond
+   0.25; the flash forward a launch a chunk).  Then mamba2-780m at full
+   width, 12 of 48 layers, 1 round at OP 6 with the int8 cut.  Each run:
+   OPs, modelled
    round and comm times, drops and ``edge_time`` equal to a CPU replay of
    the planner and ``RoundClock``; the -CE eval metric finite every round;
    launches exactly what its history needs (the mixer's forward twice a
@@ -311,16 +318,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``fedavg_dryrun``, ``fleet_simulation``): the FedAdapt pod pair
    (``make_local_sync_steps``: the train step vmapped over 2 pods, then
    the FedAvg sync) at qwen3-0.6b's full width and depth from one start,
-   one 2048-token row a pod and step (4096 ran out of memory), AdamW, 2
-   local steps; each pod against ``make_train_step`` on its rows alone
+   one 4096-token row a pod and step (every layer and CE chunk
+   rematerialised under ``torch.func``), AdamW, 2 local steps; each pod
+   against ``make_train_step`` on its rows alone
    (after one step every lane within 1e-5 of its leaf's max but for at
    most 1e-4 of the lanes, none of them beyond 2 lr: Adam's sign steps),
    the sync bit for bit
-   ``(p0 + p1) * 0.5`` in both pods, flash launched once a layer and step
-   for both pods; ``make_prefill_step`` / ``make_decode_step`` (B = 2, a
+   ``(p0 + p1) * 0.5`` in both pods, flash's forward launched twice a
+   layer and step (the forward and its recompute) and its backward pair
+   once, for both pods; ``make_prefill_step`` / ``make_decode_step`` (B = 2, a
    512-token prompt, 8 decode steps) bit for bit ``api.prefill`` /
    ``api.decode``; the dry runs on meta (qwen3-0.6b train_4k, its FLOPs
-   the closed form; mixtral-8x22b and arctic-480b decode_32k at 4 of
+   the closed form: four forwards, the recompute counted; mixtral-8x22b and arctic-480b decode_32k at 4 of
    their layers, their collectives those of the expert-parallel body's
    case B and case A; mamba2-780m long_500k; the fedavg dry run of
    qwen3-0.6b on 2 x 16 x 16), every cell ``ok`` with no card memory and
@@ -688,6 +697,14 @@ FED_WIDTHS = (1.0, 0.5, 0.25)
 # then mamba2-780m at full width with its depth cut to 12 of 48 layers: 1
 # sync round at OP 6 with the int8 cut
 FED_MAMBA_LAYERS, FED_MAMBA_OP = 12, 6
+# the batched run: the qwen3-0.6b set-up above with engine="batched" (the
+# three clients at OP 14 one chunk, one vmapped step a local iteration,
+# every layer and CE chunk rematerialised under torch.func), held to the
+# sequential run: OPs, modelled round and comm times and drops equal, the
+# metric within FED_DISCRETE_METRIC_REL, the final params lane by lane
+# within FED_LANE_REL / FED_TREE_SHARE / FED_DISCRETE_PARAMS_REL (phase
+# 6's bounds below): the engines' fp32 sums part, which moves int8 codes
+# and top-k near-ties, discrete steps that later rounds carry on
 # phase 6's lm16m runs through run_federated, card against CPU: a plain
 # fp32 run within TRAIN_LOSS_REL (the metric) and TRAIN_GRAD_REL (every
 # param leaf, of its max); the runs with the int8 cut, top-k and int8
@@ -774,9 +791,8 @@ MOE_MESH_CASES = {
 # phase 5j, the launch drivers.  (a) The FedAdapt pod pair
 # (``launch.steps.make_local_sync_steps``) at qwen3-0.6b's full width and
 # depth: fp32 params from api.init(cfg, 0) on the card, the same start in
-# both pods, one row of POD_SEQ tokens a pod and local step (half
-# train_4k's length, its global batch of 256 cut to one row a pod: see
-# below), qwen3's AdamW
+# both pods, one row of POD_SEQ tokens a pod and local step (train_4k's
+# row length, its global batch of 256 cut to one row a pod), qwen3's AdamW
 # (make_opt: make_optimizer's default rate ADAMW_LR, clip 1.0),
 # POD_LOCAL_STEPS vmapped local steps, then the sync.  Each pod against
 # make_train_step on its rows alone: the loss within TRAIN_LOSS_REL, and
@@ -786,12 +802,12 @@ MOE_MESH_CASES = {
 # gradient within the vmapped GEMMs' rounding of 0 flips its lane by up
 # to 2 lr (a discrete step); the reading after the second step is
 # recorded.  The sync equals (p0 + p1) * 0.5 bit for bit in both pods, and
-# flash launches once a layer for both pods (its vmap rules fold them
-# into B).  The peak was reckoned at 50-66 GiB for rows of 4096 tokens
-# (PERF.md, phase 5j), but with no remat under ``torch.func`` every
-# layer's elementwise intermediates stay for the backward, and the first
-# step at 4096 ran out of the card's 79.2 GiB: so rows of 2048 tokens
-POD_SEQ, POD_LOCAL_STEPS = 2048, 2
+# flash launches twice a layer and step for both pods (the forward and
+# its remat recompute; its vmap rules fold the pods into B).  Every layer
+# and CE chunk is rematerialised under ``torch.func`` (``layers._Remat``),
+# so a pod keeps its layers' inputs, not their intermediates: without
+# that, 4096 tokens a pod ran out of the card (PERF.md, phase 5j)
+POD_SEQ, POD_LOCAL_STEPS = 4096, 2
 ADAMW_LR = 1e-4
 POD_STEP_REL, POD_FLIP_SHARE = 1e-5, 1e-4
 # (b) the step builders at qwen3-0.6b: B = 2 rows of a STEPS_PROMPT-token
@@ -2166,12 +2182,20 @@ def flash_bwd_drill(torch, tf, q, k, v, do, causal, window, cap, what):
     """The forward kernel's output and lse against ``attention_plain_lse``,
     and the backward kernels' dq, dk, dv against ``attention_bwd_plain`` on
     the same q, k, v, o, lse and do, each within FLASH_BWD_REL * max(1,
-    max|want|); a row that sees no key must get dq exactly 0.  Returns
+    max|want|); a row that sees no key must get dq exactly 0; the forward
+    without lse (a remat layer's first run) bit for bit the forward with
+    it (the recompute the backward differentiates).  Returns
     the max abs errors by name ("out" is the forward kernel's) and their
     bounds under "bounds"."""
     out, lse = tf.flash_attention_lse(q, k, v, causal, window, cap)
     got = tf.flash_attention_bwd(q, k, v, out, lse, do, causal, window, cap)
+    with torch.no_grad():
+        bare = tf.flash_attention(q, k, v, causal, window, cap)
     torch.cuda.synchronize()
+    if not torch.equal(bare, out):
+        fail(f"flash bwd {what}: the forward without lse (a remat layer's "
+             f"first run) is not bit for bit the forward with it (its "
+             f"recompute)")
     want_out, want_lse = tf.attention_plain_lse(q, k, v, causal, window, cap)
     want = tf.attention_bwd_plain(q, k, v, out, lse, do, causal, window, cap)
     empty = torch.isinf(want_lse)
@@ -3973,18 +3997,32 @@ def fed_lm_launches(cfg, h, fl, native_op, K, mesh_shape=None):
     layer; the int8 pair once a step below the native OP (with the int8
     cut) and once per surviving client row for the delta wire; top-k once
     per surviving client row (on a ``mesh_shape`` mesh: rows padded to the
-    ``data`` size, each once per model shard)."""
+    ``data`` size, each once per model shard).  The sequential engine
+    steps a client at a time; the batched one (mesh-less here) a chunk of
+    an OP's clients (``BATCHED_MAX_GROUP`` at most) at a time, its flash
+    Functions and the int8 cut folding the chunk into one call, while the
+    SSD scan's run once a client (each holds its own ``A``)."""
     rounds = len(h["ops"])
     steps = fl.local_iters * K * rounds
-    cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
-                                   for op in row)) \
-        if fl.quantize_transfer else 0
+    if fl.engine == "batched":
+        assert mesh_shape is None, "the batched count is mesh-less"
+        groups = [(op, n) for row in h["ops"] for op, n in
+                  collections.Counter(int(o) for o in row).items()]
+        folded = fl.local_iters * sum(-(-n // BATCHED_MAX_GROUP)
+                                      for _, n in groups)
+        cut = batched_cut_launches(fl, groups, native_op)
+    else:
+        folded = steps
+        cut = fl.local_iters * int(sum(op < native_op for row in h["ops"]
+                                       for op in row))
+    cut = cut if fl.quantize_transfer else 0
     data, model = mesh_shape or (1, 1)
     kept = sum((n + (-n) % data) * model
                for n in (K - int(d) for d in h["dropped"]))
     L = cfg.num_layers
     ssm = cfg.family == "ssm"
-    mixer = {"fwd": 2 * L * steps + L * rounds, "bwd": L * steps}
+    calls = steps if ssm else folded
+    mixer = {"fwd": 2 * L * calls + L * rounds, "bwd": L * calls}
     wire = kept if fl.quantize_deltas else 0
     return {"quantize": cut + wire, "dequantize": cut + wire,
             "topk_compress": kept if fl.delta_density < 1.0 else 0,
@@ -4354,9 +4392,18 @@ def federated_lm_path(torch, dev, launches, reset_launches, card="",
                   quantize_transfer=True, delta_density=0.1,
                   quantize_deltas=True, seed=0)
     out = {}
+    keep = {} if keep is None else keep
     out["fed-qwen3-0.6b"] = fed_lm_run(
         torch, qwen_cfg, fl, FED_K, dev, launches, reset_launches,
         "qwen3-0.6b", wrap=lambda: ServerStepProbe(torch), keep=keep)
+    batched = {}
+    out["fed-qwen3-0.6b-batched"] = fed_lm_run(
+        torch, qwen_cfg, dataclasses.replace(fl, engine="batched"), FED_K,
+        dev, launches, reset_launches, "qwen3-0.6b-batched",
+        wrap=lambda: ServerStepProbe(torch, check=False), keep=batched)
+    out["fed-qwen3-0.6b-batched"].update(engines_agree(
+        torch, dev, qwen_cfg, batched, keep, "fed-qwen3-0.6b-batched"))
+    del batched
     wide = dataclasses.replace(fl, rounds=1, client_widths=FED_WIDTHS,
                                num_edges=2, delta_density=1.0)
     out["fed-qwen3-0.6b-widths"] = fed_lm_run(
@@ -4378,6 +4425,50 @@ def federated_lm_path(torch, dev, launches, reset_launches, card="",
               f"{r['peak_memory_gib']:.2f} GiB, {r['flat_lanes']:,} "
               f"flat-buffer lanes", flush=True)
     return out
+
+
+def engines_agree(torch, dev, cfg, got, want, what):
+    """A batched ``run_federated`` run (``got``: ``fed_lm_run``'s ``keep``)
+    against the sequential run of the same set-up (``want``): OPs,
+    modelled round and comm times and drops equal, the -CE metric within
+    FED_DISCRETE_METRIC_REL, the final params lane by lane within
+    FED_LANE_REL / FED_TREE_SHARE / FED_DISCRETE_PARAMS_REL of their
+    leaf's largest sequential value.  Returns the readings."""
+    import numpy as np
+    from repro_torch.fl.flatbuf import FlatLayout
+    from repro_torch.models.split_program import get_split_program
+    hg, hw = got["hist"], want["hist"]
+    for key in ("ops", "times", "round_time", "comm_time", "dropped",
+                "edge_time"):
+        if not np_equal(hg[key], hw[key]):
+            fail(f"{what}: {key} {hg[key]} != the sequential run's "
+                 f"{hw[key]}")
+    metric = float(np.max(np.abs(hg["accuracy"] - hw["accuracy"])
+                          / np.abs(hw["accuracy"])))
+    free_card(torch)
+    layout = FlatLayout(get_split_program(cfg).init(0, device="meta"))
+    a, b = got["flat"].to(dev), want["flat"].to(dev)
+    gap, beyond = 0.0, 0
+    for off, size in zip(layout.offsets, layout.sizes):
+        x, y = a[off:off + size], b[off:off + size]
+        err = (x - y).abs() / max(float(y.abs().max()), 1e-3)
+        gap = max(gap, float(err.max()))
+        beyond += int((err > FED_LANE_REL).sum())
+    share = beyond / layout.size
+    del a, b
+    if not (metric <= FED_DISCRETE_METRIC_REL
+            and gap <= FED_DISCRETE_PARAMS_REL and share <= FED_TREE_SHARE):
+        fail(f"{what} vs sequential: metric {metric:.3g} relative (<= "
+             f"{FED_DISCRETE_METRIC_REL}?), params {gap:.3g} of a leaf's "
+             f"max (<= {FED_DISCRETE_PARAMS_REL}?), {share:.3g} of the "
+             f"lanes beyond {FED_LANE_REL} (<= {FED_TREE_SHARE}?)")
+    print(f"{what} == sequential (ops, times, comm, drops); metric "
+          f"{metric:.3g} relative (<= {FED_DISCRETE_METRIC_REL}), params "
+          f"{gap:.3g} of a leaf's max (<= {FED_DISCRETE_PARAMS_REL}), "
+          f"{share:.3g} of the lanes beyond {FED_LANE_REL} (<= "
+          f"{FED_TREE_SHARE})", flush=True)
+    return {"vs_sequential": {"metric_rel": metric, "params_rel": gap,
+                              "lane_share": share}}
 
 
 def side_stream_publication(torch, engine, store, src):
@@ -4819,12 +4910,12 @@ def pod_lane_readings(torch, got, want):
 
 
 def pod_pair_launches(cfg, local_steps):
-    """The pod pair's launches: a local step runs flash's forward once a
-    layer (no remat under ``torch.func``) and its backward pair once,
-    every pod folded into one launch."""
+    """The pod pair's launches: a local step runs flash's forward twice a
+    layer (the forward and its remat recompute, both under ``vmap``) and
+    its backward pair once, every pod folded into one launch."""
     n = cfg.num_layers * local_steps
     return {"quantize": 0, "dequantize": 0, "topk_compress": 0,
-            "flash_attention": n, "flash_attention_bwd_dq": n,
+            "flash_attention": 2 * n, "flash_attention_bwd_dq": n,
             "flash_attention_bwd_dkdv": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
@@ -4983,15 +5074,17 @@ def moe_gather_bytes(cfg, tp, places, layers):
 
 
 def qwen3_train_flops(cfg, B, S):
-    """The matmul FLOPs the counter sees in a qwen3 train step (projections
-    and the tied unembedding 2 T d d_out, attention's two (S, S) products
-    a head, the backward two products a forward one; no recompute under
-    ``torch.func``)."""
+    """The matmul FLOPs the counter sees in a qwen3 train step: the forward
+    (projections and the tied unembedding 2 T d d_out, attention's two (S,
+    S) products a head), its recompute in the backward (every one of them
+    sits in a rematerialised layer or CE chunk, recomputed under
+    ``torch.func`` too) and the backward's two products a forward one:
+    four forwards."""
     T, d, L = B * S, cfg.d_model, cfg.num_layers
     per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
                  + 3 * d * cfg.d_ff)
     attention = 4 * B * cfg.num_heads * S * S * cfg.head_dim
-    return 3 * (2 * T * (L * per_layer + cfg.vocab_size * d)
+    return 4 * (2 * T * (L * per_layer + cfg.vocab_size * d)
                 + L * attention)
 
 
@@ -5068,25 +5161,14 @@ def dry_runs_path(torch, launches, card):
 
 
 def fleet_simulation_launches(cfg, hists, fl_kw, K):
-    """The fleet simulation's launches: the sequential engine's as
-    ``fed_lm_launches``; the batched engine's flash forward once a layer
-    for each chunk of at most BATCHED_MAX_GROUP clients and local
-    iteration (no remat under ``vmap``) and its backward pair once, plus
-    each round's eval pass."""
+    """The fleet simulation's launches: ``fed_lm_launches`` of each
+    engine's history."""
     from repro_torch.fl.loop import FLConfig
     from repro_torch.models.split_program import get_split_program
     native = get_split_program(cfg).native_op
-    seq = fed_lm_launches(cfg, hists["sequential"],
-                          FLConfig(**fl_kw, engine="sequential"), native, K)
-    rounds = len(hists["batched"]["ops"])
-    chunks = sum(-(-n // BATCHED_MAX_GROUP) for row in hists["batched"]["ops"]
-                 for n in collections.Counter(int(o) for o in row).values())
-    L, steps = cfg.num_layers, fl_kw["local_iters"] * chunks
-    out = dict(seq)
-    out["flash_attention"] += L * steps + L * rounds
-    out["flash_attention_bwd_dq"] += L * steps
-    out["flash_attention_bwd_dkdv"] += L * steps
-    return out
+    runs = [fed_lm_launches(cfg, hists[e], FLConfig(**fl_kw, engine=e),
+                            native, K) for e in ("sequential", "batched")]
+    return {k: runs[0][k] + runs[1][k] for k in runs[0]}
 
 
 def fleet_simulation_path(torch, launches, reset_launches, card):

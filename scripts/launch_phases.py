@@ -1,14 +1,15 @@
 """chip_smoke.py's launch-driver phase (5j) alone, on one card.
 
-    python3 scripts/launch_phases.py
+    python3 scripts/launch_phases.py [--federated]
 
 A development script, outside the port's package: nothing the port runs
 calls it.  It builds the kernels as chip_smoke.py does, switches TF32 off,
 then runs ``launch_drivers_path``: the FedAdapt pod pair at qwen3-0.6b's
 full width and depth against the train step alone, the step builders
-against the api, the dry runs on meta and the fleet simulation.  Every
-check is chip_smoke.py's own; the record goes to
-``chiprun_out/launch_phases.json``.
+against the api, the dry runs on meta and the fleet simulation.  With
+``--federated`` phase 5g (``federated_lm_path``: qwen3-0.6b through both
+engines, the widths run and mamba2-780m) runs first.  Every check is
+chip_smoke.py's own; the record goes to ``chiprun_out/launch_phases.json``.
 """
 from __future__ import annotations
 
@@ -40,9 +41,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all(verbose=False)
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    record = {"card": card}
+    if "--federated" in sys.argv[1:]:
+        cs.phase("5g. federated LM training")
+        record["5g"] = cs.federated_lm_path(torch, dev, LAUNCHES,
+                                            reset_launches, card)
+        cs.free_card(torch)
     cs.phase("5j. the launch drivers")
-    record = {"card": card, "5j": cs.launch_drivers_path(
-        torch, torch.device("cuda", 0), LAUNCHES, reset_launches, card)}
+    record["5j"] = cs.launch_drivers_path(torch, dev, LAUNCHES,
+                                          reset_launches, card)
     record["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -15,7 +15,7 @@ model (``launch/dryrun.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,9 +39,19 @@ class Workload:
     def num_layers(self) -> int:
         return len(self.layer_flops)
 
+    @property
+    def total_train_flops(self) -> float:
+        """One iteration's training FLOPs: the forward's times
+        ``train_mult``."""
+        return float(self.layer_flops.sum() * self.train_mult)
+
     def device_fraction(self, op: int) -> float:
         """mu: fraction of compute kept on the device for cut at ``op``."""
         return float(self.layer_flops[:op].sum() / self.layer_flops.sum())
+
+    def op_fractions(self, ops: Sequence[int]) -> List[float]:
+        """``device_fraction`` of each OP in ``ops``."""
+        return [self.device_fraction(op) for op in ops]
 
 
 @dataclasses.dataclass(frozen=True)

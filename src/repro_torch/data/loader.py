@@ -17,7 +17,7 @@ array, rebalancing included.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -134,6 +134,11 @@ class ClientLoader:
             self.cursor += self.batch_size
         self._perm = self._permutation(self.epoch)
 
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """``next_batch`` forever."""
+        while True:
+            yield self.next_batch()
+
 
 class FleetLoader:
     """One ``ClientLoader(seed + k)`` per client, built on first draw (an
@@ -164,6 +169,16 @@ class FleetLoader:
             self._loaders[k] = ClientLoader(self._data[k], self._batch_size,
                                             seed=self._seed + k)
         return self._loaders[k]
+
+    @property
+    def loaders(self) -> List[ClientLoader]:
+        """All K streams as a list: builds every client's stream."""
+        return [self._get(k) for k in range(len(self._data))]
+
+    @property
+    def materialized(self) -> int:
+        """How many client streams have been built."""
+        return len(self._loaders)
 
     def __len__(self) -> int:
         return len(self._data)

@@ -24,10 +24,11 @@ like the params.  ``hetero=None`` is the homogeneous step, bit for bit.
 Both train VGG on image batches and every LM family on token batches
 (the VLM's patches and encdec's frames ride in the batch like any other
 key; only images are flipped).  Under the batched engine's ``vmap`` an
-LM's layers are not rematerialised (``models.layers.remat``), the
-flash-attention Functions fold the clients into their kernels' batch
-axis, and the SSD scan's run once a client (each client holds its own
-``A``, and a kernel call takes one); the MoE dispatch
+LM's layers and CE chunks are rematerialised as in the sequential engine
+(``models.layers.remat``: the forward and its recompute are each one
+vmapped call), the flash-attention Functions fold the clients into their
+kernels' batch axis, and the SSD scan's run once a client (each client
+holds its own ``A``, and a kernel call takes one); the MoE dispatch
 (``models.layers.moe_dispatch``) runs out of place with no host read, its
 capacity counting one client's tokens.
 

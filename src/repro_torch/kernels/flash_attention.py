@@ -304,8 +304,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention of q ``(B, Sq, H, D)`` over k, v ``(B, Sk, KV, D)``;
     differentiable (fp32 only) when grad is enabled and an input requires
-    it.  On ``meta`` (abstract evaluation: shapes and dtypes alone) it is
-    ``attention_plain`` under autograd, in any dtype."""
+    it.  With grad off under a ``torch.func`` transform (a rematerialised
+    layer's first run inside ``vmap``: batched operands, which the kernel
+    cannot take) it is ``_FlashAttention`` too, whose ``vmap`` rule folds
+    the clients into B, its lse dropped.  On ``meta`` (abstract
+    evaluation: shapes and dtypes alone) it is ``attention_plain`` under
+    autograd, in any dtype."""
     _check(q, k, v)
     if q.device.type == "meta":
         return attention_plain(q, k, v, causal, window, softcap)
@@ -315,6 +319,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: the gradient is float32 "
                              f"only (training in this repo is fp32); got "
                              f"{q.dtype}")
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)[0]
+    if torch._C._are_functorch_transforms_active():
         return _FlashAttention.apply(q, k, v, causal, window, softcap)[0]
     return _forward(q, k, v, causal, window, softcap, want_lse=False)[0]
 

@@ -369,7 +369,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y ``(B, S, H, P)`` and the final state ``(B, H, P, N)`` of the SSD
     recurrence over x, in chunks of ``min(chunk, S)`` rows; differentiable
-    (``_SSDScan``) when grad is enabled and an input requires it.  On
+    (``_SSDScan``) when grad is enabled and an input requires it, and
+    ``_SSDScan`` too with grad off under a ``torch.func`` transform (a
+    rematerialised layer's first run inside ``vmap``: batched operands,
+    which its ``vmap`` rule hands the kernel a client at a time).  On
     ``meta`` (abstract evaluation: shapes and dtypes alone) it is
     ``ssd_scan_plain`` under autograd over fp32 casts, y and the state
     cast back to x's dtype, as the reference's bf16 ``ssd_chunked``
@@ -384,6 +387,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
+        return _SSDScan.apply(x, dt, A, Bm, Cm, chunk, init_state)
+    if torch._C._are_functorch_transforms_active():
         return _SSDScan.apply(x, dt, A, Bm, Cm, chunk, init_state)
     return _forward(x, dt, A, Bm, Cm, chunk, init_state)
 

@@ -16,6 +16,9 @@ What a cell reports, where the reference has a counterpart:
     counts over the step (matmul, bmm and convolution ops only).  On
     ``meta`` attention is the plain version, so its full (Sq, Sk)
     products are counted, causal or not; elementwise work is not counted;
+    a train step's rematerialised layers and CE chunks count their
+    recompute in the backward (``models.layers.remat``), as XLA's cost
+    analysis counts a ``jax.checkpoint``'s;
   * ``memory.argument_size_in_bytes`` / ``output_size_in_bytes``: per
     place, each stand-in's bytes over the product of the mesh axis sizes
     its spec shards it over;

@@ -90,8 +90,9 @@ def make_opt(cfg: ModelConfig) -> Optimizer:
 def make_train_step(cfg: ModelConfig, opt: Optimizer, unroll: bool = False):
     """``train_step(params, opt_state, batch) -> (loss, params,
     opt_state)``: ``torch.func.grad_and_value`` of ``api.loss``, then
-    ``opt.update``.  Under a ``torch.func`` transform no layer is
-    rematerialised (``layers.remat``).  ``unroll`` is ignored."""
+    ``opt.update``.  Each layer and CE chunk is rematerialised under the
+    transform as under plain autograd (``layers.remat``), also when the
+    step is vmapped over pods.  ``unroll`` is ignored."""
 
     def train_step(params, opt_state, batch):
         grads, loss = torch.func.grad_and_value(

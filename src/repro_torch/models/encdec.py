@@ -103,9 +103,10 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
     x = frames
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.encoder_layers):
-        x = L.remat(cfg.remat, lambda x_, p: _enc_layer(cfg, p, x_,
-                                                        positions),
-                    x, tree_map(lambda t: t[i], params["enc_layers"]))
+        x = L.remat(cfg.remat,
+                    lambda x_, p, pos: _enc_layer(cfg, p, x_, pos), x,
+                    tree_map(lambda t: t[i], params["enc_layers"]),
+                    positions)
     return L.rms_norm(x, params["enc_norm"])
 
 
@@ -197,9 +198,9 @@ def decoder_layers(cfg: ModelConfig, params: Params, x: torch.Tensor,
     whole decoder, and the two stages of the encdec split path."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(start, stop):
-        x = L.remat(cfg.remat, lambda x_, p, e: _dec_layer(
-            cfg, p, x_, e, positions)[0], x, T.layer_params(params, i),
-            enc_out)
+        x = L.remat(cfg.remat, lambda x_, p, e, pos: _dec_layer(
+            cfg, p, x_, e, pos)[0], x, T.layer_params(params, i), enc_out,
+            positions)
     return x
 
 

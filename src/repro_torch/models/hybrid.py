@@ -313,9 +313,9 @@ def groups_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
     backward when ``cfg.remat``: the split path cuts between them."""
     slots = params["layers"]["slots"]
     for g in range(start, stop):
-        x = L.remat(cfg.remat, lambda x_, *ps: _group(cfg, x_, positions,
-                                                      list(ps)),
-                    x, *[tree_map(lambda t: t[g], slot) for slot in slots])
+        x = L.remat(cfg.remat, lambda x_, pos, ps: _group(cfg, x_, pos, ps),
+                    x, positions, [tree_map(lambda t: t[g], slot)
+                                   for slot in slots])
     return x
 
 

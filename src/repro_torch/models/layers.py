@@ -31,11 +31,11 @@ axes, the experts (``E % tp == 0``) or ``d_ff`` split over ``model``, the
 ``moe_int8_gather()`` as rowwise int8 with a straight-through gradient),
 the partial outputs summed over ``model`` in place order.
 
-Training: ``chunked_ce_loss`` (the LM loss, one ``torch.utils.checkpoint``
-per chunk of 1024 positions, so the ``(B, S, V)`` logits are never held for
-the backward), ``moe_aux_loss`` (the Switch-style load-balancing term) and
-``remat`` (the reference's ``jax.checkpoint`` of a block body, applied only
-while autograd records).
+Training: ``chunked_ce_loss`` (the LM loss, one ``remat`` per chunk of
+1024 positions, so the ``(B, S, V)`` logits are never held for the
+backward), ``moe_aux_loss`` (the Switch-style load-balancing term) and
+``remat`` (the reference's ``jax.checkpoint`` of a block body, applied
+while grad is on, under plain autograd and ``torch.func`` alike).
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ from repro_torch.parallel.sharding import (
     psum,
     psum_scatter,
 )
+from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -711,19 +712,94 @@ def moe_aux_loss(cfg: ModelConfig, p: Params, x: torch.Tensor
 # =============================================================================
 # training: activation remat and the chunked cross-entropy
 # =============================================================================
+class _Remat(torch.autograd.Function):
+    """``run(*tensors)`` whose activations are recomputed in the backward:
+    the forward runs ``run`` without recording and saves its inputs alone;
+    the backward runs ``torch.func.vjp`` of ``run`` on them (the second
+    run of the body) and returns the floating inputs' cotangents.  The
+    outputs are floating; one the caller does not differentiate (the
+    chunked CE's token count) hands the vjp zeros.  ``torch.func`` runs it
+    through the generated ``vmap`` rule (the body vmapped in the forward
+    and the backward alike) and its ``grad`` rule, so it composes as
+    ``jax.checkpoint`` does; a kernel Function inside the body meets the
+    transform through its own ``vmap`` rule.  No second derivative: the
+    backward's cotangents carry no graph."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, *tensors):
+        return run(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, *tensors = inputs
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors = list(ctx.saved_tensors)
+        diff = [i for i, t in enumerate(tensors) if t.is_floating_point()]
+
+        def body(*primals):
+            for i, t in zip(diff, primals):
+                tensors[i] = t
+            return ctx.run(*tensors)
+        with torch.enable_grad():
+            out, vjp_fn = torch.func.vjp(body, *[tensors[i] for i in diff])
+        outs = out if isinstance(out, tuple) else (out,)
+        cots = tuple(torch.zeros_like(o) if g is None else g
+                     for g, o in zip(grads, outs))
+        dins = vjp_fn(cots if isinstance(out, tuple) else cots[0])
+        # a ``torch.func.grad`` around this backward runs it with
+        # create_graph, so the recompute is recorded at its level too:
+        # detached, the cotangents let that record go with this call,
+        # where kept they would hold every layer's recomputed
+        # intermediates to the end of the backward
+        in_grads = [None] * len(tensors)
+        for i, g in zip(diff, dins):
+            in_grads[i] = g.detach()
+        return (None, *in_grads)
+
+
 def remat(enabled: bool, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward instead of
-    kept (``torch.utils.checkpoint``, non-reentrant) when ``enabled`` and
-    autograd is recording; else a plain call (serving, and ``no_grad``).
+    kept when ``enabled`` and grad is on (the reference's
+    ``jax.checkpoint``); else a plain call (serving, and ``no_grad``).
     Under a ``torch.func`` transform (the batched fleet engine's
-    ``vmap(grad(...))``) it is a plain call too: ``torch.func`` refuses the
-    saved-tensor hooks that checkpointing runs on.  That keeps the
-    activations (memory), and computes the same values."""
-    if enabled and torch.is_grad_enabled() and \
-            not torch._C._are_functorch_transforms_active():
+    ``vmap(grad(...))``, ``launch.steps``' ``grad_and_value`` and its
+    vmapped pod step) it is ``_Remat``; under plain autograd it stays
+    ``torch.utils.checkpoint`` (non-reentrant): the two agree bit for bit
+    on every family but encdec, where ``_Remat`` sums the encoder
+    output's gradient a decoder layer at a time (the reference's scan
+    transpose does the same) and ``checkpoint``, like the unrematerialised
+    graph, in one running sum over all the layers' terms, an ulp apart.
+    ``args`` may be trees of tensors (a layer's param dict) and
+    non-tensor leaves (``remat_apply``).  Every tensor ``fn`` reads must be
+    one of ``args``: a tensor it closes over is invisible to the
+    backward's ``vjp`` and to the ``vmap`` rule (a closed-over parameter
+    gets no gradient)."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    if not torch._C._are_functorch_transforms_active():
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
-    return fn(*args)
+    return remat_apply(fn, *args)
+
+
+def remat_apply(fn, *args):
+    """``fn(*args)`` through ``_Remat``: the tensor leaves of the ``args``
+    trees are its inputs, the rest is rebuilt around them in the body."""
+    structure = tree_structure(args)
+    leaves = tree_leaves(args)
+    where = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)]
+
+    def run(*tensors):
+        full = list(leaves)
+        for i, t in zip(where, tensors):
+            full[i] = t
+        return fn(*tree_unflatten(structure, full))
+    return _Remat.apply(run, *[leaves[i] for i in where])
 
 
 def _chunk_loss(h: torch.Tensor, lab: torch.Tensor, unembed: torch.Tensor,

@@ -226,8 +226,8 @@ def layers_forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     windows = window_schedule(cfg)
     for i in range(start, stop):
-        x = L.remat(cfg.remat, lambda x_, p, w=windows[i]: _block(
-            cfg, p, x_, positions, w)[0], x, layer_params(params, i))
+        x = L.remat(cfg.remat, lambda x_, p, pos, w=windows[i]: _block(
+            cfg, p, x_, pos, w)[0], x, layer_params(params, i), positions)
     return x
 
 

@@ -129,6 +129,15 @@ def loss_fn(cfg: VGGConfig, params: Params, batch) -> torch.Tensor:
                          batch["labels"])
 
 
+def split_loss(cfg: VGGConfig, params: Params, batch, op_layer: int
+               ) -> torch.Tensor:
+    """The loss through an explicit cut: layers ``[0, op_layer)``, then
+    ``[op_layer, L)`` on their activation."""
+    acts = apply_range(cfg, params, batch["images"], 0, op_layer)
+    return cross_entropy(apply_range(cfg, params, acts, op_layer,
+                                     len(cfg.layers)), batch["labels"])
+
+
 def accuracy(cfg: VGGConfig, params: Params, batch) -> torch.Tensor:
     logits = forward(cfg, params, batch["images"])
     return torch.mean((torch.argmax(logits, -1)

@@ -80,16 +80,19 @@ def _j_place_bytes(tree, specs, mesh_shape):
 def _qwen3_train_flops(cfg, shape):
     """The matmul FLOPs of one train step at ``shape``, as the counter
     sees them: every projection and the tied unembedding forward (2 T d
-    d_out), each attention's two (S, S) products over every head, and the
-    backward's two products a forward one (no layer is recomputed under
-    ``torch.func``)."""
+    d_out) and each attention's two (S, S) products over every head; then
+    the backward, which first runs that forward again (every one of these
+    products sits in a rematerialised body: the layers under
+    ``cfg.remat``, the CE chunks always, and ``layers.remat`` recomputes
+    under ``torch.func`` too) and then takes two products a forward one
+    (the gradients of both operands): four forwards in all."""
     B, S = shape.global_batch, shape.seq_len
     T, d, L = B * S, cfg.d_model, cfg.num_layers
     per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
                  + 3 * d * cfg.d_ff)
     attention = 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim
     forward = 2 * T * (L * per_layer + cfg.vocab_size * d) + L * attention
-    return 3 * forward
+    return 4 * forward
 
 
 def test_qwen3_train_cell_on_meta():
