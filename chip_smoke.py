@@ -133,8 +133,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``serve`` takes 8 seeded Poisson requests (prompts of 600, 2100 or
    4500 tokens, 8-32 generated) through 4 slots, prefilled at 4608, and
    each request's tokens must equal the sequential oracle's
-   (``reference_decode``, on the card) up to the first token chosen under
-   a top-2 logit margin below 1e-3.  Launch counts are zeroed just before
+   (``oracle_steps``: ``reference_decode``'s calls a step at a time, on
+   the card) up to the first token chosen under a top-2 logit margin
+   below 1e-3, and over that prefix every decode step's logits row the
+   oracle's within 2e-4 (``stepwise_max_abs_diff``; each request's count
+   of distinct tokens printed beside it).  Launch counts are zeroed just before
    the run and read after the oracle: flash attention must have launched
    26 times per prefill (engine and oracle), the other kernels never.  One
    more prefill at 4608 and one decode step run under ``torch.profiler``.
@@ -168,7 +171,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    requests (prompts of 600, 2100 and 4060 tokens, 8-64 generated) through
    ``ServeEngine`` with 4 slots, prompts padded to 4096 and a 4096-slot
    rolling cache that one request wraps, each request's tokens equal to
-   ``reference_decode``'s up to the first top-2 margin below 1e-3; the
+   the oracle's up to the first top-2 margin below 1e-3 and its decode
+   steps' logits within 2e-4 of the oracle's over that prefix (phase 5's
+   check), the prefix also ending at the first decode step whose oracle
+   routing has a top-k router gap below 1e-4 (a choice that may flip
+   between the engine's 4-row and the oracle's 1-row sums); the
    wrapping request decoded through its cache against a full-forward
    prefill of the same tokens (2e-4).  Flash attention must have launched
    6 times per prefill (14 prefills), the other kernels never.  Printed:
@@ -279,26 +286,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once per surviving client row).  Printed with the card's name and power
    limit: wall seconds a round, the server step's seconds, peak memory,
    the flat buffer's lanes.
-5h. federated training published into a live server: phase 5g's
-   qwen3-0.6b set-up (top-k 0.1 EF kept) through ``run_federated_async``
-   (a buffer of K = 3, 1 local iteration, 3 aggregations) whose
-   ``on_aggregate`` hook publishes each aggregation into a ``ParamStore``
-   (a copy of the flat global), swaps it into a live ``ServeEngine`` (4
-   slots, prompts padded to 4096, 4608 positions) and serves 4 seeded
-   requests (prompts of 600-4000 tokens, 16 generated) through
-   ``serve(..., store=)``: the served versions are [1, 2, 3]; every
-   request's tokens equal ``reference_decode``'s on the adopted params up
-   to the first top-2 margin below 1e-3; launches exactly the history's
-   and the engine's prefills (the flash forward once a layer a prefill);
-   OPs, modelled times, comm and drops equal to the CPU replay; the
-   engine's final params bitwise the run's; a second ``maybe_swap``
-   without a publication returns False; a fresh engine on the adopted
-   params gives the live engine's ``last_logits`` bit for bit; a
-   publication from a second stream on a second thread, still copying
-   when the engine swaps, is adopted whole.  Printed with the card's name
-   and power limit: each aggregation's wall seconds and its hook's, each
-   ``publish_flat``'s and ``maybe_swap``'s seconds, the prefill seconds
-   and decode ms a step under training's memory pressure, peak memory.
+5h. federated training published into a live server: phase 5g's qwen3-0.6b
+   set-up (top-k 0.1 EF kept) through ``run_federated_async`` (a buffer of
+   K = 3, 1 local iteration, 3 aggregations) whose ``on_aggregate`` hook
+   publishes each aggregation into a ``ParamStore`` (a copy of the flat
+   global), swaps it into a live ``ServeEngine`` (4 slots, prompts padded
+   to 4096, 4608 positions) and serves 4 seeded requests (prompts of
+   600-4000 tokens, 16 generated) through ``serve(..., store=)``: the
+   served versions are [1, 2, 3]; every request's tokens equal the oracle's
+   on the adopted params up to the first top-2 margin below 1e-3, and its
+   decode steps' logits within 2e-4 of the oracle's over that prefix (phase
+   5's check); launches exactly the history's and the engine's prefills
+   (the flash forward once a layer a prefill); OPs, modelled times, comm
+   and drops equal to the CPU replay; the engine's final params bitwise the
+   run's; a second ``maybe_swap`` without a publication returns False; a
+   fresh engine on the adopted params gives the live engine's
+   ``last_logits`` bit for bit; a publication from a second stream on a
+   second thread, still copying when the engine swaps, is adopted whole.
+   Printed with the card's name and power limit: each aggregation's wall
+   seconds and its hook's, each ``publish_flat``'s and ``maybe_swap``'s
+   seconds, the prefill seconds and decode ms a step under training's
+   memory pressure, peak memory.
 5i. the LM on a mesh: phase 5g's qwen3-0.6b run over mesh (1, 4) of this
    card (582,081 blocks: a tail of 3), its params and history bit for bit
    phase 5g's, launches exact (top-k and the delta pair once per row and
@@ -364,7 +372,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at capacity factor 1.25: plain (the metric and every lane within
    1e-5, and the eval passes dropping the same (token, choice) pairs on
    both), and each with the int8 cut, top-k 0.5 and int8 deltas (the
-   discrete-step bounds).
+   discrete-step bounds).  Last, the silu drill: over a seeded (4, 8192)
+   fp32 input on the card, ``torch.func.grad`` and ``vmap`` of it through
+   the port's ``silu`` (``layers.silu``) give ``torch.autograd.grad``'s
+   bits, 0 lanes apart (``F.silu``'s lanes apart printed beside).
 7. time each kernel with CUDA events (median of CUDA-graph replays; the
    int8 pair also at the stacked cut, top-k also at VGG-5's largest leaf,
    both also at one qwen3-0.6b flat row of phase 5g: top-k over (1,
@@ -622,6 +633,16 @@ MIXTRAL_TRAFFIC = dict(rate=0.5, n_requests=6, vocab_size=32768,
 # mantissas) and fails unless that breaks the bound, so the bound tells
 # the configuration's fp32 from a lower precision.
 MOE_REL_TOL = 2e-5
+# phase 5c's per-step logits check: a decode step whose oracle routing has
+# a token's k-th and (k+1)-th router probabilities closer than
+# ROUTER_MARGIN ends the compared prefix, as a top-2 logit margin below
+# MARGIN does.  The engine's 4-row decode and the oracle's 1-row decode
+# sum in other orders, and a near-tie goes the other way: on the H100 one
+# of 234 decode steps flipped a choice (gap 7.6e-7, request 0's step 19,
+# one layer) and read its logits 0.883 from the oracle's, while every
+# step without a flip read at most 2.98e-5 and no gap of 5.2e-6 or more
+# flipped (scripts/mixtral_routing_flips.py; PERF.md)
+ROUTER_MARGIN = 1e-4
 # phase 5c, internvl2-2b at full width and depth: 2 rows of 256 patch
 # embeddings (the frontend stub, seeded) and 744 tokens, 16 decode steps
 VLM_ROWS, VLM_TEXT, VLM_GEN = 2, 744, 16
@@ -724,10 +745,14 @@ FED_LANE_REL, FED_TREE_SHARE = 1e-4, 0.05
 # at their capacity factor 1.25): the plain runs' metric and every param
 # lane within FED_MOE_PLAIN_REL (relative; of the leaf's max); the runs
 # with the int8 cut, top-k 0.5 and int8 deltas take the discrete-step
-# bounds.  Card and CPU both run the batched engine, so both take silu's
-# backward from torch.func.grad: the ulp by which the port's two engines
-# part on the CPU (tests/test_torch_lm_federated_moe.py) is not in play
+# bounds.  Card and CPU both run the batched engine; silu's backward is
+# aten's silu_backward under either engine (layers.silu), so on the CPU
+# the port's two engines give these runs bit for bit
+# (tests/test_torch_lm_federated_moe.py)
 FED_MOE_PLAIN_REL = 1e-5
+# phase 6's silu drill: the input's shape (the batched engine's vmap runs
+# over its rows)
+SILU_DRILL_SHAPE = (4, 8192)
 # phase 5h, federated training published into a live server: phase 5g's
 # qwen3-0.6b set-up (K = 3, rows of 4096 tokens, batch 1, sfl at OP 14,
 # the int8 cut, top-k HOT_DENSITY with error feedback, int8 deltas, the
@@ -2306,9 +2331,125 @@ def capture_prefill_attention(torch, L, T, cfg, params, tokens, layers,
         L.moe_block = block
 
 
+def oracle_steps(torch, cfg, params, prompt, gen):
+    """The sequential oracle of one request, a step at a time: the same
+    ``api.prefill`` / ``api.decode`` calls as ``reference_decode``
+    (looked up on ``api`` at each call, so a wrapper set there sees
+    them), yielding each token, the top-2 gap of the logits it was chosen
+    from, and those (1, V) logits where the params lie."""
+    import numpy as np
+    from repro_torch.models import api
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    L = int(len(prompt))
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None],
+                             device=leaf.device)
+    logits, cache = api.prefill(cfg, params, {"tokens": tokens},
+                                target_seq=L + gen)
+    for i in range(gen):
+        if i:
+            logits, cache = api.decode(cfg, params, cache, token, L + i - 1)
+        token = torch.argmax(logits, -1)[:, None]
+        top2 = torch.topk(logits[0], 2).values
+        yield int(token[0, 0]), float(top2[0] - top2[1]), logits
+
+
+def capture_engine_rows(engine, rows):
+    """Wrap ``engine.submit`` and ``engine.step`` (over the wrappers they
+    already carry): after each decode step, each live request's row of
+    ``engine.last_logits`` (a host copy) goes to ``rows[rid, i]``, ``i``
+    the index of the token chosen from it (token 0 is the prefill's)."""
+    import numpy as np
+    submit, step = engine.submit, engine.step
+    live = {}                          # slot -> [rid, next token's index]
+
+    def claim(rid, *a, **kw):
+        idle = ~engine.active
+        r = submit(rid, *a, **kw)
+        for s in np.nonzero(idle & engine.active)[0]:
+            live[int(s)] = [rid, 1]
+        return r
+
+    def decode(*a, **kw):
+        before = [(s, *live[s])
+                  for s in map(int, np.nonzero(engine.active)[0])]
+        r = step(*a, **kw)
+        for s, rid, i in before:
+            rows[rid, i] = engine.last_logits[s].copy()
+            live[s][1] += 1
+        return r
+    engine.submit, engine.step = claim, decode
+
+
+def router_gaps(torch, L, gaps):
+    """Wrap ``L.moe_route``: each call also appends to ``gaps`` the
+    smallest gap between a token's k-th and (k+1)-th router probability
+    (a 0-d tensor where the params lie: no sync).  Returns the undo."""
+    route = L.moe_route
+
+    def recorded(cfg, p, xf):
+        out = route(cfg, p, xf)
+        top = torch.topk(L._router_probs(p, xf), cfg.moe.top_k + 1,
+                         -1).values
+        gaps.append((top[:, -2] - top[:, -1]).min())
+        return out
+    L.moe_route = recorded
+    return lambda: setattr(L, "moe_route", route)
+
+
+def check_against_oracle(torch, cfg, params, r, rows, what, gaps=None):
+    """One served request ``r`` against ``oracle_steps`` on ``params``:
+    its tokens up to the first top-2 margin below MARGIN (a near-tie may
+    flip under another summation order), and over the same prefix each
+    decode step's logits row (``capture_engine_rows``; popped from
+    ``rows``, as are the request's later rows) within STEPWISE_TOL of the
+    oracle's.  With ``gaps`` (``router_gaps``' list), the logits' prefix
+    also ends at the first decode step whose oracle routing has a gap
+    below ROUTER_MARGIN.  Compared as it goes: only the largest difference
+    is kept.  Returns (tokens compared, decode steps' logits compared, max
+    |engine - oracle| logit, the oracle's tokens, its margins)."""
+    import numpy as np
+    if r.tokens is None or len(r.tokens) != r.gen:
+        fail(f"{what}: request {r.rid} gave {r.tokens}, needs {r.gen} "
+             f"tokens")
+    n, m, diff, ref, margins = 0, 0, 0.0, [], []
+    if gaps is not None:
+        gaps.clear()
+    for i, (tok, margin, logits) in enumerate(
+            oracle_steps(torch, cfg, params, r.prompt, r.gen)):
+        ref.append(tok)
+        margins.append(margin)
+        tie = bool(i and gaps) and float(
+            torch.stack(gaps).min()) < ROUTER_MARGIN
+        if gaps is not None:
+            gaps.clear()
+        if n < i or margin < MARGIN:
+            continue
+        if r.tokens[i] != tok:
+            fail(f"{what}: request {r.rid} token {i} is {r.tokens[i]}, the "
+                 f"oracle's {tok} (margin {margin:.4g})")
+        n += 1
+        if not i or m < i - 1 or tie:
+            continue
+        if (r.rid, i) not in rows:
+            fail(f"{what}: request {r.rid} step {i}: no logits row captured")
+        got = rows[r.rid, i]
+        want = logits[0].float().cpu().numpy()
+        diff = max(diff, float(np.abs(got - want).max()))
+        m += 1
+    for i in range(r.gen):
+        rows.pop((r.rid, i), None)
+    if not diff < STEPWISE_TOL:
+        fail(f"{what}: request {r.rid}: decode logits {diff} from the "
+             f"oracle's >= {STEPWISE_TOL} over its first {m} decode steps")
+    return n, m, diff, ref, margins
+
+
 def gemma2_main_path(torch, tf, dev, launches, reset_launches):
     """Phase 5: ``ServeEngine`` on gemma2-2b at full width: the real-layer
-    flash drills, the served traffic against the sequential oracle with the
+    flash drills, the served traffic against the sequential oracle (tokens,
+    and each decode step's logits: ``check_against_oracle``) with the
     launch count the path needs, and one profiled prefill."""
     import numpy as np
     from repro_torch.configs.gemma2_2b import CONFIG as cfg
@@ -2316,7 +2457,7 @@ def gemma2_main_path(torch, tf, dev, launches, reset_launches):
     from repro_torch.models import transformer as T
     from repro_torch.serving import (ServeCosts, ServeEngine,
                                      TrafficGenerator, latency_stats,
-                                     reference_decode, serve)
+                                     serve)
     out = {"config": cfg.name}
     t0 = time.perf_counter()
     params = T.init(cfg, seed=0, device=dev)
@@ -2363,6 +2504,8 @@ def gemma2_main_path(torch, tf, dev, launches, reset_launches):
         return run
     engine.submit = timed(engine.submit, prefill_s)
     engine.step = timed(engine.step, decode_s)
+    rows = {}
+    capture_engine_rows(engine, rows)
     reset_launches()
     t0 = time.perf_counter()
     res = serve(engine, requests, ServeCosts(prefill=1.0, decode=0.1))
@@ -2373,26 +2516,17 @@ def gemma2_main_path(torch, tf, dev, launches, reset_launches):
         fail("gemma2-2b serve: last logits missing, misshapen or not "
              "finite")
     t0 = time.perf_counter()
-    compared = 0
+    compared, stepwise, distinct = 0, {}, {}
     for r in res["requests"]:
-        if r.tokens is None or len(r.tokens) != r.gen:
-            fail(f"gemma2-2b serve: request {r.rid} gave {r.tokens}, "
-                 f"needs {r.gen} tokens")
-        ref, margins = reference_decode(cfg, params, r.prompt, r.gen,
-                                        return_margins=True)
-        n = 0
-        for i in range(r.gen):
-            if margins[i] < MARGIN:
-                break
-            if r.tokens[i] != ref[i]:
-                fail(f"gemma2-2b serve: request {r.rid} token {i} is "
-                     f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
-                     f"{margins[i]:.4g})")
-            n += 1
+        n, m, stepwise[r.rid], _, margins = check_against_oracle(
+            torch, cfg, params, r, rows, "gemma2-2b serve")
+        distinct[r.rid] = len(set(r.tokens))
         compared += n
         print(f"request {r.rid}: prompt {len(r.prompt)}, gen {r.gen}, "
               f"{n} tokens equal the oracle's (min margin "
-              f"{min(margins):.3g})", flush=True)
+              f"{min(margins):.3g}), {distinct[r.rid]} distinct; {m} decode "
+              f"steps' logits within {stepwise[r.rid]:.3g} < "
+              f"{STEPWISE_TOL}", flush=True)
     oracle_wall = time.perf_counter() - t0
     counts = dict(launches)
     prefills = 2 * len(requests)
@@ -2411,13 +2545,16 @@ def gemma2_main_path(torch, tf, dev, launches, reset_launches):
         "requests": [{"rid": r.rid, "prompt": len(r.prompt), "gen": r.gen,
                       "tokens": r.tokens} for r in res["requests"]],
         "tokens_compared": compared, "tokens_total": total,
+        "stepwise_max_abs_diff": max(stepwise.values()),
+        "stepwise_by_request": stepwise, "distinct_tokens": distinct,
         "prefill_s": prefill_s, "decode_step_s": decode_s,
         "serve_wall_s": serve_wall, "oracle_wall_s": oracle_wall,
         "tokens_per_s": total / busy, "launches": counts,
         "virtual_clock_stats": stats,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
     print(f"serve-gemma2-2b: {compared} of {total} tokens compared, all "
-          f"equal; prefill at {SERVE_PROMPT}: median "
+          f"equal; decode logits within {max(stepwise.values()):.3g} of "
+          f"the oracle's; prefill at {SERVE_PROMPT}: median "
           f"{statistics.median(prefill_s):.3f} s ({len(prefill_s)}); "
           f"decode step ({SERVE_SLOTS} slots): median "
           f"{statistics.median(decode_s) * 1e3:.1f} ms "
@@ -2820,7 +2957,8 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
     layers, capacity factor 4.0; see ``MIXTRAL_LAYERS``): the real-layer
     flash drills, the capacity path against the exact path on a real
     layer, the served traffic against the sequential oracle through a
-    wrapped rolling cache, decode through that cache against a full
+    wrapped rolling cache (tokens, and each decode step's logits:
+    ``check_against_oracle``), decode through that cache against a full
     forward, the launch counts the path needs, and the timings."""
     import dataclasses
 
@@ -2831,7 +2969,7 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
     from repro_torch.models import transformer as T
     from repro_torch.serving import (ServeCosts, ServeEngine,
                                      TrafficGenerator, latency_stats,
-                                     reference_decode, serve)
+                                     serve)
     cfg = dataclasses.replace(
         CONFIG, num_layers=MIXTRAL_LAYERS,
         moe=dataclasses.replace(CONFIG.moe, capacity_factor=MIXTRAL_CF))
@@ -2936,6 +3074,8 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
         decode_s.append((active, time.perf_counter() - t))
         return r
     engine.submit, engine.step = timed_submit, timed_step
+    rows = {}
+    capture_engine_rows(engine, rows)
     oracle_decode_s = []
     decode = api.decode
 
@@ -2954,32 +3094,27 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
             engine.last_logits).all():
         fail("mixtral serve: last logits missing, misshapen or not finite")
     t0 = time.perf_counter()
-    compared, oracle = 0, {}
+    compared, oracle, stepwise, distinct, steps = 0, {}, {}, {}, {}
+    gaps = []
     api.decode = timed_decode
+    unroute = router_gaps(torch, L, gaps)
     try:
         for r in res["requests"]:
-            if r.tokens is None or len(r.tokens) != r.gen:
-                fail(f"mixtral serve: request {r.rid} gave {r.tokens}, "
-                     f"needs {r.gen} tokens")
-            ref, margins = reference_decode(cfg, params, r.prompt, r.gen,
-                                            return_margins=True)
-            oracle[r.rid] = ref
-            n = 0
-            for i in range(r.gen):
-                if margins[i] < MARGIN:
-                    break
-                if r.tokens[i] != ref[i]:
-                    fail(f"mixtral serve: request {r.rid} token {i} is "
-                         f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
-                         f"{margins[i]:.4g})")
-                n += 1
+            n, steps[r.rid], stepwise[r.rid], oracle[r.rid], margins = \
+                check_against_oracle(torch, cfg, params, r, rows,
+                                     "mixtral serve", gaps)
+            distinct[r.rid] = len(set(r.tokens))
             compared += n
             print(f"request {r.rid}: prompt {len(r.prompt)}, gen {r.gen}"
                   f"{' (wraps the cache)' if r.rid in wrapped else ''}, {n} "
                   f"tokens equal the oracle's (min margin "
-                  f"{min(margins):.3g})", flush=True)
+                  f"{min(margins):.3g}), {distinct[r.rid]} distinct; "
+                  f"{steps[r.rid]} decode steps' logits (to the first router "
+                  f"gap below {ROUTER_MARGIN}) within "
+                  f"{stepwise[r.rid]:.3g} < {STEPWISE_TOL}", flush=True)
     finally:
         api.decode = decode
+        unroute()
     oracle_wall = time.perf_counter() - t0
     # decode through the wrapped cache against a full forward: the
     # request's prompt and oracle tokens, the last decode step's logits
@@ -3050,6 +3185,9 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
         "requests": [{"rid": r.rid, "prompt": len(r.prompt), "gen": r.gen,
                       "tokens": r.tokens} for r in res["requests"]],
         "tokens_compared": compared, "tokens_total": total,
+        "stepwise_max_abs_diff": max(stepwise.values()),
+        "stepwise_by_request": stepwise, "stepwise_steps": steps,
+        "distinct_tokens": distinct,
         "wrap_logit_max_abs_diff": wrap_err, "launches": counts,
         "prefill_s": prefill_s, f"prefill_s_cf{CONFIG.moe.capacity_factor}":
         own_prefill_s, "decode_step_s_by_active": by_active,
@@ -3060,7 +3198,9 @@ def mixtral_main_path(torch, tf, dev, launches, reset_launches):
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
     med = {a: statistics.median(v) * 1e3 for a, v in sorted(by_active.items())}
     print(f"serve-mixtral-8x22b: {compared} of {total} tokens compared, all "
-          f"equal; prefill at {MIXTRAL_PROMPT} (cf {MIXTRAL_CF}): median "
+          f"equal; {sum(steps.values())} decode steps' logits within "
+          f"{max(stepwise.values()):.3g} of the oracle's; prefill at "
+          f"{MIXTRAL_PROMPT} (cf {MIXTRAL_CF}): median "
           f"{statistics.median(prefill_s):.3f} s ({len(prefill_s)}), at cf "
           f"{CONFIG.moe.capacity_factor}: {own_prefill_s:.3f} s; decode "
           f"step ({MIXTRAL_SLOTS} slots) median ms by active slots "
@@ -4526,12 +4666,13 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
     ``ParamStore`` (``on_aggregate``: a copy of the flat global), swaps it
     into a live ``ServeEngine`` (``maybe_swap``) and serves HOT_TRAFFIC's
     requests through ``serve(..., store=)``.  Checked: the served versions
-    are 1..HOT_AGGS; after each swap every request's tokens equal
-    ``reference_decode``'s on the adopted params up to the first top-2
-    margin below MARGIN; the run's launches are exactly its history's
-    (``expected_async_launches``: training, eval passes and the engine's
-    prefills; the checks' kernel calls are not counted); OPs, modelled
-    times, comm and drops equal the CPU replay (round times within
+    are 1..HOT_AGGS; after each swap every request against the oracle on
+    the adopted params (``check_against_oracle``: its tokens up to the
+    first top-2 margin below MARGIN, its decode steps' logits over that
+    prefix within STEPWISE_TOL); the run's launches are exactly its
+    history's (``expected_async_launches``: training, eval passes and the
+    engine's prefills; the checks' kernel calls are not counted); OPs,
+    modelled times, comm and drops equal the CPU replay (round times within
     1e-12); after the run the engine's params are ``hist["params"]`` bit
     for bit, a ``maybe_swap`` without a publication returns False, a fresh
     engine on the same params given the last aggregation's requests gives
@@ -4549,8 +4690,7 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
     from repro_torch.fl.async_loop import run_federated_async
     from repro_torch.fl.loop import FLConfig
     from repro_torch.serving import (ParamStore, ServeCosts, ServeEngine,
-                                     TrafficGenerator, reference_decode,
-                                     serve)
+                                     TrafficGenerator, serve)
     from repro_torch.tree import tree_leaves, tree_map
     free_card(torch)
     fl = FLConfig(rounds=HOT_AGGS, local_iters=1, batch_size=1, lr=FED_LR,
@@ -4569,7 +4709,8 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
     rec = {"publish_s": [], "swap_s": [], "hook_s": [], "serve_s": [],
            "check_s": [], "prefill_s": [], "decode_step_s": [],
            "served_versions": [], "tokens_compared": 0, "tokens_total": 0,
-           "engine_prefills": 0}
+           "stepwise_max_abs_diff": 0.0, "stepwise_by_request": [],
+           "distinct_tokens": [], "engine_prefills": 0}
     step_logits = []
     peaks = {"train_serve": 0, "with_check": 0}
 
@@ -4586,33 +4727,32 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
         return run
     engine.submit = synced(engine.submit, rec["prefill_s"])
     engine.step = synced(engine.step, rec["decode_step_s"], logits=True)
+    rows = {}
+    capture_engine_rows(engine, rows)
 
     def requests_of(version):
         return TrafficGenerator(vocab_size=cfg.vocab_size, seed=version,
                                 **HOT_TRAFFIC).generate()
 
     def oracle_check(version, res):
-        """Each request's tokens against ``reference_decode`` on the
-        engine's adopted params, up to the first margin below MARGIN."""
+        """Each request against the oracle on the engine's adopted params
+        (``check_against_oracle``): its tokens and its decode steps'
+        logits, up to the first margin below MARGIN."""
         for r in res["requests"]:
-            if r.tokens is None or len(r.tokens) != r.gen:
-                fail(f"hotswap v{version}: request {r.rid} gave {r.tokens}")
-            ref, margins = reference_decode(cfg, engine.params, r.prompt,
-                                            r.gen, return_margins=True)
-            n = 0
-            for i in range(r.gen):
-                if margins[i] < MARGIN:
-                    break
-                if r.tokens[i] != ref[i]:
-                    fail(f"hotswap v{version}: request {r.rid} token {i} is "
-                         f"{r.tokens[i]}, the oracle's {ref[i]} (margin "
-                         f"{margins[i]:.4g})")
-                n += 1
+            n, m, diff, _, margins = check_against_oracle(
+                torch, cfg, engine.params, r, rows, f"hotswap v{version}")
+            distinct = len(set(r.tokens))
             rec["tokens_compared"] += n
             rec["tokens_total"] += r.gen
+            rec["stepwise_max_abs_diff"] = max(
+                rec["stepwise_max_abs_diff"], diff)
+            rec["stepwise_by_request"].append((version, r.rid, diff, m))
+            rec["distinct_tokens"].append((version, r.rid, distinct))
             print(f"hotswap v{version} request {r.rid}: prompt "
                   f"{len(r.prompt)}, {n} of {r.gen} tokens equal the "
-                  f"oracle's (min margin {min(margins):.3g})", flush=True)
+                  f"oracle's (min margin {min(margins):.3g}), {distinct} "
+                  f"distinct; {m} decode steps' logits within {diff:.3g} < "
+                  f"{STEPWISE_TOL}", flush=True)
 
     def hook(version, params, g_flat=None):
         t_hook = time.perf_counter()
@@ -4631,6 +4771,7 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
         rec["served_versions"].append(engine.params_version)
         requests = requests_of(version)
         step_logits.clear()
+        rows.clear()
         t0 = time.perf_counter()
         res = serve(engine, requests, costs, store=store)
         rec["serve_s"].append(time.perf_counter() - t0)
@@ -4693,7 +4834,9 @@ def hotswap_lm_path(torch, dev, launches, reset_launches, card=""):
     del h["params"]
     print(f"hotswap: served versions {rec['served_versions']}; "
           f"{rec['tokens_compared']} of {rec['tokens_total']} tokens "
-          f"compared, all equal; the engine's final params are the run's "
+          f"compared, all equal, decode logits within "
+          f"{rec['stepwise_max_abs_diff']:.3g} of the oracle's; the "
+          f"engine's final params are the run's "
           f"bit for bit; a second maybe_swap returns False; OPs "
           f"{h['ops'].tolist()}, modelled times, comm and drops equal to "
           f"the CPU replay", flush=True)
@@ -5370,6 +5513,39 @@ def lm16m_driver_cpu_vs_card(torch, dev):
           f"{rel:.3g} relative (<= {TRAIN_LOSS_REL})", flush=True)
     return {"ops": a["ops"], "loss_card": a["loss"], "loss_cpu": b["loss"],
             "loss_rel": rel}
+
+
+def silu_drill(torch, dev):
+    """Phase 6: the port's ``silu`` (``layers.silu``) on the card over a
+    seeded SILU_DRILL_SHAPE fp32 input: ``torch.func.grad`` (the step of
+    ``launch.steps``) and ``vmap`` of it over the rows (the batched
+    engine's) give ``torch.autograd.grad``'s bits (the sequential
+    engine's), 0 lanes apart.  ``F.silu``'s lanes apart under the same
+    transforms are printed beside: the split the Function removes."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = 4 * torch.randn(SILU_DRILL_SHAPE, generator=gen, device=dev)
+
+    def apart(fn):
+        xa = x.clone().requires_grad_()
+        want, = torch.autograd.grad(fn(xa).sum(), xa)
+
+        def loss(t):
+            return fn(t).sum()
+        got = (torch.func.grad(loss)(x),
+               torch.func.vmap(torch.func.grad(loss))(x))
+        return {k: int((g != want).sum())
+                for k, g in zip(("grad", "vmap_grad"), got)}
+    port, plain = apart(L.silu), apart(F.silu)
+    print(f"silu drill {SILU_DRILL_SHAPE} on {dev}: layers.silu's "
+          f"torch.func.grad / vmap(grad) lanes apart from "
+          f"torch.autograd.grad {port} (F.silu's {plain})", flush=True)
+    if any(port.values()):
+        fail(f"silu drill: layers.silu's gradient under torch.func is "
+             f"{port} lanes apart from torch.autograd.grad's")
+    return {"shape": list(SILU_DRILL_SHAPE), "lanes_apart": port,
+            "f_silu_lanes_apart": plain}
 
 
 def small_federated_lm_cpu_vs_card(torch, dev):
@@ -6220,6 +6396,7 @@ def main() -> None:
         record["small_driver"] = lm16m_driver_cpu_vs_card(torch, dev)
         record["small_federated_lm"] = small_federated_lm_cpu_vs_card(
             torch, dev)
+        record["silu_drill"] = silu_drill(torch, dev)
 
         phase("7. kernel times")
         real["qwen3-train"] = (*real["qwen3"][:3], 0, 0.0)

@@ -14,9 +14,10 @@ and the largest per-round drift of the metric between them:
     PYTHONPATH=src python -m repro_torch.launch.fleet_simulation --device cpu
 
 Rounds/s are host clock over whole runs (the first includes the kernels'
-first calls).  The two engines sum fp32 in other orders and differentiate
-``silu`` by other formulas, so they agree to fp32 tolerance, not bit for
-bit.
+first calls).  Both engines differentiate ``silu`` by one kernel
+(``layers.silu``): on the CPU their runs agree bit for bit (a drift of
+0).  On the card the batched engine's vmapped products may sum fp32 in
+another order than one client's, so the drift is an fp32 tolerance there.
 """
 from __future__ import annotations
 

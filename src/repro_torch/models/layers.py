@@ -156,6 +156,39 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
+class _SiLU(torch.autograd.Function):
+    """``F.silu`` whose backward is always aten's fused ``silu_backward``.
+    ``torch.func.grad`` runs the backward with grad mode on (as
+    create_graph), where ``F.silu``'s derivative is the decomposed,
+    twice-differentiable formula; it rounds apart from plain autograd's
+    fused kernel by an ulp in about a fifth of the lanes, so the batched
+    fleet engine (``vmap`` of ``torch.func.grad``) and the sequential one
+    (``torch.autograd.grad``) took different gradients.  Through this
+    Function every transform runs the same two aten kernels and gets
+    autograd's bits.  No second derivative (aten has none for
+    ``silu_backward``); nothing in the port takes one."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.ops.aten.silu.default(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.ops.aten.silu_backward.default(g, x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` (``x * sigmoid(x)``), one backward under plain
+    autograd and every ``torch.func`` transform (``_SiLU``)."""
+    return _SiLU.apply(x)
+
+
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                           causal: bool, window: int) -> torch.Tensor:
     """Boolean (Sq, Sk) mask; ``window > 0`` keeps k in (q - window, q],
@@ -308,7 +341,7 @@ def init_ffn(gen, d: int, f: int, act: str, dtype) -> Params:
 
 def ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif act == "geglu":
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
     else:
@@ -385,7 +418,7 @@ def moe_dispatch(cfg: ModelConfig, topi: torch.Tensor
 
 def _expert_act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_act == "swiglu":
-        return F.silu(h)
+        return silu(h)
     return F.gelu(h, approximate="tanh")
 
 

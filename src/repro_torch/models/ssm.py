@@ -24,7 +24,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -141,12 +140,12 @@ def block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     A = -torch.exp(p["A_log"])
 
     if conv_state is None:
-        xbc = F.silu(L.causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+        xbc = L.silu(L.causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
         new_conv = xbc_raw[:, S - (cfg.ssm.conv_width - 1):, :]
     else:
         window = torch.cat([conv_state, xbc_raw], dim=1)      # (B, W, C)
         out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
-        xbc = F.silu(out)[:, None, :]
+        xbc = L.silu(out)[:, None, :]
         new_conv = window[:, 1:]
 
     xin = xbc[..., :d_inner].reshape(Bsz, S, nheads, cfg.ssm.head_dim)
@@ -162,7 +161,7 @@ def block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     y = y + p["D"][None, None, :, None].to(y.dtype) * xin
     y = y.reshape(Bsz, S, d_inner)
-    y = L.rms_norm(y * F.silu(z), p["gate_ln"])
+    y = L.rms_norm(y * L.silu(z), p["gate_ln"])
     return x + y @ p["out_proj"], new_conv, new_ssm
 
 

@@ -14,6 +14,9 @@ package's, and the kernels' Functions under ``torch.func``.
   max, every other within it).
 * The same runs in plain fp32 (``check_sync_plain``): the metric within
   1e-5 relative and every lane within 1e-5 of its leaf's max.
+* The port's plain run on the batched engine equals it on the sequential
+  engine bit for bit, history and params (``check_engines_bitwise``,
+  reusing ``check_sync_plain``'s sequential run).
 * The discrete-step bounds refuse qwen3's port runs that train wrongly
   (``torch_fl_cases.FAULTS``: training off, one local iteration of two),
   qwen3 being the family whose sound run comes nearest them.
@@ -29,9 +32,9 @@ import torch
 from repro_torch.kernels import flash_attention as tf
 from repro_torch.kernels import ssd_scan as ts
 from torch_fl_cases import (DISCRETE_METRIC_REL, DISCRETE_PARAMS_REL,
-                            DISCRETE_TREE_SHARE, check_sync_discrete,
-                            check_sync_plain, discrete_readings,
-                            one_intra_op_thread)
+                            DISCRETE_TREE_SHARE, check_engines_bitwise,
+                            check_sync_discrete, check_sync_plain,
+                            discrete_readings, one_intra_op_thread)
 
 _ = one_intra_op_thread
 ARCHS = ["gemma2-2b", "qwen3-0.6b", "mixtral-8x22b", "internvl2-2b"]
@@ -45,6 +48,11 @@ def test_sync_sfl_int8_topk_matches_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sync_sfl_plain_matches_reference(arch):
     check_sync_plain(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batched_engine_is_sequential_bitwise(arch):
+    print(arch, check_engines_bitwise(arch))
 
 
 def test_discrete_bounds_refuse_faulty_training():

@@ -211,6 +211,75 @@ def test_reference_decode_margins():
     assert len(margins) == 4 and all(m >= 0 for m in margins)
 
 
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b",
+                                  "mixtral-8x22b"])
+def test_chip_smoke_stepwise_oracle(arch, monkeypatch):
+    """chip_smoke's per-step serving check on the CPU: ``oracle_steps``
+    gives ``reference_decode``'s tokens and margins; the rows that
+    ``capture_engine_rows`` keeps from a ``serve`` run are each request's
+    decode logits (every step but the prefill's), and
+    ``check_against_oracle`` holds them within STEPWISE_TOL of the
+    oracle's and refuses a row moved by 1e-3.  For mixtral the oracle's
+    router gaps (``router_gaps``) end the logits' prefix at the first one
+    below ROUTER_MARGIN: none at 1e-9, the first decode step at 10."""
+    import torch
+
+    from repro_torch.models import layers as L
+    cs = _chip_smoke()
+    cfg, params, _, _ = _setup(arch)
+    lens = _PROMPTS[arch]
+    engine = ServeEngine(cfg, params, slots=3, max_prompt=lens[-1],
+                         max_seq=52)
+    rows = {}
+    cs.capture_engine_rows(engine, rows)
+    traffic = TrafficGenerator(rate=1.5, n_requests=6,
+                               vocab_size=cfg.vocab_size, prompt_lens=lens,
+                               gen_lens=(1, 5, 8), seed=4)
+    res = serve(engine, traffic.generate(), ServeCosts(prefill=0.4,
+                                                       decode=0.2))
+    assert sorted(rows) == sorted((r.rid, i) for r in res["requests"]
+                                  for i in range(1, r.gen))
+    gaps = None
+    if cfg.moe is not None:
+        gaps = []
+        monkeypatch.setattr(L, "moe_route", L.moe_route)
+        cs.router_gaps(torch, L, gaps)
+    first = next(r for r in res["requests"] if r.gen > 1)
+    for r in res["requests"]:
+        toks, margins = reference_decode(cfg, params, r.prompt, r.gen,
+                                         return_margins=True)
+        steps = list(cs.oracle_steps(torch, cfg, params, r.prompt, r.gen))
+        assert [t for t, _, _ in steps] == toks
+        assert [m for _, m, _ in steps] == margins
+        if r is first:
+            moved = {k: v.copy() for k, v in rows.items() if k[0] == r.rid}
+            moved[r.rid, 1][0] += 1e-3
+            with pytest.raises(SystemExit):
+                cs.check_against_oracle(torch, cfg, params, r, moved, arch,
+                                        gaps)
+            if gaps is not None:
+                monkeypatch.setattr(cs, "ROUTER_MARGIN", 10.0)
+                n, m, diff, _, _ = cs.check_against_oracle(
+                    torch, cfg, params, r, dict(moved), arch, gaps)
+                assert n >= 1 and (m, diff) == (0, 0.0)
+                monkeypatch.setattr(cs, "ROUTER_MARGIN", 1e-9)
+        n, m, diff, ref, _ = cs.check_against_oracle(torch, cfg, params, r,
+                                                     rows, arch, gaps)
+        assert ref == toks and n >= 1 and diff < cs.STEPWISE_TOL
+        assert m == n - 1
+    assert not rows
+
+
 # =============================================================================
 # exact copies: traffic, event queue, serve driver
 # =============================================================================

@@ -238,14 +238,77 @@ def discrete_readings(arch):
             for name, h in runs.items()}
 
 
+# the port's plain runs of check_sync_plain (the sequential engine), kept
+# for check_engines_bitwise in the same test file: the same data, so the
+# same run
+PLAIN_RUNS = {}
+# whisper-base's batched run against its sequential run, each lane over
+# its leaf's largest entry: 8.25e-7 on the CPU (torch 2.13); see
+# check_engines_bitwise
+ENCDEC_REMAT_REL = 1e-6
+
+
 def check_sync_plain(arch):
     """The same family and set-up in plain fp32 (no int8 cut, top-k or
     int8 deltas), within the plain bounds."""
     from torch_lm_cases import configs
     jcfg, tcfg = configs(arch)
     jh, th = run_pair(jcfg, tcfg, dict(mode="sfl", static_op=sfl_op(tcfg)))
+    PLAIN_RUNS[arch] = th
     metric, gap = assert_same_run(th, jh, False, f"{arch} plain")
     print(f"{arch} plain: metric {metric:.3g} relative, params {gap:.3g}")
+
+
+def check_engines_bitwise(arch):
+    """check_sync_plain's port run (sync sfl plain, K = 2, the sequential
+    engine: ``torch.autograd.grad``) against the same set-up on the
+    batched engine (``vmap`` of ``torch.func.grad``) from the same data:
+    the history and the final params bit for bit.  whisper-base (encdec)
+    alone parts, by its remat: under plain autograd ``layers.remat`` is
+    ``torch.utils.checkpoint``, under ``torch.func`` ``_Remat``, which sums
+    the encoder output's gradient one decoder layer at a time.  Its
+    history is held exactly and its params within ENCDEC_REMAT_REL; with
+    ``_Remat`` under both engines, or with ``cfg.remat`` off, its runs are
+    bit for bit too (the first is checked here).  Returns the params'
+    worst lane over its leaf's max."""
+    from repro_torch.models import layers as Lyr
+    from torch_lm_cases import configs
+    jcfg, tcfg = configs(arch)
+    data = fleet(tcfg, 2)
+    kw = dict(mode="sfl", static_op=sfl_op(tcfg))
+
+    def run(engine):
+        return run_port(jcfg, tcfg, dict(kw, engine=engine), data)
+
+    def same_history(a, b, what):
+        for key in ("ops", "round_time", "comm_time", "dropped",
+                    "edge_time", "accuracy"):
+            np.testing.assert_array_equal(a[key], b[key],
+                                          err_msg=f"{what}: {key}")
+
+    def bitwise(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
+    batched = run("batched")
+    sequential = PLAIN_RUNS.get(arch) or run("sequential")
+    same_history(batched, sequential, arch)
+    if tcfg.family != "encdec":
+        assert bitwise(batched, sequential), f"{arch}: params differ"
+        return 0.0
+    gap = max(_rel(y, x) for x, y in zip(tree_leaves(batched["params"]),
+                                         tree_leaves(sequential["params"])))
+    assert gap <= ENCDEC_REMAT_REL, f"{arch}: params {gap:.3g} apart"
+
+    def remat_apply_always(enabled, fn, *args):
+        if not (enabled and torch.is_grad_enabled()):
+            return fn(*args)
+        return Lyr.remat_apply(fn, *args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Lyr, "remat", remat_apply_always)
+        a, b = run("batched"), run("sequential")
+    same_history(a, b, f"{arch}, _Remat under both engines")
+    assert bitwise(a, b), f"{arch}: params differ with _Remat in both"
+    return gap
 
 
 def sfl_op(tcfg):
@@ -368,72 +431,35 @@ def phase6_readings():
     return out
 
 
-class _OneFormulaSilu(torch.autograd.Function):
-    """``silu`` with its backward written out, ``g s (1 + x (1 - s))``, so
-    ``torch.autograd.grad`` and ``torch.func.grad`` (whose ``silu``
-    backward is a decomposition that rounds apart by an ulp in about a
-    fifth of the lanes) compute the same bits."""
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x):
-        return torch.ops.aten.silu.default(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(inputs[0])
-
-    @staticmethod
-    def backward(ctx, g):
-        x, = ctx.saved_tensors
-        s = torch.sigmoid(x)
-        return g * s * (1 + x * (1 - s))
-
-
-def one_formula_silu(monkeypatch):
-    """Route the port's ``F.silu`` through ``_OneFormulaSilu``."""
-    monkeypatch.setattr(torch.nn.functional, "silu", _OneFormulaSilu.apply)
-
-
 MOE_CUT_KW = dict(mode="sfl", quantize_transfer=True)
 
 
-def moe_engine_runs(arch, kw=MOE_CUT_KW, silu=("torch", "one formula")):
+def moe_engine_runs(arch, kw=MOE_CUT_KW):
     """The port's batched and sequential runs of ``arch``'s smoke config
-    under ``kw`` (sync sfl at the middle OP), with ``F.silu`` as it is and
-    with ``_OneFormulaSilu``; ``{(engine, silu): history}``."""
+    under ``kw`` (sync sfl at the middle OP) from the same data;
+    ``{engine: history}``."""
     from torch_lm_cases import configs
     jcfg, tcfg = configs(arch)
     data = fleet(tcfg, 2)
-    out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        for how in silu:
-            if how == "one formula":
-                one_formula_silu(mp)
-            for engine in ("batched", "sequential"):
-                out[engine, how] = run_port(
-                    jcfg, tcfg, dict(kw, static_op=sfl_op(tcfg),
-                                     engine=engine), data)
-    return out
+    return {engine: run_port(jcfg, tcfg, dict(kw, static_op=sfl_op(tcfg),
+                                              engine=engine), data)
+            for engine in ("batched", "sequential")}
 
 
 def moe_engine_readings(arch, kw=MOE_CUT_KW):
-    """``moe_engine_runs``: each silu's gap between the two engines (the
-    -CE metric relative, the worst lane of its leaf's max) and whether
-    their final params are bitwise equal, as printable lines."""
+    """``moe_engine_runs``: the gap between the two engines (the -CE
+    metric relative, the worst lane of its leaf's max) and whether their
+    final params are bitwise equal, as a printable line."""
     runs = moe_engine_runs(arch, kw)
-    lines = []
-    for how in ("torch", "one formula"):
-        a, b = runs["batched", how], runs["sequential", how]
-        metric = float(np.max(np.abs(a["accuracy"] - b["accuracy"])
-                              / np.abs(b["accuracy"])))
-        tl, sl = tree_leaves(a["params"]), tree_leaves(b["params"])
-        worst = max(_rel(y, x) for x, y in zip(tl, sl))
-        lines.append(f"{arch} {sorted(kw)}, silu {how}: batched vs "
-                     f"sequential metric {metric:.3g} relative, worst lane "
-                     f"{worst:.3g} of its leaf's max, params bitwise "
-                     f"{all(torch.equal(x, y) for x, y in zip(tl, sl))}")
-    return lines
+    a, b = runs["batched"], runs["sequential"]
+    metric = float(np.max(np.abs(a["accuracy"] - b["accuracy"])
+                          / np.abs(b["accuracy"])))
+    tl, sl = tree_leaves(a["params"]), tree_leaves(b["params"])
+    worst = max(_rel(y, x) for x, y in zip(tl, sl))
+    return [f"{arch} {sorted(kw)}: batched vs sequential metric "
+            f"{metric:.3g} relative, worst lane {worst:.3g} of its leaf's "
+            f"max, params bitwise "
+            f"{all(torch.equal(x, y) for x, y in zip(tl, sl))}"]
 
 
 def _rel(a, b):
@@ -448,8 +474,8 @@ def moe_cut_step_readings(arch="arctic-480b", lr=0.1, steps=12):
     ``torch.func.grad`` (the batched engine's, without its vmap), each
     trajectory on its own params: step 1's loss, cut input and gradient,
     then each step's cut input, int8 codes, routing choices and kept
-    assignments, as printable lines; then step 1's gradient again with
-    ``_OneFormulaSilu``."""
+    assignments, as printable lines.  Since ``silu``'s backward is one
+    kernel under both (``layers.silu``), every line reads bit for bit."""
     from repro_torch import convert
     from repro_torch.kernels import quant_transfer as qt
     from repro_torch.models import layers as Lyr
@@ -514,9 +540,10 @@ def moe_cut_step_readings(arch="arctic-480b", lr=0.1, steps=12):
                 moved = {n: d for n, d in diff.items() if d[0]}
                 lines.append(
                     f"{arch} step 1 gradient: {len(moved)} of {len(diff)} "
-                    f"leaves differ: " + ", ".join(
+                    f"leaves differ: " + (", ".join(
                         f"{n} {c}/{t} lanes (at most {r:.2g} of its max)"
-                        for n, (c, t, r) in sorted(moved.items())))
+                        for n, (c, t, r) in sorted(moved.items()))
+                        or "none"))
             x, y = a["cut"][0], f["cut"][0]
 
             def apart(key):
@@ -531,12 +558,6 @@ def moe_cut_step_readings(arch="arctic-480b", lr=0.1, steps=12):
                 f"{a['topi'][0].numel()}; kept assignments differing "
                 f"{apart('keep')}; loss {float(a['loss']):.7g} vs "
                 f"{float(f['loss']):.7g}")
-        one_formula_silu(mp)
-        _, ga = grads(p0, batches[0], "autograd")
-        _, gf = grads(p0, batches[0], "func")
-        lines.append(f"{arch} step 1 gradient with one silu backward "
-                     f"formula: leaves differing "
-                     f"{sum(not torch.equal(ga[n], gf[n]) for n in ga)}")
     return lines
 
 
@@ -563,8 +584,8 @@ if __name__ == "__main__":
                   f"{worst:.3g}, {share:.3g} of the lanes beyond {LANE_REL}",
                   flush=True)
     if sys.argv[1:] == ["--moe-cut"]:
-        # why arctic's runs with the int8 cut part between the port's two
-        # engines (~20 s):
+        # arctic's runs with the int8 cut step by step on the port's two
+        # engines' gradients, and both MoE configs' whole runs (~20 s):
         #   PYTHONPATH=src:tests python tests/torch_fl_cases.py --moe-cut
         for line in (moe_cut_step_readings()
                      + moe_engine_readings("arctic-480b")
