@@ -841,8 +841,8 @@ POD_STEP_REL, POD_FLIP_SHARE = 1e-5, 1e-4
 STEPS_PROMPT, STEPS_DECODE = 512, 8
 # (c) the dry runs on meta (run_cell on the 16 x 16 mesh of meta places,
 # fedavg_dryrun.run on 2 x 16 x 16): (arch, shape, layers); the MoE cells
-# keep DRYRUN_MOE_LAYERS of their layers (the expert-parallel body runs
-# once for each of the 256 places a layer, 2-4 s of host time a layer)
+# keep DRYRUN_MOE_LAYERS of their layers (under the step analysis the
+# expert-parallel body runs for one place)
 DRYRUN_MOE_LAYERS = 4
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", None),
                 ("mixtral-8x22b", "decode_32k", DRYRUN_MOE_LAYERS),
@@ -854,6 +854,16 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", None),
 # LM tests hold (tests/torch_fl_cases.py PLAIN_METRIC_REL)
 FLEET_CLIENTS, FLEET_ROUNDS = 32, 3
 FLEET_DRIFT_REL = 1e-5
+# (e) launch.hlo_analysis over a real train step of qwen3-0.6b and
+# mamba2-780m (full width and depth, one row of ANALYSED_SEQ tokens, one
+# place): the analysed peak (arguments plus the high-water mark of the
+# step's live storages) against torch.cuda.max_memory_allocated over the
+# step, within ANALYSED_PEAK_BAND: below, the allocator's rounding and
+# the kernels' scratch (the SSD passes'), which the analysis does not see;
+# above, nothing it counts is left out.  The first run read 0.9998 for
+# both steps (0.8-1.05 was stated before it)
+ANALYSED_SEQ = 4096
+ANALYSED_PEAK_BAND = (0.95, 1.02)
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -861,7 +871,8 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - START:.1f} s)",
+          flush=True)
 
 
 def time_ms(fn, graph: bool = True, reps: int = 15, inner: int = 20):
@@ -5201,8 +5212,8 @@ def step_builders_path(torch, dev, params, launches, reset_launches):
     return {"launches": got, "prefill_s": prefill_s}
 
 
-def moe_gather_bytes(cfg, tp, places, layers):
-    """The sharded MoE's all-gather bytes in a bf16 dry run: every place
+def moe_gather_bytes(cfg, tp, layers):
+    """A place's sharded-MoE all-gather bytes in a bf16 dry run: its body
     gathers the router (d, E) and its experts' three weights, the ``E /
     tp`` experts it holds (case A) or a ``d_ff / tp`` slice of all of them
     (case B), plus arctic's dense FFN (its ``d_ff`` over ``tp`` when that
@@ -5213,29 +5224,70 @@ def moe_gather_bytes(cfg, tp, places, layers):
     per_place = d * E + 3 * local_E * d * f_l
     if cfg.moe.dense_residual:
         per_place += 3 * d * (f // tp if f % tp == 0 else f)
-    return 2.0 * per_place * places * layers
+    return 2.0 * per_place * layers
 
 
 def qwen3_train_flops(cfg, B, S):
-    """The matmul FLOPs the counter sees in a qwen3 train step: the forward
-    (projections and the tied unembedding 2 T d d_out, attention's two (S,
-    S) products a head), its recompute in the backward (every one of them
-    sits in a rematerialised layer or CE chunk, recomputed under
-    ``torch.func`` too) and the backward's two products a forward one:
-    four forwards."""
+    """The global matmul FLOPs of a qwen3 train step: the forward
+    (projections and the tied unembedding 2 T d d_out, attention's two
+    products a head over the S (S + 1) / 2 causal pairs, the flash
+    kernel's written count),
+    its recompute in the backward (every one of them sits in a
+    rematerialised layer or CE chunk, recomputed under ``torch.func``
+    too) and the backward's two products a forward one: four forwards.  A
+    place of the 16 x 16 mesh does 1/256 of it."""
     T, d, L = B * S, cfg.d_model, cfg.num_layers
     per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
                  + 3 * d * cfg.d_ff)
-    attention = 4 * B * cfg.num_heads * S * S * cfg.head_dim
+    attention = 4 * B * cfg.num_heads * (S * (S + 1) // 2) * cfg.head_dim
     return 4 * (2 * T * (L * per_layer + cfg.vocab_size * d)
                 + L * attention)
 
 
+def qwen3_train_collectives(cfg, B, S, chunk=1024):
+    """A place's FSDP and TP collectives in qwen3's train step on the 16
+    x 16 mesh (``launch.hlo_analysis``'s rules): each weight matrix
+    gathered over data (its model split kept) in the forward, its
+    recompute and for the input gradient, the tied unembedding likewise
+    in each CE chunk; each gradient leaf reduce-scattered to its share;
+    the residual stream (B / 16 rows, bf16) summed over model at the
+    embedding's and each block's two pins (forward and recompute) and at
+    the first layer's and each block's two input gradients.  Returns
+    ``{(op, where): (count, bytes)}``."""
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+                 + 3 * d * cfg.d_ff)
+    chunks = S // min(chunk, S)
+    return {"fsdp all-gather": (3 * (7 * L + chunks),
+                                2 * 3 * (L * per_layer + chunks * V * d)
+                                / 16),
+            "fsdp reduce-scatter": (8, 2 * (L * per_layer + V * d) / 256),
+            "tp all-reduce": (6 * L + 2, (6 * L + 2) * 2 * B // 16 * S
+                              * d)}
+
+
+def qwen3_read_collectives(groups):
+    """The same three from a cell's ``collective_groups``."""
+    fsdp = [v for k, v in groups.items() if k.startswith("all-gather data ")
+            and k.split()[2] in ("mm", "bmm")]
+    rs = groups.get("reduce-scatter data shard", {"count": 0, "bytes": 0})
+    tp = [groups[k] for k in ("all-reduce model shard",
+                              "all-reduce model add") if k in groups]
+    return {"fsdp all-gather": (sum(v["count"] for v in fsdp),
+                                sum(v["bytes"] for v in fsdp)),
+            "fsdp reduce-scatter": (rs["count"], rs["bytes"]),
+            "tp all-reduce": (sum(v["count"] for v in tp),
+                              sum(v["bytes"] for v in tp))}
+
+
 def dry_runs_path(torch, launches, card):
     """Phase 5j (c): the dry runs on meta, on this machine (no JAX):
-    every cell ``ok``, the card's memory and every launch count unchanged,
-    qwen3's FLOPs the closed form, the MoE cells' collectives those of
-    case B (mixtral) and case A (arctic)."""
+    every cell ``ok``, the card's memory and every launch count unchanged;
+    per place (``launch.hlo_analysis``): qwen3's matmul FLOPs the closed
+    form over the 256 places (their sum the global form) and its FSDP and
+    TP collectives closed forms, the MoE cells' one-place body's gathers
+    and sums those of case B (mixtral) and case A (arctic), the fedavg
+    local step's collectives within a pod and its sync one all-reduce."""
     import contextlib
     import io
 
@@ -5252,48 +5304,59 @@ def dry_runs_path(torch, launches, card):
         if r["status"] != "ok":
             fail(f"dry run {arch} {shape}: {r['status']}")
         cfg = get_config(arch)
-        coll = r["collectives"]
+        coll, groups = r["collectives"], r["collective_groups"]
         if cfg.moe is not None:
             B = SHAPES[shape].global_batch
-            want = {"all-reduce": 16 * layers,
-                    "all-gather": (7 if cfg.moe.dense_residual else 4)
-                    * 256 * layers}
-            got = {k: coll[k]["count"] for k in want}
-            gather = moe_gather_bytes(cfg, 16, 256, layers)
-            if got != want or coll["all-gather"]["bytes"] != gather or \
-                    coll["all-reduce"]["bytes"] != \
-                    16 * layers * (B // 16) * cfg.d_model * 2:
-                fail(f"dry run {arch}: collectives {coll} are not the "
-                     f"sharded body's ({want}, {gather} gathered bytes)")
-        elif coll["total"]["count"] != 0:
-            fail(f"dry run {arch}: a dense step counted {coll['total']}")
+            want = {"all-gather data moe": {
+                        "count": (7 if cfg.moe.dense_residual else 4)
+                        * layers, "bytes": moe_gather_bytes(cfg, 16, layers)},
+                    "all-reduce model moe": {
+                        "count": layers,
+                        "bytes": layers * (B // 16) * cfg.d_model * 2.0}}
+            got = {k: groups.get(k) for k in want}
+            if got != want:
+                fail(f"dry run {arch}: the MoE body's collectives {got} are "
+                     f"not one place's ({want})")
         if arch == "qwen3-0.6b":
             sh = SHAPES[shape]
-            want_flops = qwen3_train_flops(cfg, sh.global_batch, sh.seq_len)
-            if r["cost"]["flops"] != want_flops:
-                fail(f"dry run qwen3: {r['cost']['flops']} FLOPs, the "
-                     f"closed form {want_flops}")
+            glob = qwen3_train_flops(cfg, sh.global_batch, sh.seq_len)
+            if r["cost"]["matmul_flops"] != glob / 256 or \
+                    r["cost"]["matmul_flops"] * 256 != glob:
+                fail(f"dry run qwen3: {r['cost']['matmul_flops']} matmul "
+                     f"FLOPs a place, the closed form {glob} / 256")
+            want = qwen3_train_collectives(cfg, sh.global_batch, sh.seq_len)
+            got = qwen3_read_collectives(groups)
+            if got != want:
+                fail(f"dry run qwen3: FSDP / TP collectives {got}, the "
+                     f"closed forms {want}")
+            r["closed_forms"] = want
         out[f"{arch}/{shape}/{variant}"] = r
         print(f"dry run {arch} {shape} {variant} ({r['mesh']} meta "
-              f"places): {r['cost']['flops']:.4g} FLOPs, "
+              f"places), a place: {r['cost']['flops']:.4g} FLOPs "
+              f"({r['cost']['matmul_flops']:.4g} in products), "
+              f"{r['cost']['bytes_accessed']:.4g} bytes, "
+              f"{r['cost']['transcendentals']:.4g} transcendentals, "
               f"{r['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB of "
-              f"arguments a place, collectives "
-              f"{coll['total']['bytes'] / 2**30:.3f} GiB in "
-              f"{coll['total']['count']} calls, {r['wall_s']:.2f} s",
+              f"arguments, peak {r['memory']['peak_memory_in_bytes'] / 2**30:.3f}"
+              f" GiB, collectives {coll['total']['bytes'] / 2**30:.3f} GiB "
+              f"in {coll['total']['count']} calls, {r['wall_s']:.2f} s",
               flush=True)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         fed = fedavg_dryrun.run("qwen3-0.6b")
     fed["wall_s"] = time.perf_counter() - t0
-    sync = fed["sync_step"]["collectives"]
+    sync, local = fed["sync_step"]["collectives"], fed["local_step"]
     if fed["status"] != "ok" or sync["all-reduce"]["count"] != 1 or \
-            fed["local_step"]["collectives"]["total"]["count"] != 0:
+            sync["total"]["count"] != 1 or local["pod_spanning"] != 0 or \
+            local["collectives"]["all-gather"]["count"] == 0:
         fail(f"fedavg dry run: {fed}")
     out["fedavg/qwen3-0.6b"] = fed
     print(f"fedavg dry run qwen3-0.6b (2 x 16 x 16 meta places): model "
-          f"{fed['model_bytes'] / 2**30:.3f} GiB bf16, the sync one "
-          f"all-reduce of {sync['all-reduce']['bytes'] / 2**30:.3f} GiB, "
-          f"the local step none, {fed['wall_s']:.2f} s", flush=True)
+          f"{fed['model_bytes'] / 2**30:.3f} GiB bf16; a place's sync one "
+          f"all-reduce over pod of {sync['all-reduce']['bytes'] / 2**20:.3f}"
+          f" MiB; its local step {local['collectives']['total']['count']} "
+          f"within-pod collectives, none spanning pod, "
+          f"{fed['wall_s']:.2f} s", flush=True)
     if torch.cuda.memory_allocated() != mem0 or dict(launches) != counts0:
         fail("the dry runs allocated on the card or launched a kernel")
     total = sum(r["wall_s"] for r in out.values())
@@ -5301,6 +5364,131 @@ def dry_runs_path(torch, launches, card):
           flush=True)
     return {"launches": {k: 0 for k in launches}, "cells": out,
             "wall_s": total}
+
+
+def analysed_step(torch, cfg, dev, launches, reset_launches):
+    """One train step (``launch.steps.make_train_step``, AdamW, fp32) of
+    ``cfg`` at full width and depth over one 4096-token row on a one-place
+    mesh: timed alone, then under ``launch.hlo_analysis.analyse`` on the
+    card (its launches counted, its peak measured), then analysed over
+    ``meta`` stand-ins of the same shapes."""
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import make_axis_rules, use_rules
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig("row", ANALYSED_SEQ, 1, "train")
+    reads = {}
+    for where in ("card", "meta"):
+        device = dev if where == "card" else torch.device("meta")
+        mesh = make_debug_mesh(1, 1, devices=[device])
+        rules = make_axis_rules(mesh)
+        with use_rules(rules):
+            opt = S.make_opt(cfg)
+            if where == "card":
+                params = api.init(cfg, 0, torch.float32, device=dev)
+                state = opt.init(params)
+                gen = torch.Generator(device=dev).manual_seed(5)
+                toks = torch.randint(0, cfg.vocab_size, (1, ANALYSED_SEQ),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+                batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+            else:
+                params = S.abstract_params(cfg, torch.float32)
+                state = S.abstract_opt_state(opt, params)
+                batch = I.train_batch_specs(cfg, shape, torch.float32)
+            p_specs = S.model_param_pspecs(cfg, params, rules)
+            specs = (p_specs, S.opt_pspecs(state, params, p_specs, rules),
+                     I.batch_pspecs(cfg, batch, rules))
+            step = S.make_train_step(cfg, opt)
+            args = (params, state, batch)
+            if where == "card":
+                step(*args)                       # warm (the kernels built)
+                free_card(torch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = step(*args)
+                torch.cuda.synchronize()
+                reads["step_s"] = time.perf_counter() - t0
+                del outs
+                free_card(torch)
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+            r = H.analyse(step, args, specs,
+                          lambda o: ((), specs[0], specs[1]), mesh.shape,
+                          (0, 1))
+            if where == "card":
+                torch.cuda.synchronize()
+                reads["launches"] = dict(launches)
+                reads["measured_peak"] = (torch.cuda.max_memory_allocated()
+                                          - base + H.memory_stats(r)[
+                                              "argument_size_in_bytes"])
+            reads[where] = {"cost": H.cost_stats(r),
+                            "memory": H.memory_stats(r),
+                            "kernels": r["kernels"]}
+            del r, args, params, state, batch
+        free_card(torch)
+    return reads
+
+
+def analysed_steps_path(torch, dev, launches, reset_launches, card):
+    """Phase 5j (e): the step analysis over real steps on the card:
+    qwen3-0.6b (the flash forward, its recompute and the backward pair)
+    and mamba2-780m (the SSD scan, its recompute and its backward) at full
+    width and depth, one 4096-token row, one place.  Held: FLOPs, bytes
+    and transcendentals equal to the same step's over meta stand-ins, the
+    analysed peak within ANALYSED_PEAK_BAND of the measured one, the
+    launches exactly the step's; printed: the step's seconds beside its
+    three roofline terms at the card's peaks."""
+    from repro_torch.configs.mamba2_780m import CONFIG as mamba2
+    from repro_torch.configs.qwen3_0_6b import CONFIG as qwen3
+    out = {}
+    for cfg, want in (
+            (qwen3, {"flash_attention": 2 * qwen3.num_layers,
+                     "flash_attention_bwd_dq": qwen3.num_layers,
+                     "flash_attention_bwd_dkdv": qwen3.num_layers}),
+            (mamba2, {"ssd_scan": 2 * mamba2.num_layers,
+                      "ssd_scan_bwd": mamba2.num_layers})):
+        reads = analysed_step(torch, cfg, dev, launches, reset_launches)
+        got = {k: v for k, v in reads["launches"].items() if v}
+        if got != want:
+            fail(f"analysed step {cfg.name}: launches {got} != {want}")
+        card_cost, meta_cost = reads["card"]["cost"], reads["meta"]["cost"]
+        keys = ("flops", "bytes_accessed", "transcendentals")
+        if any(card_cost[k] != meta_cost[k] for k in keys):
+            fail(f"analysed step {cfg.name}: the card reads {card_cost}, "
+                 f"meta {meta_cost}")
+        peak = reads["card"]["memory"]["peak_memory_in_bytes"]
+        ratio = peak / reads["measured_peak"]
+        lo, hi = ANALYSED_PEAK_BAND
+        if not lo <= ratio <= hi:
+            fail(f"analysed step {cfg.name}: analysed peak {peak / 2**30:.3f}"
+                 f" GiB is {ratio:.3f} of the measured "
+                 f"{reads['measured_peak'] / 2**30:.3f} (band {lo}-{hi})")
+        terms = {"compute_s": card_cost["flops"] / FP32_OPS_PER_S,
+                 "memory_s": card_cost["bytes_accessed"] / HBM_BYTES_PER_S,
+                 "collective_s": 0.0}
+        print(f"analysed step {cfg.name} (one {ANALYSED_SEQ}-token row, "
+              f"AdamW, fp32; {card}): {reads['step_s']:.3f} s measured; a "
+              f"place's {card_cost['flops']:.6g} FLOPs "
+              f"({card_cost['matmul_flops']:.6g} in products), "
+              f"{card_cost['bytes_accessed']:.6g} bytes, "
+              f"{card_cost['transcendentals']:.6g} transcendentals, equal "
+              f"on meta; roofline terms at the card's peaks: compute "
+              f"{terms['compute_s']:.4f} s (fp32 67 TFLOP/s), memory "
+              f"{terms['memory_s']:.4f} s (3.35 TB/s), collectives 0 (one "
+              f"place); peak analysed {peak / 2**30:.3f} GiB, measured "
+              f"{reads['measured_peak'] / 2**30:.3f} ({ratio:.3f}); "
+              f"launches {got}", flush=True)
+        out[f"analysed-{cfg.name}"] = {
+            "launches": reads["launches"], "step_s": reads["step_s"],
+            "cost": card_cost, "memory": reads["card"]["memory"],
+            "measured_peak": reads["measured_peak"], "peak_ratio": ratio,
+            "roofline_terms": terms}
+    return out
 
 
 def fleet_simulation_launches(cfg, hists, fl_kw, K):
@@ -5343,8 +5531,9 @@ def fleet_simulation_path(torch, launches, reset_launches, card):
 
 
 def launch_drivers_path(torch, dev, launches, reset_launches, card):
-    """Phase 5j: the pod pair, the step builders, the dry runs on meta and
-    the fleet simulation.  Returns the records by path."""
+    """Phase 5j: the pod pair, the step builders, the dry runs on meta,
+    the fleet simulation and the step analysis over real steps.  Returns
+    the records by path."""
     out = {}
     out["pods-qwen3-0.6b"], params = pod_pair_path(
         torch, dev, launches, reset_launches, card)
@@ -5355,6 +5544,8 @@ def launch_drivers_path(torch, dev, launches, reset_launches, card):
     out["dryrun-meta"] = dry_runs_path(torch, launches, card)
     out["fleet-simulation"] = fleet_simulation_path(torch, launches,
                                                     reset_launches, card)
+    out.update(analysed_steps_path(torch, dev, launches, reset_launches,
+                                   card))
     return out
 
 def np_equal(a, b) -> bool:
@@ -5662,47 +5853,30 @@ def small_federated_lm_cpu_vs_card(torch, dev):
     return out
 
 
-def ssd_cost(B, S, H, P, N, Q):
-    """Bytes and operations the SSD scan needs for these inputs: each input
-    read once and each output written once; the products' operations, C.B^T
-    once per (batch, chunk) (B and C are shared by the heads), the causal
-    half of the per-head decay-weighted product with x, and 2QNP each for
-    the inter-chunk term and the state update; and the elementwise ones,
-    the decay weights (3 operations per causal pair).  Returns (bytes,
-    product operations, elementwise operations)."""
-    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                  + B * H * P * N)
-    prod, elem = 0, 0
-    for s0 in range(0, S, Q):
-        q = min(Q, S - s0)
-        pairs = q * (q + 1) // 2
-        prod += B * (2 * pairs * N + H * (2 * pairs * P + 2 * 2 * q * N * P))
-        elem += B * H * 3 * pairs
-    return nbytes, prod, elem
+def work_io(w):
+    """A kernel's written count as ``_timing_row``'s (bytes, operations):
+    every FLOP at the fp32 rate (the int8 pair, top-k)."""
+    return w["bytes_accessed"], w["flops"]
 
 
-def ssd_bwd_cost(B, S, H, P, N, Q):
-    """Bytes and operations of the SSD scan's backward kernel for these
-    inputs: each input (x, dt, A, B, C, dy) read once and each gradient
-    written once; the products it computes, counted from its passes: the
-    forward's C.B^T (causal half) once per (batch, chunk) and its chunk
-    states per head again, then per head D = (e o dy)^T.C, dM = dy.x^T and
-    M^T.dy over the causal half, B.G^T and C.S^T, and per (batch, chunk)
-    dC and dB, each the scores' causal half and the heads' states (2 Q H P
-    N); and the elementwise ones, 9 per causal pair and head (three
-    evaluations of the decay, an exp, a difference and a product each).
-    Returns (bytes, product operations, elementwise operations)."""
-    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N + 2 * H)
-    prod, elem = 0, 0
-    for s0 in range(0, S, Q):
-        q = min(Q, S - s0)
-        pairs = q * (q + 1) // 2
-        prod += B * (2 * pairs * N
-                     + H * (4 * q * P * N + 2 * 2 * pairs * P
-                            + 2 * 2 * q * N * P)
-                     + 2 * (2 * pairs * N + 2 * q * H * P * N))
-        elem += B * H * 9 * pairs
-    return nbytes, prod, elem
+def tensor_core_row(row, w):
+    """A 3xTF32 kernel's row bounded by its written count (``w``): the
+    larger of the bytes over the memory rate, the products three times
+    over the TF32 tensor-core rate and the rest of its FLOPs and its
+    transcendentals over the fp32 rate; ``bound_fp32_ms`` every operation
+    at the fp32 rate."""
+    prod = w["matmul_flops"]
+    elem = w["flops"] - prod + w["transcendentals"]
+    b_ms, b_by = bound_ms(w["bytes_accessed"], 3 * prod, TF32_OPS_PER_S)
+    elem_ms = elem / FP32_OPS_PER_S * 1e3
+    if elem_ms > b_ms:
+        b_ms, b_by = elem_ms, "operations"
+    row.update({"bound_ms": b_ms, "bound_by": b_by,
+                "bound_fp32_ms": bound_ms(w["bytes_accessed"],
+                                          prod + elem)[0],
+                "gflop": prod / 1e9, "elementwise_gflop": elem / 1e9,
+                "mbytes": w["bytes_accessed"] / 1e6})
+    return row
 
 
 def time_ssd_bwd(torch, ts, real):
@@ -5710,55 +5884,36 @@ def time_ssd_bwd(torch, ts, real):
     4096-token training step (B=1, S=4096, H=48, P=64, N=128, Q=128; x,
     B and C the model's views of its projection, y's real gradient scaled
     to a max of 1).  No PyTorch call computes the SSD scan's gradient.
-    Bounds over the products its passes compute (``ssd_bwd_cost``):
-    ``bound_ms`` (also ``bound_3xtf32_ms``) the larger of the bytes over
-    the memory rate, the products three times over the TF32 tensor-core
-    rate and the elementwise operations over the fp32 rate;
-    ``bound_fp32_ms``, every operation at the fp32 CUDA-core rate."""
+    Bounds from its written count (``ssd_scan_bwd_work``, the gradient's
+    two products a forward one), ``tensor_core_row``."""
     x, dt, A, Bm, Cm, dy = real
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    nbytes, prod, elem = ssd_bwd_cost(B, S, H, P, N, 128)
-    row = _timing_row(
+    w = ts.ssd_scan_bwd_work(x.shape, Bm.shape, None, 128)
+    row = tensor_core_row(_timing_row(
         "ssd_scan_bwd", [B, S, H, P, N, 128],
         lambda: ts.ssd_scan_bwd(x, dt, A, Bm, Cm, 128, None, dy),
         lambda: ts.ssd_scan_bwd_plain(x, dt, A, Bm, Cm, 128, None, dy),
-        None, nbytes, 3 * prod, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
-    elem_ms = elem / FP32_OPS_PER_S * 1e3
-    if elem_ms > row["bound_ms"]:
-        row.update({"bound_ms": elem_ms, "bound_by": "operations"})
-    row.update({"gflop": (prod + elem) / 1e9, "computed_gflop": prod / 1e9,
-                "mbytes": nbytes / 1e6, "bound_3xtf32_ms": row["bound_ms"],
-                "bound_fp32_ms": bound_ms(nbytes, prod + elem)[0],
-                "library": None})
-    print(f"ssd_scan_bwd at mamba2-780m's layer 0: {prod / 1e9:.2f} GFLOP of "
-          f"products, {elem / 1e9:.3f} G elementwise, {nbytes / 1e6:.1f} MB")
+        None, 0, 0, reps=7, inner=5), w)
+    print(f"ssd_scan_bwd at mamba2-780m's layer 0: {row['gflop']:.2f} "
+          f"GFLOP of products, {row['elementwise_gflop']:.3f} G "
+          f"elementwise, {row['mbytes']:.1f} MB")
     return [row]
 
 
 def time_ssd(torch, ts, real):
     """Phase 7, the SSD scan at mamba2-780m's prefill shape (B=1, S=4096,
     H=48, P=64, N=128, Q=128) on layer 0's inputs.  No PyTorch call
-    computes the SSD scan.  Two bounds, each named: ``bound_ms``, the
-    larger of the bytes over the memory rate, the products' operations
-    three times over the TF32 tensor-core rate (3xTF32) and the
-    elementwise ones over the fp32 rate; ``bound_fp32_ms``, every
-    operation at the fp32 CUDA-core rate."""
+    computes the SSD scan.  Bounds from its written count
+    (``ssd_scan_work``), ``tensor_core_row``."""
     x, dt, A, Bm, Cm = real
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    nbytes, prod, elem = ssd_cost(B, S, H, P, N, 128)
-    row = _timing_row("ssd_scan", [B, S, H, P, N, 128],
-                      lambda: ts.ssd_scan(x, dt, A, Bm, Cm, 128),
-                      lambda: ts.ssd_scan_plain(x, dt, A, Bm, Cm, 128), None,
-                      nbytes, 3 * prod, reps=7, inner=5,
-                      ops_per_s=TF32_OPS_PER_S)
-    elem_ms = elem / FP32_OPS_PER_S * 1e3
-    if elem_ms > row["bound_ms"]:
-        row.update({"bound_ms": elem_ms, "bound_by": "operations"})
-    row.update({"gflop": (prod + elem) / 1e9, "mbytes": nbytes / 1e6,
-                "bound_fp32_ms": bound_ms(nbytes, prod + elem)[0]})
-    return [row]
+    return [tensor_core_row(_timing_row(
+        "ssd_scan", [B, S, H, P, N, 128],
+        lambda: ts.ssd_scan(x, dt, A, Bm, Cm, 128),
+        lambda: ts.ssd_scan_plain(x, dt, A, Bm, Cm, 128), None, 0, 0,
+        reps=7, inner=5), ts.ssd_scan_work(x.shape, Bm.shape, None, 128))]
 
 
 # phase 7's flash rows: the real layer's q, k, v (``real[kind]``), its
@@ -5790,13 +5945,12 @@ def time_flash(torch, tf, real):
     where a softcap or a binding window needs it, else
     ``scaled_dot_product_attention`` (causal or not; k and v repeated to H
     heads outside the timed call).  Each yardstick's max abs difference
-    from the kernel is kept as ``library_err``.  The function is 4 * D * H
-    operations per visible (q, k) pair; each input and output byte counts
-    once over the memory rate.  Two bounds, each named: ``bound_ms``, the
-    3xTF32 tensor-core bound (three TF32 products per operation pair at 495
-    TFLOP/s: the least time the card takes at this accuracy, since one TF32
-    product breaks the 1e-5 tolerance), and ``bound_fp32_ms``, the same
-    operations at the fp32 CUDA-core rate (67 TFLOP/s)."""
+    from the kernel is kept as ``library_err``.  The bounds come from the
+    kernel's written count (``flash_attention_work``: 4 * D * H
+    operations a (q, k) pair the mask leaves visible; each input and
+    output byte once), ``tensor_core_row`` (three TF32 products per
+    operation pair at 495 TFLOP/s: one TF32 product breaks the 1e-5
+    tolerance)."""
     F = torch.nn.functional
     rows = []
     for kind, model, cap, causal, lse in FLASH_TIMED:
@@ -5804,8 +5958,10 @@ def time_flash(torch, tf, real):
         B, S, H, D = q.shape
         Sk, KV = k.shape[1], k.shape[2]
         pairs = int(tf.visible_mask(S, Sk, causal, window, q.device).sum())
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
-                      + (B * H * S if lse else 0))
+        counted_pairs = tf.visible_pairs(S, Sk, bool(causal), int(window))
+        if pairs != counted_pairs:
+            fail(f"flash timing {kind}: visible_pairs {counted_pairs} != "
+                 f"the mask's {pairs}")
         kern, plain = ((tf.flash_attention_lse, tf.attention_plain_lse)
                        if lse else (tf.flash_attention, tf.attention_plain))
         args = (q, k, v, causal, window, cap)
@@ -5827,16 +5983,14 @@ def time_flash(torch, tf, real):
         library_err = float((library().transpose(1, 2) - mine).abs().max())
         print(f"flash vs {what} ({model}, window {window}, softcap {cap}, "
               f"causal {causal}): max abs diff {library_err:.3g}")
-        ops = 4 * D * H * pairs
-        row = _timing_row(
+        row = tensor_core_row(_timing_row(
             "flash_attention", [B, S, H, KV, D], lambda: kern(*args),
-            lambda: plain(*args), library, nbytes,
-            3 * ops, reps=7, inner=5, ops_per_s=TF32_OPS_PER_S)
+            lambda: plain(*args), library, 0, 0, reps=7, inner=5),
+            tf.flash_attention_work(q.shape, k.shape, causal, window, 4, lse,
+                                    cap))
         row.update({"model": model, "window": window, "softcap": cap,
                     "causal": causal, "lse": lse, "pairs": pairs,
-                    "gflop": ops / 1e9,
-                    "library": what, "library_err": library_err,
-                    "bound_fp32_ms": bound_ms(nbytes, ops)[0]})
+                    "library": what, "library_err": library_err})
         rows.append(row)
     return rows
 
@@ -5846,15 +6000,14 @@ def time_flash_bwd(torch, tf, real):
     (``real["qwen3"]``: q, k, v and dO of a 4096-token training step; 16
     query heads over 8 KV heads of 128, causal) and gemma2-2b's global
     layer (S=4608, D=256, softcap 50; a seeded dO).  Rows for each kernel
-    (dq: the S, dP and dQ products, 6 * D * H operations a visible pair;
-    dk/dv: S, dP, dV and dK, 8 * D * H) and for the whole backward (the
-    function's 5 products, 10 * D * H a pair: 171.8 GFLOP at qwen3's
-    shape).  ``bound_ms`` is the 3xTF32 tensor-core bound (three TF32
-    products per operation pair at 495 TFLOP/s), ``bound_fp32_ms`` the
-    same operations at the fp32 CUDA-core rate (67 TFLOP/s).  Each row
+    and for the whole backward, bounded by the kernels' written counts
+    (``flash_attention_bwd_dq_work``: dP and dQ; ``..._dkdv_work``: dV and
+    dK; 4 * D * H operations a visible pair each, the four products of
+    the differentiated attention), ``tensor_core_row``.  Each row
     also carries what its kernels compute, ``computed_gflop`` (dq 3
-    products, dk/dv 4, the pair 7: both kernels recompute S and dP, 240.6
-    GFLOP at qwen3's shape), and ``computed_bound_ms``, its 3xTF32 bound.
+    products, dk/dv 4, the pair 7 over the visible pairs: both kernels
+    recompute S and dP, 240.6 GFLOP at qwen3's shape), and
+    ``computed_bound_ms``, its 3xTF32 bound.
     Two calls of the pair on each layer must give bitwise-equal dq, dk and
     dv (no atomics), or the run fails.  Each row's
     plain version computes that row's part, timed in a CUDA graph:
@@ -5916,46 +6069,45 @@ def time_flash_bwd(torch, tf, real):
         kw = dict(reps=5, inner=3)
         lib_ms = (time_ms(lib_grads, graph=False, **kw)
                   - time_ms(fwd, graph=False, **kw))
-        io = 4 * (q.numel() + k.numel() + v.numel())
         args = (True, window, cap)
-        for name, fn, plain, products, computed, nbytes, computes in [
+        w_dq = tf.flash_attention_bwd_dq_work(q.shape, k.shape, True, window,
+                                              cap)
+        w_dkdv = tf.flash_attention_bwd_dkdv_work(q.shape, k.shape, True,
+                                                  window, cap)
+        w_both = {key: w_dq[key] + w_dkdv[key] for key in w_dq}
+        for name, fn, plain, w, computed, computes in [
                 ("flash_attention_bwd_dq",
                  lambda: tf.flash_attention_bwd_dq(q, k, v, o, lse, do,
                                                    *args),
                  lambda: tf.attention_bwd_dq_plain(q, k, v, o, lse, do,
-                                                   *args), 3, 3,
-                 io + 4 * (3 * q.numel() + 2 * lse.numel()), "dq, delta"),
+                                                   *args), w_dq, 3,
+                 "dq, delta"),
                 ("flash_attention_bwd_dkdv",
                  lambda: tf.flash_attention_bwd_dkdv(q, k, v, lse, delta, do,
                                                      *args),
                  lambda: tf.attention_bwd_dkdv_plain(q, k, v, lse, delta, do,
-                                                     *args), 4, 4,
-                 io + 4 * (q.numel() + 2 * lse.numel() + k.numel()
-                           + v.numel()), "dk, dv"),
+                                                     *args), w_dkdv, 4,
+                 "dk, dv"),
                 ("flash_attention_bwd",
                  lambda: tf.flash_attention_bwd(q, k, v, o, lse, do, *args),
                  lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, *args),
-                 5, 7, io + 4 * (3 * q.numel() + lse.numel() + k.numel()
-                              + v.numel()), "dq, dk, dv")]:
-            ops = 2 * products * D * H * pairs
+                 w_both, 7, "dq, dk, dv")]:
             done = 2 * computed * D * H * pairs
-            b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
             whole = name == "flash_attention_bwd"
-            row = {"name": name, "shape": [B, S, H, KV, D],
-                   "ms": time_ms(fn, **kw),
-                   "call_ms": time_ms(fn, graph=False, **kw),
-                   "plain_ms": time_ms(plain, **kw), "bound_ms": b_ms,
-                   "bound_by": b_by,
-                   "bound_fp32_ms": bound_ms(nbytes, ops)[0],
-                   "library_ms": lib_ms if whole else None,
-                   "library": what if whole else None,
-                   "library_err": library_err, "model": model,
-                   "window": window, "softcap": cap, "causal": True,
-                   "pairs": pairs, "gflop": ops / 1e9, "computes": computes,
-                   "computed_gflop": done / 1e9,
-                   "computed_bound_ms": bound_ms(nbytes, 3 * done,
-                                                 TF32_OPS_PER_S)[0],
-                   "bitwise_repeat": True}
+            row = tensor_core_row({
+                "name": name, "shape": [B, S, H, KV, D],
+                "ms": time_ms(fn, **kw),
+                "call_ms": time_ms(fn, graph=False, **kw),
+                "plain_ms": time_ms(plain, **kw),
+                "library_ms": lib_ms if whole else None,
+                "library": what if whole else None,
+                "library_err": library_err, "model": model,
+                "window": window, "softcap": cap, "causal": True,
+                "pairs": pairs, "computes": computes,
+                "computed_gflop": done / 1e9,
+                "computed_bound_ms": bound_ms(w["bytes_accessed"], 3 * done,
+                                              TF32_OPS_PER_S)[0],
+                "bitwise_repeat": True}, w)
             rows.append(row)
         print(f"flash backward vs {what} ({model}): max abs grad diff "
               f"{library_err:.3g}")
@@ -6018,20 +6170,21 @@ def lm_row_timings(torch, tq, tt, dev, gen, n):
     rows = [_timing_row(
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
         lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
-        lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n,
-        reps=3, inner=2)]
+        lambda: torch.topk(mag, kmax, dim=1),
+        *work_io(tt.topk_compress_work((1, n))), reps=3, inner=2)]
     del mag
     x = buf.view(nb, 1024)
     q, s = tq.quantize_rows(x)
-    for name, fn, plain, library, nbytes, ops in [
+    for name, fn, plain, library, w in [
             ("quantize", lambda: tq.quantize_rows(x),
              lambda: tq.quantize_rows_plain(x), None,
-             n * 4 + n + nb * 4, 5 * n),
+             tq.quantize_work((nb, 1024))),
             ("dequantize", lambda: tq.dequantize_rows(q, s),
              lambda: tq.dequantize_rows_plain(q, s),
-             lambda: torch.mul(q, s[:, None]), n + nb * 4 + n * 4, n)]:
+             lambda: torch.mul(q, s[:, None]),
+             tq.dequantize_work((nb, 1024)))]:
         rows.append(_timing_row(name, [nb, 1024], fn, plain, library,
-                                nbytes, ops, reps=5, inner=4))
+                                *work_io(w), reps=5, inner=4))
     return rows
 
 
@@ -6059,15 +6212,16 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
         x = torch.randn((R, C), generator=gen).to(dev)
         q, s = tq.quantize_rows(x)
         n = R * C
-        for name, fn, plain, library, nbytes, ops in [
+        for name, fn, plain, library, w in [
                 ("quantize", lambda: tq.quantize_rows(x),
                  lambda: tq.quantize_rows_plain(x), None,
-                 n * 4 + n + R * 4, 5 * n),
+                 tq.quantize_work((R, C))),
                 ("dequantize", lambda: tq.dequantize_rows(q, s),
                  lambda: tq.dequantize_rows_plain(q, s),
-                 lambda: torch.mul(q, s[:, None]), n + R * 4 + n * 4, n)]:
+                 lambda: torch.mul(q, s[:, None]),
+                 tq.dequantize_work((R, C)))]:
             rows.append(_timing_row(name, [R, C], fn, plain, library,
-                                    nbytes, ops))
+                                    w["bytes_accessed"], w["flops"]))
     # top-k over one VGG-5 client row at the main path's density 0.1
     layout = FlatLayout(init(VGG5, gen))
     meta = torch.from_numpy(layout.block_meta(0.1)).to(torch.int32).to(dev)
@@ -6081,7 +6235,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
     rows.append(_timing_row(
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(buf, meta),
         lambda: tt.topk_blocks_plain(buf.view(nb, 1024), meta),
-        lambda: torch.topk(mag, kmax, dim=1), 2 * 4 * n + 8 * nb, 4 * n))
+        lambda: torch.topk(mag, kmax, dim=1),
+        *work_io(tt.topk_compress_work((1, n)))))
     # top-k over VGG-5's largest leaf (the FC128 weight, 4096 x 128), one
     # of the reference server step's per-leaf calls
     n = 4096 * 128
@@ -6094,8 +6249,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
         "topk_compress", [1, n], lambda: tt.topk_compress_flat(leaf,
                                                                leaf_meta),
         lambda: tt.topk_blocks_plain(leaf.view(nb, 1024), leaf_meta),
-        lambda: torch.topk(leaf_mag, leaf_k, dim=1), 2 * 4 * n + 8 * nb,
-        4 * n))
+        lambda: torch.topk(leaf_mag, leaf_k, dim=1),
+        *work_io(tt.topk_compress_work((1, n)))))
     rows += lm_row_timings(torch, tq, tt, dev, gen, lm_lanes)
     rows += serving_rows
     for r in rows:
@@ -6160,8 +6315,8 @@ def time_kernels(torch, tq, tt, dev, launches, worst, worst_rel,
                 "function, which the reference takes by autodiff of the jnp "
                 "ssd_chunked (src/repro/models/ssm.py:73)")
             kernels[-1]["max_rel_err"] = worst_rel
-            for key in ("bound_3xtf32_ms", "computed_gflop", "library"):
-                kernels[-1][key] = r[key]
+            kernels[-1]["gflop"] = r["gflop"]
+            kernels[-1]["library"] = None
         if r["name"].startswith("flash_attention_bwd"):
             kernels[-1]["replaces_note"] = (
                 "no Pallas backward exists: the gradient of this line's "
@@ -6370,7 +6525,8 @@ def main() -> None:
 
         phase("5j. the launch drivers: the FedAdapt pod pair at qwen3-0.6b "
               "(full width and depth), the step builders, the dry runs on "
-              "meta and the fleet simulation")
+              "meta, the fleet simulation and the step analysis over real "
+              "steps")
         record["main_path"].update(launch_drivers_path(
             torch, dev, LAUNCHES, reset_launches, card))
         free_card(torch)

@@ -6,7 +6,8 @@ A development script, outside the port's package: nothing the port runs
 calls it.  It builds the kernels as chip_smoke.py does, switches TF32 off,
 then runs ``launch_drivers_path``: the FedAdapt pod pair at qwen3-0.6b's
 full width and depth against the train step alone, the step builders
-against the api, the dry runs on meta and the fleet simulation.  With
+against the api, the dry runs on meta, the fleet simulation and the step
+analysis over qwen3-0.6b's and mamba2-780m's real train steps.  With
 ``--federated`` phase 5g (``federated_lm_path``: qwen3-0.6b through both
 engines, the widths run and mamba2-780m) runs first.  Every check is
 chip_smoke.py's own; the record goes to ``chiprun_out/launch_phases.json``.

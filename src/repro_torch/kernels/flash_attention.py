@@ -26,12 +26,13 @@ differentiates its jnp attention.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, counted, work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # B, Sq, Sk, H, KV, D, causal, window, softcap
@@ -47,6 +48,84 @@ MAX_HEAD_DIM = 256
 
 def _lib():
     return _build.load("flash_attention", _SIGNATURES)
+
+
+# -----------------------------------------------------------------------------
+# the written counts (per call; ``kernels.counted`` records them)
+# -----------------------------------------------------------------------------
+# Causal and windowed attention count the pairs the mask leaves visible
+# (``visible_pairs``), the least work the function needs (the kernels'
+# tiles skip the masked ones), not the reference's full (Sq, Sk)
+# products: one convention for the forward, both backward kernels and the
+# bounds derived from them.
+@functools.lru_cache(maxsize=256)
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs ``visible_mask`` leaves: query ``i`` sees
+    keys up to ``i`` (causal, else all ``Sk``), and above ``i - window``
+    (``window > 0``)."""
+    n = 0
+    for i in range(Sq):
+        hi = min(i, Sk - 1) if causal else Sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_attention_work(q, k, causal: bool = False, window: int = 0,
+                         itemsize: int = 4, lse: bool = False,
+                         softcap: float = 0.0) -> Dict[str, float]:
+    """The forward at q ``(B, Sq, H, D)``, k ``(B, Sk, KV, D)`` shapes:
+    S = QK^T and PV (``4 D`` a visible pair of each of ``B H`` heads); a
+    scale, max, difference and sum a visible score (a softcap's two more
+    and a tanh), an ``exp`` a visible score and a divide an output
+    element; q, k, v read and the output (and the fp32 lse) written
+    once."""
+    B, Sq, H, D = q
+    Sk, KV = k[1], k[2]
+    pairs = B * H * visible_pairs(Sq, Sk, bool(causal), int(window))
+    capped = softcap > 0
+    return work(4 * pairs * D + (4 + 2 * capped) * pairs + B * Sq * H * D,
+                4 * pairs * D,
+                itemsize * 2 * (B * Sq * H * D + B * Sk * KV * D)
+                + (4 * B * H * Sq if lse else 0),
+                (1 + capped) * pairs + (B * H * Sq if lse else 0))
+
+
+def flash_attention_bwd_dq_work(q, k, causal: bool = False, window: int = 0,
+                                softcap: float = 0.0) -> Dict[str, float]:
+    """The backward's first kernel: the gradient's products dP = dO V^T
+    and dQ = dS K (``4 D`` a visible pair and head; the scores' own
+    product, recomputed from q and k, is not counted: the four products
+    of the whole backward are those of the reference's differentiated
+    attention), P from the log-sum-exp (a difference and an ``exp`` a
+    visible score), dS (two a visible score) and delta = rowsum(dO o O); q, k, v, o, dO and lse read, dq and delta
+    written (fp32)."""
+    B, Sq, H, D = q
+    Sk, KV = k[1], k[2]
+    pairs = B * H * visible_pairs(Sq, Sk, bool(causal), int(window))
+    capped = softcap > 0
+    return work(4 * pairs * D + (3 + 3 * capped) * pairs + 2 * B * Sq * H * D,
+                4 * pairs * D,
+                4 * (4 * B * Sq * H * D + 2 * B * Sk * KV * D
+                     + 2 * B * H * Sq),
+                (1 + capped) * pairs)
+
+
+def flash_attention_bwd_dkdv_work(q, k, causal: bool = False,
+                                  window: int = 0, softcap: float = 0.0
+                                  ) -> Dict[str, float]:
+    """The backward's second kernel: dV = P^T dO and dK = dS^T Q (``4 D``
+    a visible pair and head), P and dS again (four a visible score and an
+    ``exp``); q, k, v, dO, lse and delta read, dk and dv written
+    (fp32)."""
+    B, Sq, H, D = q
+    Sk, KV = k[1], k[2]
+    pairs = B * H * visible_pairs(Sq, Sk, bool(causal), int(window))
+    capped = softcap > 0
+    return work(4 * pairs * D + (4 + 3 * capped) * pairs, 4 * pairs * D,
+                4 * (2 * B * Sq * H * D + 4 * B * Sk * KV * D
+                     + 2 * B * H * Sq),
+                (1 + capped) * pairs)
 
 
 def visible_mask(Sq: int, Sk: int, causal: bool, window: int,
@@ -123,7 +202,7 @@ def attention_bwd_dq_plain(q, k, v, o, lse, do, causal=True, window=0,
                            softcap=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dq kernel's plain version: dq, and delta = rowsum(do * o)
     (B, H, Sq) fp32."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     _, ds, _, _ = _p_ds_plain(q, k, v, delta, lse, do, causal, window,
                               softcap)
     B, Sq, H, D = q.shape
@@ -139,7 +218,9 @@ def attention_bwd_dkdv_plain(q, k, v, lse, delta, do, causal=True, window=0,
                                  softcap)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    # contiguous, as the kernel writes them (so a step reads the same
+    # downstream on every device)
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
 def _p_ds_plain(q, k, v, delta, lse, do, causal, window, softcap):
@@ -186,7 +267,15 @@ def _check(q, k, v) -> None:
 
 def _forward(q, k, v, causal, window, softcap, want_lse: bool):
     """The output and, with ``want_lse``, the rows' log-sum-exp (else
-    None)."""
+    None), counted as ``flash_attention_work``."""
+    return counted(
+        "flash_attention", lambda qs, ks, vs: flash_attention_work(
+            qs, ks, causal, window, q.element_size(), want_lse, softcap),
+        (q, k, v),
+        lambda: _run_forward(q, k, v, causal, window, softcap, want_lse))
+
+
+def _run_forward(q, k, v, causal, window, softcap, want_lse: bool):
     if not _build.wants_kernel(q, "flash_attention"):
         out, lse = attention_plain_lse(q, k, v, causal, window, softcap)
         return out, lse if want_lse else None
@@ -308,14 +397,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layer's first run inside ``vmap``: batched operands, which the kernel
     cannot take) it is ``_FlashAttention`` too, whose ``vmap`` rule folds
     the clients into B, its lse dropped.  On ``meta`` (abstract
-    evaluation: shapes and dtypes alone) it is ``attention_plain`` under
-    autograd, in any dtype."""
+    evaluation: shapes and dtypes alone) it takes the same path in any
+    dtype (the plain versions run on ``meta``)."""
     _check(q, k, v)
-    if q.device.type == "meta":
-        return attention_plain(q, k, v, causal, window, softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
+        if q.dtype != torch.float32 and q.device.type != "meta":
             raise ValueError(f"flash_attention: the gradient is float32 "
                              f"only (training in this repo is fp32); got "
                              f"{q.dtype}")
@@ -334,11 +421,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` (B, H, Sq), and ``do``: fp32 tensors of one device.  A CUDA
     tensor launches the dq kernel (which also writes each row's
     ``rowsum(do * o)``) and then the dk/dv kernel; a CPU tensor takes their
-    plain versions, which make ``attention_bwd_plain``."""
+    plain versions, which make ``attention_bwd_plain`` (on ``meta``, in
+    any dtype)."""
     _check(q, k, v)
     B, Sq, H, _ = q.shape
     tensors = (q, k, v, o, lse, do)
-    if any(t.dtype != torch.float32 for t in tensors):
+    if q.device.type != "meta" and any(t.dtype != torch.float32
+                                       for t in tensors):
         raise ValueError(f"flash_attention_bwd takes float32 tensors; got "
                          f"{[t.dtype for t in tensors]}")
     if o.shape != q.shape or do.shape != q.shape or \
@@ -374,7 +463,17 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, window=0,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's first kernel (inputs as ``flash_attention_bwd``
     checks them): dq, and delta = rowsum(do * o) (B, H, Sq), which the
-    dk/dv kernel reads.  A CPU tensor takes ``attention_bwd_dq_plain``."""
+    dk/dv kernel reads.  A CPU tensor takes ``attention_bwd_dq_plain``.
+    Counted as ``flash_attention_bwd_dq_work``."""
+    return counted("flash_attention_bwd_dq",
+                   lambda *s: flash_attention_bwd_dq_work(
+                       s[0], s[1], causal, window, softcap),
+                   (q, k, v, o, lse, do),
+                   lambda: _run_bwd_dq(q, k, v, o, lse, do, causal, window,
+                                       softcap))
+
+
+def _run_bwd_dq(q, k, v, o, lse, do, causal, window, softcap):
     if not _build.wants_kernel(q, "flash_attention_bwd_dq"):
         return attention_bwd_dq_plain(q, k, v, o, lse, do, causal, window,
                                       softcap)
@@ -396,7 +495,17 @@ def flash_attention_bwd_dkdv(q, k, v, lse, delta, do, causal=True, window=0,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's second kernel: dk and dv, the GQA group's query
     heads summed into each KV head.  A CPU tensor takes
-    ``attention_bwd_dkdv_plain``."""
+    ``attention_bwd_dkdv_plain``.  Counted as
+    ``flash_attention_bwd_dkdv_work``."""
+    return counted("flash_attention_bwd_dkdv",
+                   lambda *s: flash_attention_bwd_dkdv_work(
+                       s[0], s[1], causal, window, softcap),
+                   (q, k, v, lse, delta, do),
+                   lambda: _run_bwd_dkdv(q, k, v, lse, delta, do, causal,
+                                         window, softcap))
+
+
+def _run_bwd_dkdv(q, k, v, lse, delta, do, causal, window, softcap):
     if not _build.wants_kernel(q, "flash_attention_bwd_dkdv"):
         return attention_bwd_dkdv_plain(q, k, v, lse, delta, do, causal,
                                         window, softcap)

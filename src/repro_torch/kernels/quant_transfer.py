@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, counted, work
 
 _PLAN_ARGS = (ctypes.c_int,) * 4   # group_log2, width, vecs, threads
 _SIGNATURES = {
@@ -113,15 +113,37 @@ def dequantize_rows_plain(q: torch.Tensor, scales: torch.Tensor
 
 
 # -----------------------------------------------------------------------------
+# the written counts (per call; ``kernels.counted`` records them)
+# -----------------------------------------------------------------------------
+def quantize_work(x) -> Dict[str, float]:
+    """Quantize at x ``(R, C)``: an abs, a max, a divide, a round and a
+    clamp an element; the fp32 rows read, the codes and scales written."""
+    R, C = x
+    return work(5 * R * C, 0, 4 * R * C + R * C + 4 * R, 0)
+
+
+def dequantize_work(q) -> Dict[str, float]:
+    """Dequantize at q ``(R, C)``: a product an element; the codes and
+    scales read, the fp32 rows written."""
+    R, C = q
+    return work(R * C, 0, R * C + 4 * R + 4 * R * C, 0)
+
+
+# -----------------------------------------------------------------------------
 # kernel wrappers
 # -----------------------------------------------------------------------------
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` (R, C) fp32 contiguous -> (int8 codes (R, C), fp32 scales
-    (R,))."""
+    (R,)); counted as ``quantize_work``."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"quantize_rows takes a contiguous 2-D float32 "
                          f"tensor, got {x.dtype} {tuple(x.shape)} "
                          f"contiguous={x.is_contiguous()}")
+    return counted("quantize", quantize_work, (x,),
+                   lambda: _run_quantize(x))
+
+
+def _run_quantize(x):
     if not _build.wants_kernel(x, "quantize_rows"):
         return quantize_rows_plain(x)
     R, C = x.shape
@@ -140,7 +162,8 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """int8 ``q`` (R, C) and fp32 ``scales`` (R,) -> fp32 (R, C)."""
+    """int8 ``q`` (R, C) and fp32 ``scales`` (R,) -> fp32 (R, C); counted
+    as ``dequantize_work``."""
     if q.dim() != 2 or q.dtype != torch.int8 or not q.is_contiguous():
         raise ValueError(f"dequantize_rows takes contiguous 2-D int8 codes, "
                          f"got {q.dtype} {tuple(q.shape)}")
@@ -150,6 +173,11 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                          f"shape ({q.shape[0]},) on {q.device}, got "
                          f"{scales.dtype} {tuple(scales.shape)} on "
                          f"{scales.device}")
+    return counted("dequantize", lambda qs, _s: dequantize_work(qs),
+                   (q, scales), lambda: _run_dequantize(q, scales))
+
+
+def _run_dequantize(q, scales):
     if not _build.wants_kernel(q, "dequantize_rows"):
         return dequantize_rows_plain(q, scales)
     R, C = q.shape

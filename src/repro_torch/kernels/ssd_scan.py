@@ -33,12 +33,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, counted, work
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # B, S, H, P, N, Q; x's batch and row strides, Bm's and Cm's; the stream
@@ -70,6 +70,62 @@ def _scratch_floats(query: str, B: int, S: int, H: int, P: int, N: int,
     _build.check_launch(getattr(_lib(), query)(
         B, S, H, P, N, Q, ctypes.byref(floats)), query)
     return floats.value
+
+
+# -----------------------------------------------------------------------------
+# the written counts (per call; ``kernels.counted`` records them)
+# -----------------------------------------------------------------------------
+def _ssd_terms(x, N: int, chunk: int):
+    """(products, elementwise, transcendentals) of the chunked forward at
+    x ``(B, S, H, P)``: per (batch, chunk of q rows) C.B^T over the
+    chunk's ``t = q (q + 1) / 2`` causal (j <= i) pairs
+    (``2 t N``: the least the function needs, not the full (q, q) product
+    XLA counts in the reference's masked jnp ``ssd_chunked``; the flash
+    counts' convention), and per head the decay-weighted product with x
+    (``2 t P``), the entering state's term and the chunk's own state
+    (``2 q N P`` each); the decay (a difference and a product a causal
+    pair and head, an ``exp``), the prefix sums, weights and the state
+    pass."""
+    B, S, H, P = x
+    Q = min(chunk, S)
+    prod = elem = trans = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        t = q * (q + 1) // 2
+        prod += B * (2 * t * N + H * (2 * t * P + 4 * q * N * P))
+        elem += B * H * (2 * t + 4 * q + q * P + 2 * P * N)
+        trans += B * H * (t + 2 * q + 1)
+    return prod, elem, trans
+
+
+def ssd_scan_work(x, Bm, init=None, chunk: int = MAX_CHUNK
+                  ) -> Dict[str, float]:
+    """The forward at x ``(B, S, H, P)``, Bm ``(B, S, N)`` shapes
+    (``_ssd_terms``); x, dt, A, Bm, Cm (and the entering state) read,
+    y and the final state written once (fp32)."""
+    B, S, H, P = x
+    N = Bm[-1]
+    prod, elem, trans = _ssd_terms(x, N, chunk)
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                  + (2 if init is not None else 1) * B * H * P * N)
+    return work(prod + elem, prod, nbytes, trans)
+
+
+def ssd_scan_bwd_work(x, Bm, init=None, chunk: int = MAX_CHUNK,
+                      dfinal: bool = False) -> Dict[str, float]:
+    """The backward: the gradient's two products for each of the
+    forward's (both operands') and twice its elementwise work, its
+    transcendentals once (the forward's intermediates the kernel
+    recomputes are not counted: the gradient of the reference's
+    differentiated ``ssd_chunked``); the inputs and dy (and dfinal) read,
+    every gradient written once (fp32)."""
+    B, S, H, P = x
+    N = Bm[-1]
+    prod, elem, trans = _ssd_terms(x, N, chunk)
+    states = (2 if init is not None else 0) + (1 if dfinal else 0)
+    nbytes = 4 * (2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
+                  + B * S * H * P + states * B * H * P * N)
+    return work(2 * (prod + elem), 2 * prod, nbytes, trans)
 
 
 def _chunked(Q: int, *rows: torch.Tensor):
@@ -268,7 +324,14 @@ def _kernel_layout(x, Bm, Cm, chunk):
 
 def _forward(x, dt, A, Bm, Cm, chunk, init_state):
     """y and the final state: the kernel on a CUDA tensor (counted once),
-    ``ssd_scan_plain`` on a CPU one."""
+    ``ssd_scan_plain`` on a CPU one; counted as ``ssd_scan_work``."""
+    return counted(
+        "ssd_scan", lambda xs, _dt, _a, bs, _c, init: ssd_scan_work(
+            xs, bs, init, chunk), (x, dt, A, Bm, Cm, init_state),
+        lambda: _run_forward(x, dt, A, Bm, Cm, chunk, init_state))
+
+
+def _run_forward(x, dt, A, Bm, Cm, chunk, init_state):
     if not _build.wants_kernel(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state)
     Bsz, S, H, P = x.shape
@@ -374,14 +437,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     rematerialised layer's first run inside ``vmap``: batched operands,
     which its ``vmap`` rule hands the kernel a client at a time).  On
     ``meta`` (abstract evaluation: shapes and dtypes alone) it is
-    ``ssd_scan_plain`` under autograd over fp32 casts, y and the state
-    cast back to x's dtype, as the reference's bf16 ``ssd_chunked``
-    returns them."""
-    if x.device.type == "meta":
+    the same path over fp32 casts, y and the state cast back to x's
+    dtype, as the reference's bf16 ``ssd_chunked`` returns them."""
+    if x.device.type == "meta" and x.dtype != torch.float32:
         f32 = [None if t is None else t.float()
                for t in (x, dt, A, Bm, Cm, init_state)]
-        _check(*f32[:5], chunk, f32[5])
-        y, final = ssd_scan_plain(*f32[:5], chunk, f32[5])
+        y, final = ssd_scan(*f32[:5], chunk, f32[5])
         return y.to(x.dtype), final.to(x.dtype)
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     if torch.is_grad_enabled() and any(
@@ -404,7 +465,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensor launches the hand-written backward (``csrc/ssd_scan.cu``:
     the forward's first three passes again, then six backward kernels;
     ``LAUNCHES["ssd_scan_bwd"]`` counts the call once); a CPU tensor takes
-    ``ssd_scan_bwd_plain``."""
+    ``ssd_scan_bwd_plain``.  Counted as ``ssd_scan_bwd_work``."""
     _check(x, dt, A, Bm, Cm, chunk, init_state)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -417,6 +478,16 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if any(t.dtype != torch.float32 or t.device != x.device for t in grads):
         raise ValueError("ssd_scan_bwd: dy and dfinal must be float32 on x's "
                          "device (the gradient is float32 only)")
+    return counted(
+        "ssd_scan_bwd", lambda xs, _dt, _a, bs, _c, init, _dy, dfin:
+        ssd_scan_bwd_work(xs, bs, init, chunk, dfin is not None),
+        (x, dt, A, Bm, Cm, init_state, dy, dfinal),
+        lambda: _run_bwd(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal))
+
+
+def _run_bwd(x, dt, A, Bm, Cm, chunk, init_state, dy, dfinal):
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
     if not _build.wants_kernel(x, "ssd_scan_bwd"):
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, chunk, init_state, dy,
                                   dfinal)

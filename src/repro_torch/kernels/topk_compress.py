@@ -23,13 +23,13 @@ the new error ``carried - kept``).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, counted, work
 from repro_torch.tree import tree_map, tree_unzip
 
 _SIGNATURES = {
@@ -75,12 +75,21 @@ def topk_blocks_plain(xb: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, xb, xb.new_zeros(()))
 
 
+def topk_compress_work(buf, block: int = 1024) -> Dict[str, float]:
+    """Top-k over ``(R, n)``: four radix passes a lane (a compare a lane
+    each); the lanes read once and written once, the ``(valid, k)`` table
+    of each block read (written count, per call)."""
+    R, n = buf
+    return work(4 * R * n, 0, 2 * 4 * R * n + 8 * (n // block), 0)
+
+
 def topk_compress_flat(buf: torch.Tensor,
                        meta: Union[torch.Tensor, np.ndarray],
                        block: int = 1024) -> torch.Tensor:
     """Top-k over a flat-buffer batch: ``buf`` (R, n) fp32 contiguous with
     ``n % block == 0``; ``meta`` the ``(n/block, 2)`` int32 ``(valid, k)``
-    table of ONE row (every row shares the layout)."""
+    table of ONE row (every row shares the layout).  Counted as
+    ``topk_compress_work``."""
     if buf.dim() != 2 or buf.dtype != torch.float32 or \
             not buf.is_contiguous():
         raise ValueError(f"topk_compress_flat takes a contiguous 2-D float32 "
@@ -93,6 +102,14 @@ def topk_compress_flat(buf: torch.Tensor,
     meta = torch.as_tensor(meta, dtype=torch.int32, device=buf.device)
     if meta.shape != (nb, 2) or not meta.is_contiguous():
         raise ValueError(f"meta {tuple(meta.shape)} != ({nb}, 2)")
+    return counted("topk_compress",
+                   lambda b, _m: topk_compress_work(b, block), (buf, meta),
+                   lambda: _run_topk(buf, meta, block))
+
+
+def _run_topk(buf, meta, block):
+    R, n = buf.shape
+    nb = n // block
     if not _build.wants_kernel(buf, "topk_compress_flat"):
         return topk_blocks_plain(buf.view(R * nb, block),
                                  meta.repeat(R, 1)).view(R, n)

@@ -5,34 +5,44 @@ Proves the distribution config is coherent without a card: params,
 optimizer state, batch and KV/SSM cache are ``meta`` stand-ins with specs
 from ``make_axis_rules`` over the 16 x 16 (or 2 x 16 x 16) mesh of
 ``meta`` places, and the cell's step runs once on them under
-``use_rules``, so the MoE takes its expert-parallel body
-(``models.layers._moe_block_sharded``: case B for mixtral at tp = 16,
-whose 8 experts do not divide by 16; case A for arctic's 128).  Nothing
-is allocated and no kernel is launched (the kernels' wrappers take their
-plain versions on ``meta``).
+``use_rules`` and a step analysis (``launch.hlo_analysis.analyse``, the
+reference's ``hlo_analysis``: there is no HLO, the analysis reads the
+eager step's aten ops).  Nothing is allocated and no kernel is launched
+(the kernels' wrappers take their plain versions on ``meta`` and record
+their written counts).
 
-What a cell reports, where the reference has a counterpart:
-  * ``cost.flops``: the FLOPs ``torch.utils.flop_counter.FlopCounterMode``
-    counts over the step (matmul, bmm and convolution ops only).  On
-    ``meta`` attention is the plain version, so its full (Sq, Sk)
-    products are counted, causal or not; elementwise work is not counted;
+What a cell reports, per place, as the reference's do:
+  * ``cost``: ``flops``, ``bytes_accessed``, ``transcendentals`` (and
+    ``matmul_flops``, the products' share) of one place's program: a
+    matmul 2 M N K of its local shapes, an elementwise op one a local
+    output element, each kernel its written count (attention's full (Sq,
+    Sk) products, causal or not, as XLA counts the reference's);
     a train step's rematerialised layers and CE chunks count their
-    recompute in the backward (``models.layers.remat``), as XLA's cost
-    analysis counts a ``jax.checkpoint``'s;
-  * ``memory.argument_size_in_bytes`` / ``output_size_in_bytes``: per
-    place, each stand-in's bytes over the product of the mesh axis sizes
-    its spec shards it over;
-  * ``collectives``: bytes and count per op (``all-reduce``,
-    ``all-gather``, ``reduce-scatter``, ``total``) of the collectives the
-    port's program performs (``parallel.sharding.count_collectives``
-    around ``psum``, ``all_gather`` and ``psum_scatter``: the sharded
-    MoE's).  The port runs one controller over the places, so these are
-    not XLA's SPMD traffic: a dense model's step, which the port runs as
-    one program on the global shapes, performs none.
-What has none: ``compile_s``, ``hlo_bytes_len`` and the temp and peak
-bytes (nothing is compiled, and ``meta`` allocates nothing), and the
-reference's two-point extrapolation of a reduced-depth unrolled lowering
-(eager code runs every layer, so the count is direct).
+    recompute in the backward, as XLA counts a ``jax.checkpoint``'s;
+  * ``memory``: ``argument_size_in_bytes`` / ``output_size_in_bytes``
+    (each stand-in's bytes over its spec's shards; the output's tuple
+    table of 8 bytes a leaf, as XLA counts it), ``alias_size_in_bytes``
+    (the donated params and optimizer state of a train step, the cache of
+    a decode step), ``temp_size_in_bytes`` (the high-water mark of the
+    step's live storages a place) and ``peak_memory_in_bytes``
+    (arguments plus temp);
+  * ``collectives``: bytes and count per op (``all-gather``,
+    ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``, ``total``) of the redistributions the specs
+    imply, the activation pins (``parallel.sharding.shard``) included,
+    once per place with its output's bytes; the expert-parallel MoE's
+    gathers and sums as one place's program performs them;
+  * ``unrolled``: the reference's entry (``status``, ``method``,
+    ``cost``, ``collectives_total``, ``collectives``), so that
+    ``benchmarks/roofline.py``'s reading of a cell reads these: eager
+    code runs every layer, so the count is direct where the reference
+    extrapolates from two reduced-depth unrolled lowerings;
+  * ``model_flops``: global, as the reference's; ``kernels``, the
+    written counts recorded, and ``collective_groups``, the collectives
+    by op, mesh axes and where they arise (an op, a pin ``shard``, the
+    MoE body ``moe``).
+What has none: ``compile_s`` and ``hlo_bytes_len`` (nothing is
+compiled).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh single
@@ -52,19 +62,12 @@ import traceback
 from pathlib import Path
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
-
 from repro_torch.configs import ARCH_NAMES, SHAPES, cell_is_runnable, get_config
+from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import inputs as I
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.parallel.sharding import (
-    count_collectives,
-    is_spec,
-    make_axis_rules,
-    path_leaves,
-    use_rules,
-)
+from repro_torch.parallel.sharding import make_axis_rules, use_rules
 from repro_torch.tree import tree_map
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
@@ -75,21 +78,6 @@ def meta_places(multi_pod: bool):
     return [META] * (512 if multi_pod else 256)
 
 
-def shard_bytes(tree, specs, mesh) -> float:
-    """The bytes one place holds of ``tree``'s leaves under ``specs`` (a
-    tree of the same paths): each leaf's bytes over the product of the
-    sizes of the mesh axes its spec names."""
-    spec_at = path_leaves(specs, is_leaf=is_spec)
-    total = 0.0
-    for path, leaf in path_leaves(tree).items():
-        shards = 1
-        for entry in spec_at[path]:
-            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
-                shards *= mesh.shape[ax]
-        total += leaf.numel() * leaf.element_size() / shards
-    return total
-
-
 def _logits_spec(rules, batch_size, vocab):
     return (rules.resolve("batch", batch_size),
             rules.resolve("vocab", vocab))
@@ -97,7 +85,7 @@ def _logits_spec(rules, batch_size, vocab):
 
 def _build_cell(cfg, shape, rules):
     """(step, args, their specs, the outputs' specs from the outputs,
-    model_flops) for one cell."""
+    model_flops, the donated args' indices) for one cell."""
     dtype = torch.bfloat16
     params = S.abstract_params(cfg, dtype)
     p_specs = S.model_param_pspecs(cfg, params, rules)
@@ -114,6 +102,7 @@ def _build_cell(cfg, shape, rules):
         def out_specs(outs):
             return ((), p_specs, o_specs)
         model_flops = 6.0 * cfg.active_param_count() * shape.tokens
+        donated = (0, 1)
     elif shape.kind == "prefill":
         batch = I.prefill_batch_specs(cfg, shape, dtype)
         step = S.make_prefill_step(cfg, shape)
@@ -124,6 +113,7 @@ def _build_cell(cfg, shape, rules):
             return (_logits_spec(rules, B, cfg.vocab_size),
                     I.cache_pspecs(cfg, outs[1], rules))
         model_flops = 2.0 * cfg.active_param_count() * shape.tokens
+        donated = ()
     else:  # decode
         cache, token, pos = I.decode_inputs(cfg, shape)
         cache = tree_map(lambda l: l if l.dtype == torch.int32 else
@@ -138,7 +128,8 @@ def _build_cell(cfg, shape, rules):
         def out_specs(outs):
             return (_logits_spec(rules, B, cfg.vocab_size), c_specs)
         model_flops = 2.0 * cfg.active_param_count() * B
-    return step, args, arg_specs, out_specs, model_flops
+        donated = (1,)
+    return step, args, arg_specs, out_specs, model_flops, donated
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -164,22 +155,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                 devices=meta_places(multi_pod))
     rules = make_axis_rules(mesh)
     with use_rules(rules):
-        step, args, arg_specs, out_specs, model_flops = _build_cell(
-            cfg, shape, rules)
-        with count_collectives() as coll, \
-                FlopCounterMode(display=False) as flops:
-            outs = step(*args)
+        step, args, arg_specs, out_specs, model_flops, donated = \
+            _build_cell(cfg, shape, rules)
+        r = H.analyse(step, args, arg_specs, out_specs, mesh.shape, donated)
+    cost, coll = H.cost_stats(r), H.collective_stats(r)
     result.update(
         status="ok",
         chips=mesh.size,
         total_s=round(time.time() - t0, 2),
-        cost={"flops": float(flops.get_total_flops())},
-        memory={
-            "argument_size_in_bytes": shard_bytes(args, arg_specs, mesh),
-            "output_size_in_bytes": shard_bytes(outs, out_specs(outs),
-                                                mesh)},
+        cost=cost,
+        memory=H.memory_stats(r),
         collectives=coll,
+        unrolled={"status": "ok",
+                  "method": "eager: every layer runs, nothing is "
+                            "extrapolated",
+                  "cost": cost, "collectives_total": coll["total"],
+                  "collectives": coll},
         model_flops=model_flops,
+        kernels=r["kernels"],
+        collective_groups=H.group_stats(r),
     )
     return result
 

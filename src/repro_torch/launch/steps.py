@@ -28,6 +28,8 @@ from repro_torch.parallel.sharding import (
     param_pspecs,
     path_leaves,
     record_collective,
+    settled_sums,
+    shard_like,
 )
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -90,14 +92,17 @@ def make_opt(cfg: ModelConfig) -> Optimizer:
 def make_train_step(cfg: ModelConfig, opt: Optimizer, unroll: bool = False):
     """``train_step(params, opt_state, batch) -> (loss, params,
     opt_state)``: ``torch.func.grad_and_value`` of ``api.loss``, then
-    ``opt.update``.  Each layer and CE chunk is rematerialised under the
-    transform as under plain autograd (``layers.remat``), also when the
-    step is vmapped over pods.  ``unroll`` is ignored."""
+    ``opt.update`` (the gradients pinned to their parameters' layouts
+    under a step analysis, ``shard_like``).  Each layer and CE chunk is
+    rematerialised under the transform as under plain autograd
+    (``layers.remat``), also when the step is vmapped over pods.
+    ``unroll`` is ignored."""
 
     def train_step(params, opt_state, batch):
         grads, loss = torch.func.grad_and_value(
             lambda p: api.loss(cfg, p, batch))(params)
-        params, opt_state = opt.update(params, grads, opt_state)
+        params, opt_state = opt.update(params, shard_like(grads, params),
+                                       opt_state)
         return loss, params, opt_state
     return train_step
 
@@ -132,9 +137,11 @@ def make_local_sync_steps(cfg: ModelConfig, opt: Optimizer, num_pods: int):
     a layer for all pods), and ``sync_step`` is the only cross-pod
     communication: a FedAvg mean over the pod dim, in fp32, broadcast back
     (counted as one ``all-reduce`` of the fp32 mean's bytes under
-    ``parallel.sharding.count_collectives``).  This is the paper's FL
-    structure mapped onto pods: cross-pod traffic drops from every-step
-    gradient all-reduce to 2 x model_bytes / sync_every.
+    ``parallel.sharding.count_collectives``, and under a step analysis as
+    one over ``pod`` of a place's fp32 share, the mean's own sum settled
+    by it).  This is the paper's FL structure mapped onto pods: cross-pod
+    traffic drops from every-step gradient all-reduce to 2 x model_bytes /
+    sync_every.
 
     The stacked step counter is moved onto the params' device: under
     ``vmap`` it is a ``(num_pods,)`` tensor, and the bias corrections it
@@ -148,11 +155,16 @@ def make_local_sync_steps(cfg: ModelConfig, opt: Optimizer, num_pods: int):
         return torch.func.vmap(base)(params_pods, opt_pods, batch)
 
     def sync_step(params_pods):
-        out = tree_map(lambda x: torch.mean(x.float(), dim=0, keepdim=True)
-                       .to(x.dtype).expand(x.shape).contiguous(),
-                       params_pods)
-        record_collective("all-reduce", sum(
-            4 * x[0].numel() for x in tree_leaves(params_pods)))
+        with settled_sums():
+            out = tree_map(lambda x: torch.mean(x.float(), dim=0,
+                                                keepdim=True)
+                           .to(x.dtype).expand(x.shape).contiguous(),
+                           params_pods)
+        leaves = tree_leaves(params_pods)
+        record_collective(
+            "all-reduce", sum(4 * x[0].numel() for x in leaves), ("pod",),
+            lambda an: sum(an.local_bytes(x) * 4 / x.element_size()
+                           for x in leaves))
         return out
 
     return local_step, sync_step

@@ -33,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import shard
 from repro_torch.tree import tree_map
 
 Params = Dict[str, object]
@@ -100,7 +101,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames (B, T_enc, d), precomputed frame embeddings (the frontend
     stub) -> the encoder's final-norm states (B, T_enc, d)."""
-    x = frames
+    x = shard(frames, ("batch", "seq", "none"))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.encoder_layers):
         x = L.remat(cfg.remat,
@@ -117,7 +118,8 @@ def _enc_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v = L.qkv_projection(cfg, p["attn"], h, positions)
     out = L.flash_attention(q, k, v, causal=False)   # bidirectional
     x = x + out.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
-    return x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
+    return shard(x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act),
+                 ("batch", "seq", "none"))
 
 
 def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -155,7 +157,7 @@ def decode_stack(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     hidden states and, with ``return_cache``, the caches: the rotated
     self-attention k/v of the S positions in the first S of ``cache_seq or
     S`` slots, and each layer's cross k/v of ``enc_out``."""
-    x = params["embed"][tokens]
+    x = shard(params["embed"][tokens], ("batch", "seq", "none"))
     if not return_cache:
         x = decoder_layers(cfg, params, x, enc_out, 0, cfg.num_layers)
         return L.rms_norm(x, params["final_norm"]), None
@@ -187,7 +189,7 @@ def _dec_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ek, ev = _enc_kv(cfg, p["cross"], enc_out)
     x = x + _cross_attend(cfg, p["cross"], hx, ek, ev)
     x = x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
-    return x, self_kv, ek, ev
+    return shard(x, ("batch", "seq", "none")), self_kv, ek, ev
 
 
 def decoder_layers(cfg: ModelConfig, params: Params, x: torch.Tensor,

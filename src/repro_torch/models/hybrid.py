@@ -47,6 +47,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import shard
 from repro_torch.tree import tree_map
 
 Params = Dict[str, object]
@@ -195,7 +196,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
             cache_len=cache["k"].shape[1], decode_pos=decode_pos)
     x = x + mix
     x = x + L.ffn(p["ffn"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
-    return x, new_cache
+    return shard(x, ("batch", "seq", "none")), new_cache
 
 
 # =============================================================================
@@ -263,7 +264,7 @@ def _cache_len(cfg: ModelConfig, seq: int) -> int:
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
            ) -> torch.Tensor:
     x = params["embed"][tokens] * math.sqrt(cfg.d_model)
-    return x.to(params["embed"].dtype)
+    return shard(x.to(params["embed"].dtype), ("batch", "seq", "none"))
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -40,6 +40,7 @@ while grad is on, under plain autograd and ``torch.func`` alike).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Dict, List, Optional, Tuple
@@ -51,6 +52,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.parallel.sharding import (
+    active_analysis,
     all_gather,
     current_rules,
     psum,
@@ -180,6 +182,9 @@ class _SiLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, = ctx.saved_tensors
+        an = active_analysis()
+        if an is not None:      # one op on meta too (torch.func splits it)
+            return an.one_op(torch.ops.aten.silu_backward.default, (g, x))
         return torch.ops.aten.silu_backward.default(g, x)
 
 
@@ -618,6 +623,99 @@ def _moe_shard(cfg: ModelConfig, xb: torch.Tensor, router: torch.Tensor,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class _MoEPlan:
+    """How the expert-parallel body splits one MoE call over a mesh."""
+    tp_ax: str
+    tp: int
+    fsdp_ax: Optional[str]
+    expert_sharded: bool
+    d_sh: bool
+    f_sh: bool
+    b_axes: Tuple[str, ...]
+    n_b: int
+    dense: bool
+    dense_f_sh: bool
+    local_E: int
+    B_l: int
+    d_l: int
+    f_l: int
+
+
+def _moe_plan(cfg: ModelConfig, rules, B: int) -> _MoEPlan:
+    mesh = rules.mesh
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    tp_ax = rules.tp[0]
+    tp = mesh.shape[tp_ax]
+    fsdp_ax = rules.fsdp[0] if rules.fsdp else None
+    fsdp = mesh.shape.get(fsdp_ax, 1) if fsdp_ax else 1
+    expert_sharded = E % tp == 0
+    d_sh = fsdp_ax is not None and d % fsdp == 0
+    b_axes = rules.resolve("batch", B)
+    b_axes = (() if b_axes is None else
+              (b_axes,) if isinstance(b_axes, str) else tuple(b_axes))
+    n_b = 1
+    for a in b_axes:
+        n_b *= mesh.shape[a]
+    dense = cfg.moe.dense_residual
+    return _MoEPlan(tp_ax, tp, fsdp_ax, expert_sharded, d_sh,
+                    not expert_sharded and f % tp == 0, b_axes, n_b, dense,
+                    dense and f % tp == 0, E // tp if expert_sharded else E,
+                    B // n_b, d // fsdp if d_sh else d, f // tp)
+
+
+def _moe_weights(p: Params, pl: _MoEPlan) -> List[torch.Tensor]:
+    """The body's weights: the router, w_gate, w_up, w_down (and the
+    dense three)."""
+    ws = [p[k] for k in ("router", "w_gate", "w_up", "w_down")]
+    if pl.dense:
+        ws += [p["dense"][k] for k in ("w_gate", "w_up", "w_down")]
+    return ws
+
+
+def _gather_axes(pl: _MoEPlan) -> List[int]:
+    """The dim each of ``_moe_weights`` gathers along (its ``d``)."""
+    return [0, 1, 1, 2] + ([0, 0, 1] if pl.dense else [])
+
+
+def _held(ws: List[torch.Tensor], pl: _MoEPlan, c) -> List[torch.Tensor]:
+    """The shards of ``_moe_weights`` place ``c`` holds (views)."""
+    i = c[pl.fsdp_ax] if pl.d_sh else 0
+    dsl = slice(i * pl.d_l, (i + 1) * pl.d_l) if pl.d_sh else slice(None)
+    j = c[pl.tp_ax]
+
+    def fsl(sharded):
+        return slice(j * pl.f_l, (j + 1) * pl.f_l) if sharded else slice(None)
+    router, wg, wu, wd = ws[:4]
+    if pl.expert_sharded:
+        es = slice(j * pl.local_E, (j + 1) * pl.local_E)
+        w = [wg[es, dsl, :], wu[es, dsl, :], wd[es, :, dsl]]
+    else:
+        w = [wg[:, dsl, fsl(pl.f_sh)], wu[:, dsl, fsl(pl.f_sh)],
+             wd[:, fsl(pl.f_sh), dsl]]
+    w = [router[dsl]] + w
+    if pl.dense:
+        dg, du, dd = ws[4:]
+        df = fsl(pl.dense_f_sh)
+        w += [dg[dsl, df], du[dsl, df], dd[df, dsl]]
+    return w
+
+
+def _moe_specs(pl: _MoEPlan) -> List[tuple]:
+    """The reference's ``shard_map`` in_specs: x, then ``_moe_weights``."""
+    d = pl.fsdp_ax if pl.d_sh else None
+    if pl.expert_sharded:
+        wg, wd = (pl.tp_ax, d, None), (pl.tp_ax, None, d)
+    else:
+        f = pl.tp_ax if pl.f_sh else None
+        wg, wd = (None, d, f), (None, f, d)
+    specs = [(pl.b_axes or None, None, None), (d, None), wg, wg, wd]
+    if pl.dense:
+        df = pl.tp_ax if pl.dense_f_sh else None
+        specs += [(d, df), (d, df), (df, d)]
+    return specs
+
+
 def _moe_block_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
                        rules) -> torch.Tensor:
     """Expert-parallel MoE, the reference's ``shard_map`` body run once per
@@ -630,66 +728,49 @@ def _moe_block_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
     expert).  The ``d`` dim of the weights is ``data``-sharded when it
     divides (FSDP) and gathered in the body, under ``moe_int8_gather()``
     as int8.  The partial outputs sum over ``model`` in place order, and
-    the batch shards concatenate on the mesh's home place."""
+    the batch shards concatenate on the mesh's home place.  Under a step
+    analysis (``launch.hlo_analysis``) the body is one device's program:
+    place 0's, through ``shard_map_one_place``."""
     assert cfg.moe is not None
     mesh = rules.mesh
-    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
-    B, S, _ = x.shape
-    tp_ax = rules.tp[0]
-    tp = mesh.shape[tp_ax]
-    fsdp_ax = rules.fsdp[0] if rules.fsdp else None
-    fsdp = mesh.shape.get(fsdp_ax, 1) if fsdp_ax else 1
-    expert_sharded = E % tp == 0
-    d_sh = fsdp_ax is not None and d % fsdp == 0
-    f_sh = not expert_sharded and f % tp == 0
-    b_axes = rules.resolve("batch", B)
-    b_axes = (() if b_axes is None else
-              (b_axes,) if isinstance(b_axes, str) else tuple(b_axes))
-    n_b = 1
-    for a in b_axes:
-        n_b *= mesh.shape[a]
-    dense = cfg.moe.dense_residual
-    dense_f_sh = dense and f % tp == 0
-    int8 = d_sh and getattr(_GATHER, "on", False)
-    local_E = E // tp if expert_sharded else E
-    B_l, d_l, f_l = B // n_b, d // fsdp if d_sh else d, f // tp
+    B, S, d = x.shape
+    pl = _moe_plan(cfg, rules, B)
+    ws = _moe_weights(p, pl)
+    axes = _gather_axes(pl)
 
-    def dsl(c):                       # a place's FSDP slice of d
-        i = c[fsdp_ax] if d_sh else 0
-        return slice(i * d_l, (i + 1) * d_l) if d_sh else slice(None)
+    def body(xb, w, e0=0):
+        return _moe_shard(cfg, xb, w[0], w[1], w[2], w[3],
+                          w[4:] if pl.dense else None, e0, pl.local_E,
+                          pl.tp if pl.dense and not pl.dense_f_sh else 1)
 
-    def fsl(c, sharded):              # a place's tp slice of d_ff
-        j = c[tp_ax]
-        return slice(j * f_l, (j + 1) * f_l) if sharded else slice(None)
+    an = active_analysis()
+    if an is not None:
+        if getattr(_GATHER, "on", False):
+            raise NotImplementedError("the int8 weight gather under a step "
+                                      "analysis is not modelled")
+        zero = {a: 0 for a in mesh.axis_names}
+        return an.shard_map_one_place(
+            body, [x] + ws, _moe_specs(pl),
+            lambda x, *ws: [x[:pl.B_l]] + _held(list(ws), pl, zero),
+            [(ax, pl.fsdp_ax) if pl.d_sh else None for ax in axes],
+            pl.tp_ax, "moe")
+    tp_ax, tp, fsdp_ax, b_axes, n_b = (pl.tp_ax, pl.tp, pl.fsdp_ax,
+                                       pl.b_axes, pl.n_b)
+    int8 = pl.d_sh and getattr(_GATHER, "on", False)
 
     def held(c):
         """The weight shards place ``c`` holds (views of ``p``)."""
         place = mesh.place(c)
-        if expert_sharded:
-            es = slice(c[tp_ax] * local_E, (c[tp_ax] + 1) * local_E)
-            wg = p["w_gate"][es, dsl(c), :]
-            wu = p["w_up"][es, dsl(c), :]
-            wd = p["w_down"][es, :, dsl(c)]
-        else:
-            wg = p["w_gate"][:, dsl(c), fsl(c, f_sh)]
-            wu = p["w_up"][:, dsl(c), fsl(c, f_sh)]
-            wd = p["w_down"][:, fsl(c, f_sh), dsl(c)]
-        w = [p["router"][dsl(c)], wg, wu, wd]
-        if dense:
-            w += [p["dense"]["w_gate"][dsl(c), fsl(c, dense_f_sh)],
-                  p["dense"]["w_up"][dsl(c), fsl(c, dense_f_sh)],
-                  p["dense"]["w_down"][fsl(c, dense_f_sh), dsl(c)]]
-        return [v.to(place) for v in w]
+        return [v.to(place) for v in _held(ws, pl, c)]
 
     # each FSDP group: the places that differ only in their data index
     groups: Dict[tuple, list] = {}
     for c in mesh.coords():
-        key = tuple(v for a, v in c.items() if a != fsdp_ax or not d_sh)
+        key = tuple(v for a, v in c.items() if a != fsdp_ax or not pl.d_sh)
         groups.setdefault(key, []).append(c)
     # the axis each held weight gathers along, and whether it goes int8
-    gather_axes = [(0, False), (1, int8), (1, int8), (2, int8)]
-    if dense:
-        gather_axes += [(0, False), (0, False), (1, False)]
+    # (the experts' three)
+    gather_axes = [(ax, int8 and 1 <= n <= 3) for n, ax in enumerate(axes)]
     parts: Dict[tuple, torch.Tensor] = {}
     for members in groups.values():
         places = [mesh.place(c) for c in members]
@@ -697,16 +778,13 @@ def _moe_block_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
         weights = [_gather_w([s[n] for s in shards], ax, places, q)
                    for n, (ax, q) in enumerate(gather_axes)]
         for m, c in enumerate(members):
-            w = [ws[m] for ws in weights]
+            w = [g[m] for g in weights]
             bi = 0
             for a in b_axes:
                 bi = bi * mesh.shape[a] + c[a]
-            xb = x[bi * B_l:(bi + 1) * B_l].to(places[m])
-            parts[tuple(c.values())] = _moe_shard(
-                cfg, xb, w[0], w[1], w[2], w[3],
-                w[4:] if dense else None,
-                c[tp_ax] * local_E if expert_sharded else 0, local_E,
-                tp if dense and not dense_f_sh else 1)
+            xb = x[bi * pl.B_l:(bi + 1) * pl.B_l].to(places[m])
+            parts[tuple(c.values())] = body(
+                xb, w, c[tp_ax] * pl.local_E if pl.expert_sharded else 0)
     # psum over model, one batch shard from the places whose other
     # coordinates are 0; the shards concatenated on the home place
     outs = []

@@ -45,6 +45,7 @@ from repro_torch.models import split as lm_split
 from repro_torch.models import ssm as ssm_model
 from repro_torch.models import transformer as T
 from repro_torch.models import vgg as vgg_model
+from repro_torch.parallel.sharding import shard
 from repro_torch.tree import tree_map
 
 Params = Any
@@ -334,7 +335,7 @@ class SSMSplitProgram(LMSplitProgram):
         return ssm_model.init(self.cfg, int(generator), device=device)
 
     def client_forward(self, params, batch, op):
-        x = params["embed"][batch["tokens"]]
+        x = shard(params["embed"][batch["tokens"]], ("batch", "seq", "none"))
         return ssm_model.layers_forward(self.cfg, params, x, 0, op)
 
     def server_forward(self, params, acts, batch, op):
@@ -427,7 +428,7 @@ class EncDecSplitProgram(LMSplitProgram):
 
     def client_forward(self, params, batch, op):
         enc_out = encdec_model.encode(self.cfg, params, batch["frames"])
-        x = params["embed"][batch["tokens"]]
+        x = shard(params["embed"][batch["tokens"]], ("batch", "seq", "none"))
         x = encdec_model.decoder_layers(self.cfg, params, x, enc_out, 0, op)
         return (x, enc_out)
 

@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import shard
 
 Params = Dict[str, object]
 
@@ -162,7 +163,7 @@ def block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = y + p["D"][None, None, :, None].to(y.dtype) * xin
     y = y.reshape(Bsz, S, d_inner)
     y = L.rms_norm(y * L.silu(z), p["gate_ln"])
-    return x + y @ p["out_proj"], new_conv, new_ssm
+    return shard(x + y @ p["out_proj"], ("batch", "seq", "none")), new_conv, new_ssm
 
 
 # =============================================================================
@@ -177,7 +178,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (layers, B, conv_width - 1, conv_dim), "state": (layers, B, H, P,
     N)}``.  ``patches`` and ``cache_seq`` are ignored, as in the reference
     (the cache does not grow with the sequence)."""
-    x = params["embed"][tokens]
+    x = shard(params["embed"][tokens], ("batch", "seq", "none"))
     if not return_cache:
         x = layers_forward(cfg, params, x, 0, cfg.num_layers)
         return L.rms_norm(x, params["final_norm"]), None

@@ -32,6 +32,7 @@ import torch
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import shard
 
 Params = Dict[str, object]
 FAMILIES = ("dense", "moe", "vlm")
@@ -157,9 +158,12 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                      window=window)
     if cfg.post_block_norm:
         attn_out = L.rms_norm(attn_out, p["ln1_post"])
+    # the reference pins the TP reduction point on the projection's output
+    attn_out = shard(attn_out, ("batch", "seq", "none"))
     x = x + attn_out
-    ff = _feed_forward(cfg, p, L.rms_norm(x, p["ln2"]))
-    return x + ff, kv
+    ff = shard(_feed_forward(cfg, p, L.rms_norm(x, p["ln2"])),
+               ("batch", "seq", "none"))
+    return shard(x + ff, ("batch", "seq", "none")), kv
 
 
 def _feed_forward(cfg: ModelConfig, p: Params, h: torch.Tensor
@@ -189,7 +193,7 @@ def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                              "embeddings (batch['patches'])")
         px = patches.to(x.dtype) @ params["patch_proj"]
         x = torch.cat([px, x], dim=1)
-    return x
+    return shard(x, ("batch", "seq", "none"))
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -209,7 +213,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         return L.rms_norm(x, params["final_norm"]), None
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = init_cache(cfg, B, cache_seq or S, x.dtype, x.device)
+    cache = {n: shard(c, ("none", "batch", "none", "cache_seq", "none"))
+             for n, c in init_cache(cfg, B, cache_seq or S, x.dtype,
+                                    x.device).items()}
     for i, window in enumerate(window_schedule(cfg)):
         x, kv = _block(cfg, layer_params(params, i), x, positions, window)
         write_prefill_kv(cache["k"][i], cache["v"][i], kv)

@@ -25,11 +25,14 @@ concrete dim against the mesh axis size and falls back to replication when
 it does not divide (e.g. arctic's 56 heads).  A spec is a plain tuple with
 one entry a dim: a mesh axis name, a tuple of them, or ``None``.
 
-``count_collectives`` counts the bytes and calls of the collectives run
-inside it (the dry runs' ``collectives``).
+``count_collectives`` counts the bytes and calls of the collectives the
+one-controller program runs inside it (the real mesh runs').
 
-The reference's ``shard`` / ``named_shardings`` only place arrays and
-change no value, so they have no counterpart here.
+``shard(x, names)`` is the reference's activation pin: the identity, and
+under an active step analysis (``launch.hlo_analysis``, which sets
+``active_analysis()``) it pins ``x``'s layout (and its cotangent's) to
+``activation_spec(names, x.shape)``.  The reference's ``named_shardings``
+only places arrays, so it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -242,6 +245,97 @@ def activation_spec(names: Sequence[str],
     return tuple(rules.resolve(n, d) for n, d in zip(names, dims))
 
 
+# --- the active step analysis (launch.hlo_analysis) -------------------------
+_open_analyses = 0      # StepAnalysis blocks entered and not left, any thread
+
+
+def analysis_opened(delta: int) -> None:
+    """``StepAnalysis`` entered (+1) or left (-1)."""
+    global _open_analyses
+    _open_analyses += delta
+
+
+def active_analysis():
+    """The ``launch.hlo_analysis.StepAnalysis`` the step runs under, or
+    None: at once when none is open, else found on the dispatch-mode
+    stack, which autograd carries to the threads that run a backward on
+    the card."""
+    if not _open_analyses:
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "is_step_analysis", False):
+            return mode
+    return None
+
+
+@contextlib.contextmanager
+def settled_sums():
+    """Under an analysis, reductions inside leave no partial sum: the
+    caller records the collective they need (``record_collective`` with
+    ``place_bytes``); otherwise nothing."""
+    an = active_analysis()
+    with (an.settled() if an is not None else contextlib.nullcontext()):
+        yield
+
+
+class _Pin(torch.autograd.Function):
+    """``shard``'s pin on a differentiated value: an alias whose layout,
+    and whose cotangent's, the analysis pins."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, spec):
+        out = x.view_as(x)
+        active_analysis().pin(out, spec)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.spec = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.view_as(g)
+        an = active_analysis()
+        if an is not None:
+            an.pin(g, ctx.spec)
+        return g, None
+
+
+def shard(x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+    """The identity (the reference's sharding constraint).  Under an
+    active step analysis with rules, ``x``'s layout is pinned to
+    ``activation_spec(names, x.shape)`` (a differentiated ``x`` through an
+    alias whose cotangent is pinned too, as the constraint's transpose
+    is); every value stays bit for bit."""
+    rules = current_rules()
+    an = None if rules is None else active_analysis()
+    if an is None:
+        return x
+    spec = activation_spec(names, x.shape, rules)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or torch._C._are_functorch_transforms_active()):
+        return _Pin.apply(x, spec)
+    an.pin(x, spec)
+    return x
+
+
+def shard_like(tree, like):
+    """The identity on ``tree``; under an active step analysis each leaf
+    is pinned to the layout of ``like``'s leaf of the same path (the
+    gradients to their parameters', as the partitioner propagates the
+    parameters' shardings to them)."""
+    an = active_analysis()
+    if an is None:
+        return tree
+    like_at = path_leaves(like)
+    for path, leaf in path_leaves(tree).items():
+        if isinstance(leaf, torch.Tensor):
+            an.pin_like(leaf, like_at[path])
+    return tree
+
+
 # =============================================================================
 # the collectives: one part a place of a group, in place order
 # =============================================================================
@@ -272,13 +366,19 @@ def count_collectives():
             "count": sum(stats[op]["count"] for op in COLLECTIVES)}
 
 
-def record_collective(op: str, nbytes: float) -> None:
+def record_collective(op: str, nbytes: float, axes: Tuple[str, ...] = (),
+                      place_bytes=None) -> None:
     """Count one ``op`` of ``nbytes`` in the active ``count_collectives``
-    block (none active: nothing)."""
+    block (none active: nothing); under an active step analysis, also one
+    ``op`` over ``axes`` of ``place_bytes(analysis)`` per place (when
+    given)."""
     stats = getattr(_counts, "stats", None)
     if stats is not None:
         stats[op]["bytes"] += float(nbytes)
         stats[op]["count"] += 1
+    an = active_analysis()
+    if an is not None and place_bytes is not None:
+        an.record(op, axes, place_bytes(an), "explicit")
 
 
 def _nbytes(t: torch.Tensor) -> int:

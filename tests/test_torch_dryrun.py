@@ -7,12 +7,14 @@ The reference's dry runs compile on 512 forced host devices, which these
 tests do not start; what they report that the port also reports is
 checked from the reference's own formulas and specs (stub meshes: its
 rules read only ``mesh.shape``): a cell's ``params``, ``active_params``,
-``model_flops`` and skip reason, its per-place argument and output bytes,
-and ``model_bytes``.  The counted FLOPs of the dense qwen3-0.6b train_4k
-cell equal a closed form derived here, and the sharded MoE's collectives
-equal the counts its body performs.  The MoE decode cell is cut to one of
-mixtral's 56 layers (``opt_flags``): each layer runs the expert-parallel
-body once for each of the 256 places, 2-4 s of host time a layer.
+``model_flops`` and skip reason, its per-place argument, output (plus
+XLA's 8-byte tuple entry a leaf) and alias bytes, and ``model_bytes``.
+Every number of a cell is per place (``launch.hlo_analysis``): the dense
+qwen3-0.6b train_4k cell's matmul FLOPs a place are the closed form
+derived here over the 256 places, and its FSDP and TP collectives closed
+forms too; the sharded MoE's collectives are one place's body's.  The MoE
+decode cell is cut to two of mixtral's 56 layers (``opt_flags``); under
+the analysis the expert-parallel body runs for one place.
 
 The twins: ``fleet_simulation`` at K = 4 for 1 round, its two engines'
 metric within the plain fp32 bound the federated LM tests hold
@@ -78,19 +80,23 @@ def _j_place_bytes(tree, specs, mesh_shape):
 
 
 def _qwen3_train_flops(cfg, shape):
-    """The matmul FLOPs of one train step at ``shape``, as the counter
-    sees them: every projection and the tied unembedding forward (2 T d
-    d_out) and each attention's two (S, S) products over every head; then
+    """The global matmul FLOPs of one train step at ``shape``: every
+    projection and the tied unembedding forward (2 T d d_out) and each
+    attention's two products over every head's S (S + 1) / 2 causal pairs
+    (the flash kernel's written count: the pairs the mask leaves); then
     the backward, which first runs that forward again (every one of these
     products sits in a rematerialised body: the layers under
     ``cfg.remat``, the CE chunks always, and ``layers.remat`` recomputes
     under ``torch.func`` too) and then takes two products a forward one
-    (the gradients of both operands): four forwards in all."""
+    (the gradients of both operands; the flash backward's two kernels two
+    each): four forwards in all.  A place does 1/256 of it on the 16 x 16
+    mesh: every product is split over data (the batch) and model (heads,
+    d_ff, the vocab, the KV heads two places a head)."""
     B, S = shape.global_batch, shape.seq_len
     T, d, L = B * S, cfg.d_model, cfg.num_layers
     per_layer = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
                  + 3 * d * cfg.d_ff)
-    attention = 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim
+    attention = 2 * 2 * B * cfg.num_heads * (S * (S + 1) // 2) * cfg.head_dim
     forward = 2 * T * (L * per_layer + cfg.vocab_size * d) + L * attention
     return 4 * forward
 
@@ -106,7 +112,15 @@ def test_qwen3_train_cell_on_meta():
     assert r["params"] == jcfg.param_count()
     assert r["active_params"] == jcfg.active_param_count()
     assert r["model_flops"] == 6.0 * jcfg.active_param_count() * shape.tokens
-    assert r["cost"]["flops"] == _qwen3_train_flops(jcfg, shape)
+    # per place: the matmul FLOPs a 256th of the global form (summed over
+    # the places, the global form), the elementwise ones on top
+    global_flops = _qwen3_train_flops(jcfg, shape)
+    assert r["cost"]["matmul_flops"] == global_flops / 256
+    assert r["cost"]["matmul_flops"] * 256 == global_flops
+    assert r["cost"]["flops"] > r["cost"]["matmul_flops"]
+    assert r["unrolled"]["status"] == "ok"
+    assert r["unrolled"]["cost"] == r["cost"]
+    assert r["unrolled"]["collectives_total"] == r["collectives"]["total"]
     # the reference's stand-ins and specs on a 16 x 16 stub
     mesh_shape = {"data": 16, "model": 16}
     rules = JSH.make_axis_rules(SimpleNamespace(shape=mesh_shape))
@@ -119,31 +133,57 @@ def test_qwen3_train_cell_on_meta():
     args = _j_place_bytes((params, opt_state, batch),
                           (p_specs, o_specs,
                            JI.batch_pspecs(jcfg, batch, rules)), mesh_shape)
-    outs = 4 + _j_place_bytes((params, opt_state), (p_specs, o_specs),
-                              mesh_shape)
-    assert r["memory"] == {"argument_size_in_bytes": args,
-                           "output_size_in_bytes": outs}
-    # a dense model's step is one program on the global shapes: no
-    # collective
-    assert r["collectives"]["total"] == {"bytes": 0.0, "count": 0}
+    alias = _j_place_bytes((params, opt_state), (p_specs, o_specs),
+                           mesh_shape)
+    leaves = 1 + len(jax.tree_util.tree_leaves((params, opt_state)))
+    mem = r["memory"]
+    assert (mem["argument_size_in_bytes"], mem["output_size_in_bytes"],
+            mem["alias_size_in_bytes"]) == (args, 4 + alias + 8 * leaves,
+                                            alias)
+    assert mem["peak_memory_in_bytes"] == args + mem["temp_size_in_bytes"]
+    # FSDP and TP, per place: each weight matrix gathered over data (its
+    # model split kept) in the forward, its recompute and for the input
+    # gradient, the tied unembedding likewise in each of the 4 CE chunks;
+    # each gradient leaf reduce-scattered to its share; the residual
+    # stream (16 rows of 4096 x 1024, bf16) summed over model at the
+    # embedding's and each block's two pins (forward and recompute) and at
+    # the first layer's and each block's two input gradients
+    L, d, V = jcfg.num_layers, jcfg.d_model, jcfg.vocab_size
+    per_layer = (d * jcfg.q_dim + 2 * d * jcfg.kv_dim + jcfg.q_dim * d
+                 + 3 * d * jcfg.d_ff)
+    g = r["collective_groups"]
+    fsdp = [v for k, v in g.items()
+            if k.startswith("all-gather data ") and k.split()[2] in ("mm",
+                                                                     "bmm")]
+    assert sum(v["count"] for v in fsdp) == 3 * (7 * L + 4)
+    assert sum(v["bytes"] for v in fsdp) == 2 * (
+        3 * L * per_layer + 3 * 4 * V * d) / 16
+    assert g["reduce-scatter data shard"] == {
+        "count": 8, "bytes": 2 * (L * per_layer + V * d) / 256}
+    resid = 2 * 16 * 4096 * d
+    tp = [g[k] for k in ("all-reduce model shard", "all-reduce model add")]
+    assert sum(v["count"] for v in tp) == 6 * L + 2
+    assert sum(v["bytes"] for v in tp) == (6 * L + 2) * resid
 
 
 def test_moe_decode_cell_counts_its_collectives():
-    """mixtral-8x22b decode_32k at one of its layers: case B (8 experts
-    do not divide by 16: d_ff over model), d over data (FSDP).  A layer
-    gathers its four weights once for each of the 256 places and sums the
-    16 batch shards' partial outputs over model once each."""
+    """mixtral-8x22b decode_32k at two of its layers: case B (8 experts
+    do not divide by 16: d_ff over model), d over data (FSDP).  A place's
+    body gathers its four weights once a layer (the router (d, E) and a
+    d_ff / 16 slice of each expert's three) and sums its partial output
+    over model once, as one device's program reads them."""
     cfg = j_config("mixtral-8x22b")
     r = dryrun.run_cell("mixtral-8x22b", "decode_32k", False,
-                        variant="depth1", opt_flags={"num_layers": 1})
-    assert r["status"] == "ok" and r["variant"] == "depth1"
-    c = r["collectives"]
-    B, d = J_SHAPES["decode_32k"].global_batch, cfg.d_model
-    assert c["all-reduce"] == {"count": 16,
-                               "bytes": 16.0 * (B // 16) * d * 2}
-    assert c["all-gather"]["count"] == 4 * 256
-    assert c["reduce-scatter"] == {"bytes": 0.0, "count": 0}
-    assert c["total"]["count"] == 16 + 4 * 256
+                        variant="depth2", opt_flags={"num_layers": 2})
+    assert r["status"] == "ok" and r["variant"] == "depth2"
+    g = r["collective_groups"]
+    B, d, E, f = (J_SHAPES["decode_32k"].global_batch, cfg.d_model,
+                  cfg.moe.num_experts, cfg.d_ff)
+    assert g["all-reduce model moe"] == {"count": 2,
+                                         "bytes": 2.0 * (B // 16) * d * 2}
+    assert g["all-gather data moe"] == {
+        "count": 2 * 4, "bytes": 2 * 2.0 * (d * E + 3 * E * d * f // 16)}
+    assert "reduce-scatter data moe" not in g
     assert r["cost"]["flops"] > 0
 
 
@@ -182,11 +222,19 @@ def test_fedavg_dryrun_on_meta(tmp_path):
                       for leaf in jax.tree_util.tree_leaves(jparams))
     assert r["status"] == "ok" and r["pods"] == 2
     assert r["model_bytes"] == model_bytes
-    # the local steps are pod-independent (and a dense model performs no
-    # within-pod collective); the sync is one all-reduce of the fp32 mean
-    assert r["local_step"]["collectives"]["total"]["count"] == 0
+    # per place: the local steps' collectives are within-pod (FSDP, TP:
+    # nonzero for a dense model), none with a group spanning pod; the
+    # sync is one all-reduce over pod of a place's share of the fp32 mean
+    local = r["local_step"]["collectives"]
+    assert local["all-gather"]["count"] > 0
+    assert local["all-reduce"]["count"] > 0
+    assert r["local_step"]["pod_spanning"] == 0
+    mesh_shape = {"data": 16, "model": 16}
+    rules = JSH.make_axis_rules(SimpleNamespace(shape=mesh_shape))
+    p_specs = JS.model_param_pspecs(j_config("qwen3-0.6b"), jparams, rules)
     assert r["sync_step"]["collectives"]["all-reduce"] == {
-        "count": 1, "bytes": 2.0 * model_bytes}
+        "count": 1, "bytes": 2.0 * _j_place_bytes(jparams, p_specs,
+                                                  mesh_shape)}
     assert r["sync_step"]["collectives"]["total"]["count"] == 1
 
 

@@ -38,6 +38,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] >= 20 and res["bad"] == []
+    # the step analysis is among the modules imported
+    assert "repro_torch.launch.hlo_analysis" in _module_names()
 
 
 def test_no_port_source_imports_jax_or_the_reference():
