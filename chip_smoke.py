@@ -326,9 +326,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``fedavg_dryrun``, ``fleet_simulation``): the FedAdapt pod pair
    (``make_local_sync_steps``: the train step vmapped over 2 pods, then
    the FedAvg sync) at qwen3-0.6b's full width and depth from one start,
-   one 4096-token row a pod and step (every layer and CE chunk
-   rematerialised under ``torch.func``), AdamW, 2 local steps; each pod
-   against ``make_train_step`` on its rows alone
+   two 4096-token rows a pod and step (every layer and CE chunk
+   rematerialised under ``torch.func``), AdamW, 2 local steps, the first
+   under ``launch.steps.ParamCopyRecorder`` (no param copied per row);
+   each pod against ``make_train_step`` on its two rows alone
    (after one step every lane within 1e-5 of its leaf's max but for at
    most 1e-4 of the lanes, none of them beyond 2 lr: Adam's sign steps),
    the sync bit for bit
@@ -417,6 +418,7 @@ every comparison is in full fp32.  The full record goes to
 from __future__ import annotations
 
 import collections
+import contextlib
 import inspect
 import json
 import math
@@ -816,11 +818,14 @@ MOE_MESH_CASES = {
 # phase 5j, the launch drivers.  (a) The FedAdapt pod pair
 # (``launch.steps.make_local_sync_steps``) at qwen3-0.6b's full width and
 # depth: fp32 params from api.init(cfg, 0) on the card, the same start in
-# both pods, one row of POD_SEQ tokens a pod and local step (train_4k's
-# row length, its global batch of 256 cut to one row a pod), qwen3's AdamW
-# (make_opt: make_optimizer's default rate ADAMW_LR, clip 1.0),
-# POD_LOCAL_STEPS vmapped local steps, then the sync.  Each pod against
-# make_train_step on its rows alone: the loss within TRAIN_LOSS_REL, and
+# both pods, POD_ROWS rows of POD_SEQ tokens a pod and local step
+# (train_4k's row length, its global batch of 256 cut to two rows a pod),
+# qwen3's AdamW (make_opt: make_optimizer's default rate ADAMW_LR, clip
+# 1.0), POD_LOCAL_STEPS vmapped local steps, then the sync.  The first
+# local step runs under ``launch.steps.ParamCopyRecorder``: no param may be
+# copied per row (the CE once copied each pod's tied unembedding a row, 4
+# x 0.622 GB a chunk here).  Each pod against make_train_step on its
+# rows alone: the loss within TRAIN_LOSS_REL, and
 # after one step every lane within POD_STEP_REL of its leaf's max but for
 # at most POD_FLIP_SHARE of the tree's lanes, none beyond 2 * ADAMW_LR
 # more: Adam's first step is lr * sign(g) wherever |g| >> eps, so a
@@ -832,7 +837,7 @@ MOE_MESH_CASES = {
 # and CE chunk is rematerialised under ``torch.func`` (``layers._Remat``),
 # so a pod keeps its layers' inputs, not their intermediates: without
 # that, 4096 tokens a pod ran out of the card (PERF.md, phase 5j)
-POD_SEQ, POD_LOCAL_STEPS = 4096, 2
+POD_ROWS, POD_SEQ, POD_LOCAL_STEPS = 2, 4096, 2
 ADAMW_LR = 1e-4
 POD_STEP_REL, POD_FLIP_SHARE = 1e-5, 1e-4
 # (b) the step builders at qwen3-0.6b: B = 2 rows of a STEPS_PROMPT-token
@@ -5073,10 +5078,15 @@ def pod_pair_launches(cfg, local_steps):
             "flash_attention_bwd_dkdv": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
-def pod_pair_path(torch, dev, launches, reset_launches, card):
+def pod_pair_path(torch, dev, launches, reset_launches, card,
+                  strict=True):
     """Phase 5j (a): the FedAdapt pod pair at qwen3-0.6b's full width and
-    depth, each pod against the train step on its rows alone, the sync
-    bit for bit.  Returns the record and the initial params."""
+    depth, POD_ROWS rows a pod, no param copied per row in the first
+    local step, each pod against the train step on its rows alone, the
+    sync bit for bit.  ``strict=False`` records the per-row copies
+    instead of failing on them (``scripts/pod_rows.py`` runs another
+    tree's package through this phase).  Returns the record and the
+    initial params."""
     from repro_torch.configs.qwen3_0_6b import CONFIG as cfg
     from repro_torch.launch import steps as S
     from repro_torch.models import api
@@ -5087,23 +5097,37 @@ def pod_pair_path(torch, dev, launches, reset_launches, card):
     local_step, sync_step = S.make_local_sync_steps(cfg, opt, 2)
     train_step = S.make_train_step(cfg, opt)
     batch_of = lm_batches(torch, cfg, dev)
-    rows = [[batch_of(POD_SEQ, 2 * t + i) for i in range(2)]
+
+    def pod_rows(t, i):
+        rs = [batch_of(POD_SEQ, POD_ROWS * (2 * t + i) + r)
+              for r in range(POD_ROWS)]
+        return {k: torch.cat([r[k] for r in rs]) for k in rs[0]}
+    rows = [[pod_rows(t, i) for i in range(2)]
             for t in range(POD_LOCAL_STEPS)]
     pp = tree_map(lambda x: torch.stack([x, x]), params)
     oo = tree_map(lambda x: torch.stack([x, x]), opt.init(params))
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    after, losses, step_s = [], [], []
+    after, losses, step_s, step_peak = [], [], [], []
     for t in range(POD_LOCAL_STEPS):
         batch = {k: torch.stack([r[k] for r in rows[t]]) for k in rows[t][0]}
+        recorder = S.ParamCopyRecorder(pp) if t == 0 else None
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss, pp, oo = local_step(pp, oo, batch)
+        with recorder or contextlib.nullcontext():
+            loss, pp, oo = local_step(pp, oo, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        step_peak.append(torch.cuda.max_memory_allocated() / 2**30)
         after.append(pp)
         losses.append(loss.tolist())
-    peak = torch.cuda.max_memory_allocated() / 2**30
+        if recorder is not None:
+            copies = recorder.copies
+            del recorder
+            if copies and strict:
+                fail(f"pod pair: params copied per row in the first local "
+                     f"step: {copies}")
+    peak = max(step_peak)
     got = dict(launches)
     want = pod_pair_launches(cfg, POD_LOCAL_STEPS)
     if got != want:
@@ -5119,9 +5143,10 @@ def pod_pair_path(torch, dev, launches, reset_launches, card):
             fail("pod pair: the sync is not (p0 + p1) * 0.5 in both pods")
     parted = max(float((y[0] - y[1]).abs().max()) for y in tree_leaves(pp))
     del synced, pp
-    out = {"launches": got, "peak_memory_gib": peak, "local_step_s": step_s,
-           "sync_s": sync_s, "losses": losses, "pods_parted": parted,
-           "lone": []}
+    out = {"rows_a_pod": POD_ROWS, "seq": POD_SEQ, "launches": got,
+           "peak_memory_gib": peak, "step_peak_gib": step_peak,
+           "local_step_s": step_s, "sync_s": sync_s, "losses": losses,
+           "pods_parted": parted, "per_row_copies": copies, "lone": []}
     # each pod alone: the train step on its own rows, two steps
     for i in range(2):
         p, state = params, opt.init(params)
@@ -5154,12 +5179,15 @@ def pod_pair_path(torch, dev, launches, reset_launches, card):
                   f"(worst {worst_abs:.3g})", flush=True)
         del p, state
     del after
-    print(f"pod pair, qwen3-0.6b full width and depth, {POD_SEQ} tokens a "
-          f"pod ({card}): local steps {[round(t, 3) for t in step_s]} s, "
-          f"sync {sync_s:.3f} s, the step alone "
+    print(f"pod pair, qwen3-0.6b full width and depth, {POD_ROWS} rows of "
+          f"{POD_SEQ} tokens a pod ({card}): local steps "
+          f"{[round(t, 3) for t in step_s]} s (the first under the copy "
+          f"recorder: {len(copies)} per-row param copies), sync "
+          f"{sync_s:.3f} s, the step alone "
           f"{[round(r['step_s'], 3) for r in out['lone']]} s, peak "
-          f"{peak:.2f} GiB; the sync (p0 + p1) * 0.5 bit for bit; "
-          f"launches {got}", flush=True)
+          f"{peak:.2f} GiB (a step: {[round(p, 2) for p in step_peak]}); "
+          f"the sync (p0 + p1) * 0.5 bit for bit; launches {got}",
+          flush=True)
     return out, params
 
 

@@ -77,21 +77,31 @@ def fleet_step(program: SplitProgram, quantize: bool, params: Params,
                batches: Dict[str, torch.Tensor], lr: torch.Tensor, op: int,
                mask: Params = None) -> Params:
     """One OP-group chunk's round: every client starts from ``params``
-    (``mask * params`` under a width mask); each local iteration is one
-    vmap over the clients of the loss's gradient and the SGD step ``p - lr
-    * g`` (``p - lr * (mask * g)``, the unbatched mask broadcasting over
-    the clients).  ``batches`` leaves are ``(C, I, B, ...)``.  Returns the
-    stacked final params."""
+    (``mask * params`` under a width mask), copied once a client, then
+    ``client_iterations``.  ``batches`` leaves are ``(C, I, B, ...)``.
+    Returns the stacked final params."""
+    C = batches["labels"].shape[0]
+    if mask is not None:
+        params = tree_map(lambda v, m: m * v, params, mask)
+    start = tree_map(lambda v: v.detach().expand(C, *v.shape).clone(),
+                     params)
+    return client_iterations(program, quantize, start, batches, lr, op,
+                             mask)
+
+
+def client_iterations(program: SplitProgram, quantize: bool, p: Params,
+                      batches: Dict[str, torch.Tensor], lr: torch.Tensor,
+                      op: int, mask: Params = None) -> Params:
+    """The clients' local iterations from their stacked start ``p`` (every
+    leaf ``(C, ...)``): each one vmap over the clients of the loss's
+    gradient and the SGD step ``p - lr * g`` (``p - lr * (mask * g)``,
+    the unbatched mask broadcasting over the clients)."""
 
     def loss(p, batch):
         return program.loss_through_cut(p, batch, op, quantize=quantize)
 
     step = torch.func.vmap(torch.func.grad(loss))
-    C, iters = batches["labels"].shape[:2]
-    if mask is not None:
-        params = tree_map(lambda v, m: m * v, params, mask)
-    p = tree_map(lambda v: v.detach().expand(C, *v.shape).clone(), params)
-    for it in range(iters):
+    for it in range(batches["labels"].shape[1]):
         grads = step(p, {key: v[:, it] for key, v in batches.items()})
         if mask is None:
             p = tree_map(lambda q, g: q - lr * g, p, grads)

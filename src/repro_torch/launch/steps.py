@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import api
@@ -180,3 +181,49 @@ def stack_for_pods(shapes: Params, num_pods: int) -> Params:
 def pod_pspecs(specs: Params, num_pods: int) -> Params:
     return map_with_path(lambda _, s: ("pod",) + tuple(s), specs,
                          is_leaf=is_spec)
+
+
+# =============================================================================
+# the vmapped steps' audit: no param repeated per row
+# =============================================================================
+_COPIES = (torch.ops.aten.clone, torch.ops.aten.copy_,
+           torch.ops.aten._to_copy)
+
+
+def _storage_id(t: torch.Tensor) -> int:
+    """The storage a tensor views (its identity, so ``meta`` tensors,
+    whose storages have no address, are told apart too)."""
+    return t.untyped_storage()._cdata
+
+
+class ParamCopyRecorder(TorchDispatchMode):
+    """Records, inside the block, every copy of a param repeated per row:
+    a copying op (``clone``, ``copy_``, ``_to_copy``; a ``contiguous``
+    that copies reaches the dispatcher as a ``clone``) that reads a view
+    of one of ``params``' leaves' storage and returns more elements than
+    that leaf holds.  Under ``vmap`` of a step over pods or clients it is
+    a per-pod (per-client) leaf broadcast over the batch rows and
+    materialised, as matmul's broadcast path does with a batched 2-D
+    operand.  The rule is provenance (the storage), not shape: an
+    activation may have a param's shape.  ``params`` is the tree the
+    vmapped step takes (the pods' or the clients' stacked leaves).
+    ``copies`` lists ``(op, path, source shape, output shape)``."""
+
+    def __init__(self, params: Params):
+        super().__init__()
+        self._leaves = {_storage_id(t): (path, t.numel()) for path, t in
+                        path_leaves(params).items()
+                        if isinstance(t, torch.Tensor)}
+        self.copies: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in _COPIES:
+            src = args[1] if func.overloadpacket is torch.ops.aten.copy_ \
+                else args[0]
+            hit = (self._leaves.get(_storage_id(src))
+                   if isinstance(src, torch.Tensor) else None)
+            if hit is not None and out.numel() > hit[1]:
+                self.copies.append((str(func), hit[0], tuple(src.shape),
+                                    tuple(out.shape)))
+        return out

@@ -915,7 +915,17 @@ def remat_apply(fn, *args):
 
 def _chunk_loss(h: torch.Tensor, lab: torch.Tensor, unembed: torch.Tensor,
                 cap: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = (h @ unembed).float()                         # (B, c, V)
+    """One chunk's summed CE and its count of valid labels.  The chunk's
+    rows are flattened before the product, so ``h @ unembed`` is one
+    ``(B c, d) x (d, V)`` mm: under ``vmap`` with an unembedding of each
+    pod or client, one bmm.  A 3-D ``h`` that is a strided slice of the
+    sequence (S > chunk, B > 1) and an ``unembed`` that does not require
+    grad (``_Remat``'s forward, no recording) would take matmul's
+    broadcast path, which copies the batched unembedding once a row;
+    this copies the activation chunk alone.  Outside a transform it is
+    the fold plain autograd's matmul does itself, the same mm."""
+    B, c, d = h.shape
+    logits = (h.reshape(B * c, d) @ unembed).float().reshape(B, c, -1)
     if cap > 0.0:
         logits = softcap(logits, cap)
     lse = torch.logsumexp(logits, dim=-1)

@@ -64,6 +64,21 @@ class SplitProgram:
         seed (VGG also takes a ``torch.Generator``)."""
         raise NotImplementedError
 
+    def init_batched(self, generator, n: int, device=None) -> Params:
+        """``n`` parameter sets stacked along a leading client axis: the
+        ``(K, ...)`` layout the batched fleet engine trains
+        (``fl.fleet.client_iterations``).  Row ``i`` is bitwise
+        ``init(seeds[i], device)``, the ``n`` integer seeds drawn from
+        ``generator`` (an integer seed or a ``torch.Generator``); the
+        reference splits a threefry key, whose draws the port does not
+        reproduce."""
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        seeds = torch.randint(0, 2 ** 31 - 1, (n,),
+                              generator=generator).tolist()
+        inits = [self.init(s, device) for s in seeds]
+        return tree_map(lambda *xs: torch.stack(xs), *inits)
+
     def client_forward(self, params: Params, batch: Dict, op: int):
         raise NotImplementedError
 
@@ -233,6 +248,10 @@ class VGGSplitProgram(SplitProgram):
 
     def op_candidates(self) -> List[int]:
         return list(self.cfg.ops)
+
+    def width_dims(self) -> frozenset:
+        # unused: VGG masks are channel-aware (see width_mask below)
+        return frozenset()
 
     def width_mask(self, params, width: float) -> Params:
         """Channel-aware HeteroFL mask: every conv and hidden FC keeps its

@@ -16,6 +16,9 @@ forms too; the sharded MoE's collectives are one place's body's.  The MoE
 decode cell is cut to two of mixtral's 56 layers (``opt_flags``); under
 the analysis the expert-parallel body runs for one place.
 
+The fedavg dry run's local step (qwen3 train_4k, 128 rows a pod) is held
+to copy no param per row (``launch.steps.ParamCopyRecorder``).
+
 The twins: ``fleet_simulation`` at K = 4 for 1 round, its two engines'
 metric within the plain fp32 bound the federated LM tests hold
 (``torch_fl_cases.PLAIN_METRIC_REL``); ``bandwidth_adaptation``
@@ -53,6 +56,8 @@ from repro_torch.convert import agent_params_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.launch import bandwidth_adaptation, dryrun, fedavg_dryrun
 from repro_torch.launch import fleet_simulation
+from repro_torch.launch import hlo_analysis as H
+from repro_torch.launch import steps as S
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -211,10 +216,23 @@ def test_dryrun_cli_writes_its_json(tmp_path):
                  "--out", str(tmp_path)])
 
 
-def test_fedavg_dryrun_on_meta(tmp_path):
+def test_fedavg_dryrun_on_meta(tmp_path, monkeypatch):
+    # each analysed step runs under the per-row copy recorder, watching
+    # the pods' stacked params: at train_4k's 128 rows a pod, a copy of
+    # qwen3's tied unembedding a row would be 128 x 0.622 GB a CE chunk
+    copies = []
+    analyse = H.analyse
+
+    def recorded(step, args, *rest, **kw):
+        with S.ParamCopyRecorder(args[0]) as rec:
+            out = analyse(step, args, *rest, **kw)
+        copies.append(rec.copies)
+        return out
+    monkeypatch.setattr(H, "analyse", recorded)
     before = dict(LAUNCHES)
     r = fedavg_dryrun.main(["--arch", "qwen3-0.6b", "--out", str(tmp_path)])
     assert dict(LAUNCHES) == before
+    assert copies == [[], []]
     assert json.loads((tmp_path / "qwen3-0.6b__train_4k__fedavg_sync.json")
                       .read_text()) == r
     jparams = JS.abstract_params(j_config("qwen3-0.6b"), jnp.bfloat16)

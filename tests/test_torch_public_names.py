@@ -5,7 +5,12 @@ reference on the CPU: ``Workload.total_train_flops`` and
 tests' loss bound, rtol 1e-5: the convolutions sum in another order);
 ``ClientLoader.__iter__`` (the same batches, byte for byte);
 ``FleetLoader.loaders`` and ``FleetLoader.materialized`` (the streams
-built on first draw, counted as the reference counts them)."""
+built on first draw, counted as the reference counts them);
+``SplitProgram.width_dims`` of every family (VGG's empty set included)
+equal to the reference's; ``SplitProgram.init_batched``, each row bit for
+bit ``init`` from the seed drawn for it (the reference splits a threefry
+key, which the port does not reproduce, so the rows are held to the
+port's own ``init``)."""
 import itertools
 
 import jax
@@ -27,6 +32,7 @@ from repro_torch.core import costmodel as tcm
 from repro_torch.data.loader import ClientLoader, FleetLoader
 from repro_torch.models import vgg as tvgg
 from repro_torch.models.split_program import get_split_program
+from repro_torch.tree import tree_leaves
 
 LOSS_RTOL = 1e-5
 
@@ -98,3 +104,43 @@ def test_fleet_loader_loaders_and_materialized():
     for a, b in zip(tl, jl):
         x, y = a.next_batch(), b.next_batch()
         assert all(np.array_equal(x[key], y[key]) for key in x)
+
+
+# one config a split program: VGG, dense, MoE, VLM, SSM, hybrid, encdec
+PROGRAMS = ("vgg5", "qwen3-0.6b", "mixtral-8x22b", "internvl2-2b",
+            "mamba2-780m", "recurrentgemma-9b", "whisper-base")
+
+
+def _configs(name):
+    if name == "vgg5":
+        return J_VGG5, VGG5
+    return JR.get_smoke_config(name), TR.get_smoke_config(name)
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_width_dims_match_reference(name):
+    jcfg, tcfg = _configs(name)
+    j, t = j_program(jcfg), get_split_program(tcfg)
+    assert type(t).__name__ == type(j).__name__
+    assert t.width_dims() == j.width_dims()
+    assert isinstance(t.width_dims(), frozenset)
+
+
+@pytest.mark.parametrize("name", ["vgg5", "qwen3-0.6b", "mamba2-780m"])
+def test_init_batched_rows_are_init(name):
+    program = get_split_program(_configs(name)[1])
+    stacked = program.init_batched(7, 3, device="cpu")
+    # the seeds come from the generator: an integer seed and a generator
+    # seeded alike draw the same rows
+    again = program.init_batched(torch.Generator().manual_seed(7), 3,
+                                 device="cpu")
+    seeds = torch.randint(0, 2 ** 31 - 1, (3,),
+                          generator=torch.Generator().manual_seed(7))
+    rows = [program.init(int(s), device="cpu") for s in seeds]
+    for i, row in enumerate(rows):
+        for x, y, z in zip(tree_leaves(stacked), tree_leaves(again),
+                           tree_leaves(row)):
+            assert x.shape == (3,) + tuple(z.shape)
+            assert torch.equal(x[i], z) and torch.equal(y[i], z)
+    # distinct seeds, distinct rows
+    assert not all(torch.equal(x[0], x[1]) for x in tree_leaves(stacked))

@@ -259,11 +259,14 @@ def check_sync_plain(arch):
     print(f"{arch} plain: metric {metric:.3g} relative, params {gap:.3g}")
 
 
-def check_engines_bitwise(arch):
+def check_engines_bitwise(arch, seq=None, cut=None, **over):
     """check_sync_plain's port run (sync sfl plain, K = 2, the sequential
     engine: ``torch.autograd.grad``) against the same set-up on the
     batched engine (``vmap`` of ``torch.func.grad``) from the same data:
-    the history and the final params bit for bit.  whisper-base (encdec)
+    the history and the final params bit for bit.  ``seq`` gives the
+    clients plain token rows of that length (``fleet``), ``cut`` maps
+    both packages' configs to smaller ones (fewer layers), ``over`` sets
+    other FLConfig fields (``rounds``, ``local_iters``).  whisper-base (encdec)
     alone parts, by its remat: under plain autograd ``layers.remat`` is
     ``torch.utils.checkpoint``, under ``torch.func`` ``_Remat``, which sums
     the encoder output's gradient one decoder layer at a time.  Its
@@ -274,8 +277,10 @@ def check_engines_bitwise(arch):
     from repro_torch.models import layers as Lyr
     from torch_lm_cases import configs
     jcfg, tcfg = configs(arch)
-    data = fleet(tcfg, 2)
-    kw = dict(mode="sfl", static_op=sfl_op(tcfg))
+    if cut is not None:
+        jcfg, tcfg = cut(jcfg), cut(tcfg)
+    data = fleet(tcfg, 2, seq=seq)
+    kw = dict(mode="sfl", static_op=sfl_op(tcfg), **over)
 
     def run(engine):
         return run_port(jcfg, tcfg, dict(kw, engine=engine), data)
@@ -290,7 +295,8 @@ def check_engines_bitwise(arch):
         return all(torch.equal(x, y) for x, y in
                    zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
     batched = run("batched")
-    sequential = PLAIN_RUNS.get(arch) or run("sequential")
+    sequential = (None if seq or cut or over else PLAIN_RUNS.get(arch)) \
+        or run("sequential")
     same_history(batched, sequential, arch)
     if tcfg.family != "encdec":
         assert bitwise(batched, sequential), f"{arch}: params differ"
